@@ -1,0 +1,32 @@
+"""3D cost aggregation (port of dcanet_tpu/nn/aggregation.py, plain branch).
+
+MultiAggregation: the CVA's shallow one-level 3D hourglass (reference
+models/augment/cva.py:13-31). Volumes are (B, C, D, H, W).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from dcanet_tpu_torch.nn.layers import ConvBN, ConvBNAct, batch_norm, torch_conv_transpose3d
+
+
+class MultiAggregation(nn.Module):
+    """conv(s2) -> conv -> deconv(2x)+BN, residual 1x1x1 redir, relu, then the
+    optional `post_residual` (the model-level `cost0 + agg`)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        c = channels
+        self.conv1 = ConvBNAct(c, 2 * c, 3, 2, 1, dims=3)
+        self.conv2 = ConvBNAct(2 * c, 2 * c, 3, 1, 1, dims=3)
+        self.conv3 = nn.Sequential(torch_conv_transpose3d(2 * c, c), batch_norm(c, 3))
+        self.redir = ConvBN(c, c, 1, 1, 0, dims=3)
+
+    def forward(self, x: torch.Tensor, post_residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = self.conv3(self.conv2(self.conv1(x)))
+        out = torch.relu(y + self.redir(x))
+        return out if post_residual is None else out + post_residual

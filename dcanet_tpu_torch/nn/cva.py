@@ -1,0 +1,61 @@
+"""The CVA block (the paper's DCA module) and SemanticLevelContext.
+
+Port of dcanet_tpu/nn/cva.py, non-packed branch:
+  - SemanticLevelContext (reference models/augment/semantic_level.py:15-128):
+    dense `slc_pool`, then cross-attention with query = cost volume and
+    key/value = pooled context + cost volume.
+  - CVA (reference models/augment/cva.py:33-71): AvgPool3d(3, s2, p1) +
+    convbn + relu downsample, a 3D-conv classify head giving 1-channel
+    disparity-class logits, SLC injection, trilinear 2x upsample, 1x1x1 `fuse`
+    of concat(augmented, input), and MultiAggregation.
+
+Cost volumes are (B, C, D, H, W); classification logits (B, D, H, W).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from dcanet_tpu_torch.nn.aggregation import MultiAggregation
+from dcanet_tpu_torch.nn.attention import DisparityAttentionBlock
+from dcanet_tpu_torch.nn.layers import ConvBN, avg_pool3d_torch
+from dcanet_tpu_torch.ops.slc import slc_pool
+from dcanet_tpu_torch.ops.upsample import resize_trilinear
+
+
+class SemanticLevelContext(nn.Module):
+    def __init__(self, feats_channels: int = 32, transform_channels: int = 32):
+        super().__init__()
+        self.cross_attention = DisparityAttentionBlock(feats_channels, transform_channels, feats_channels)
+
+    def forward(self, x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+        """x: (B, C, D, H, W) cost volume; logits: (B, D, H, W) class logits."""
+        return self.cross_attention(x, slc_pool(x, logits) + x)
+
+
+class CVA(nn.Module):
+    def __init__(self, channels: int = 32):
+        super().__init__()
+        c = channels
+        self.downsample = nn.Sequential(avg_pool3d_torch(), ConvBN(c, c, 3, 1, 1, dims=3), nn.ReLU(inplace=True))
+        self.classify = nn.Sequential(
+            ConvBN(c, c, 3, 1, 1, dims=3), nn.ReLU(inplace=True),
+            nn.Conv3d(c, 1, 3, 1, 1, bias=False),
+        )
+        self.slc_net = SemanticLevelContext(c, c)
+        self.fuse = nn.Sequential(ConvBN(2 * c, c, 1, 1, 0, dims=3))
+        self.cost_agg = MultiAggregation(c)
+
+    def forward(
+        self, cost_volume: torch.Tensor, post_residual: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (class_logits (B, D/2, H/2, W/2), aggregated cost
+        (B, C, D, H, W)); D, H and W must be even."""
+        cost_down = self.downsample(cost_volume)
+        logits = self.classify(cost_down)[:, 0]
+        augmented = resize_trilinear(self.slc_net(cost_down, logits), 2)
+        fused = self.fuse(torch.cat([augmented.to(cost_volume.dtype), cost_volume], dim=1))
+        return logits, self.cost_agg(fused, post_residual)

@@ -1,0 +1,145 @@
+"""Shared building blocks, eval semantics (port of dcanet_tpu/nn/layers.py).
+
+Layouts are NCHW / NCDHW. Each block is laid out so that its state_dict keys
+are the reference's (models/submodule.py):
+
+  ConvBN     = Sequential(Conv{2,3}d(bias=False), BatchNorm{2,3}d)  -> .0 / .1
+  ConvBNAct  = Sequential(ConvBN, ReLU)                             -> .0.0 / .0.1
+
+BatchNorm uses eps 1e-5 and torch momentum 0.1 (flax decay 0.9). The JAX
+package's TPU layout paths (folded-BN `epilogue=`, `fold_params`,
+`packed_out`, kd-fold, packed dialect, subpixel deconv) are not ported; its
+`residual=` is a plain add in the callers.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def batch_norm(features: int, dims: int) -> nn.Module:
+    """BatchNorm{2,3}d with the reference's defaults (eps 1e-5, momentum 0.1)."""
+    cls = nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d
+    return cls(features, eps=1e-5, momentum=0.1)
+
+
+def _conv(dims: int):
+    return nn.Conv2d if dims == 2 else nn.Conv3d
+
+
+@torch.no_grad()
+def reference_conv_init_(weight: torch.Tensor, generator: torch.Generator, transposed: bool = False) -> torch.Tensor:
+    """normal(0, sqrt(2/n)) in place, n = prod(kernel spatial) * out_channels
+    (the reference's init loop and kaiming_normal(fan_out, relu)). Conv
+    weights are (O, I, *k); transposed-conv weights are (I, O, *k)."""
+    out_channels = weight.shape[1] if transposed else weight.shape[0]
+    fan_out = math.prod(weight.shape[2:]) * out_channels
+    return weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+@torch.no_grad()
+def reference_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise a whole module as the JAX package does: reference_conv_init
+    for every conv kernel, zero conv biases, identity BatchNorm (weight 1,
+    bias 0, running mean 0, running var 1)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            reference_conv_init_(m.weight, generator, transposed=isinstance(m, nn.ConvTranspose3d))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+            m.reset_parameters()
+    return module
+
+
+class ConvBN(nn.Sequential):
+    """Conv (no bias) + BatchNorm, 2D or 3D (reference convbn / convbn_3d)."""
+
+    def __init__(self, in_channels, features, kernel, stride=1, padding=0, dilation=1, dims=2):
+        super().__init__(
+            _conv(dims)(in_channels, features, kernel, stride, padding, dilation, bias=False),
+            batch_norm(features, dims),
+        )
+
+
+class ConvBNAct(nn.Sequential):
+    """ConvBN + ReLU."""
+
+    def __init__(self, in_channels, features, kernel, stride=1, padding=0, dilation=1, dims=2):
+        super().__init__(
+            ConvBN(in_channels, features, kernel, stride, padding, dilation, dims),
+            nn.ReLU(inplace=True),
+        )
+
+
+class BasicBlock(nn.Module):
+    """Feature-extractor residual block (reference models/submodule.py:251-273):
+    convbn+relu, convbn, optional 1x1 conv+BN downsample, residual add with no
+    trailing relu. A dilated block pads by its dilation."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1, dilation: int = 1, padding: int = 1):
+        super().__init__()
+        pad = dilation if dilation > 1 else padding
+        self.conv1 = ConvBNAct(in_planes, planes, 3, stride, pad, dilation)
+        self.conv2 = ConvBN(planes, planes, 3, 1, pad, dilation)
+        self.downsample = None
+        if stride != 1 or in_planes != planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, planes, 1, stride, bias=False), batch_norm(planes, 2)
+            )
+
+    def forward(self, x):
+        out = self.conv2(self.conv1(x))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return out + x
+
+
+class BasicConv(nn.Module):
+    """Conv(no bias) + BN + ReLU (reference BasicConv, models/submodule.py:276-302)."""
+
+    def __init__(self, in_channels, features, kernel=3, stride=1, padding=1, dims=2):
+        super().__init__()
+        self.conv = _conv(dims)(in_channels, features, kernel, stride, padding, bias=False)
+        self.bn = batch_norm(features, dims)
+
+    def forward(self, x):
+        return torch.relu(self.bn(self.conv(x)))
+
+
+class ResidualBlock(nn.Module):
+    """Guidance-net residual block, norm_fn='batch' (reference
+    models/submodule.py:305-354): conv+BN+relu twice (biased convs), a 1x1
+    conv+BN downsample when strided, relu(x + y)."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1)
+        self.norm1 = batch_norm(planes, 2)
+        self.norm2 = batch_norm(planes, 2)
+        self.downsample = None
+        if stride != 1:
+            self.downsample = nn.Sequential(nn.Conv2d(in_planes, planes, 1, stride), batch_norm(planes, 2))
+
+    def forward(self, x):
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return torch.relu(x + y)
+
+
+def torch_conv_transpose3d(in_channels: int, features: int) -> nn.ConvTranspose3d:
+    """Exact 2x upsampling transposed conv (kernel 3, stride 2, padding 1,
+    output_padding 1): the JAX package's TorchConvTranspose."""
+    return nn.ConvTranspose3d(in_channels, features, 3, 2, 1, output_padding=1, bias=False)
+
+
+def avg_pool3d_torch() -> nn.AvgPool3d:
+    """AvgPool3d(3, stride 2, padding 1), count_include_pad=True: the JAX
+    package's AvgPool3dTorch."""
+    return nn.AvgPool3d(3, 2, 1, count_include_pad=True)

@@ -1,0 +1,55 @@
+"""Cost-volume construction ops (plain PyTorch).
+
+Port of dcanet_tpu/ops/cost_volume.py in PyTorch's channel-first layouts:
+
+    features:     (B, C, H, W)
+    cost volume:  (B, C_out, D, H, W)   — NCDHW, D is the disparity axis.
+
+Semantics (the reference's build_gwc_volume / build_concat_volume):
+    gwc[b, g, d, h, w]     = mean_{c in group g} L[b,c,h,w] * R[b,c,h,w-d]
+    concat[b, :C, d, h, w] = L[b,:,h,w],  concat[b, C:, d, h, w] = R[b,:,h,w-d]
+    with zeros for the occluded left margin w < d, and all-zero planes d >= W.
+
+`build_gwc_volume` is the plain version of the CUDA kernel in
+`dcanet_tpu_torch/kernels/gwc.py`, which the model calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def groupwise_correlation(fea1: torch.Tensor, fea2: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Per-group mean of the elementwise product: (B, C, ...) -> (B, G, ...)."""
+    b, c = fea1.shape[:2]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    prod = (fea1 * fea2).reshape(b, num_groups, c // num_groups, *fea1.shape[2:])
+    return prod.mean(dim=2)
+
+
+def build_gwc_volume(
+    left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
+) -> torch.Tensor:
+    """Grouped-correlation cost volume, (B, C, H, W) x2 -> (B, G, D, H, W).
+
+    Computes in float32 and returns the input dtype, as the CUDA kernel does.
+    """
+    b, c, h, w = left.shape
+    lf, rf = left.float(), right.float()
+    out = torch.zeros((b, num_groups, maxdisp, h, w), dtype=torch.float32, device=left.device)
+    for d in range(min(maxdisp, w)):
+        out[:, :, d, :, d:] = groupwise_correlation(lf[..., d:], rf[..., : w - d], num_groups)
+    return out.to(left.dtype)
+
+
+def build_concat_volume(left: torch.Tensor, right: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """Concatenation cost volume, (B, C, H, W) x2 -> (B, 2C, D, H, W): channel
+    block [:C] holds the zero-margined left feature, [C:] the d-shifted right
+    feature."""
+    b, c, h, w = left.shape
+    out = left.new_zeros((b, 2 * c, maxdisp, h, w))
+    for d in range(min(maxdisp, w)):
+        out[:, :c, d, :, d:] = left[..., d:]
+        out[:, c:, d, :, d:] = right[..., : w - d]
+    return out

@@ -1,0 +1,53 @@
+"""Trilinear resizing and convex (RAFT-style) upsampling.
+
+Port of dcanet_tpu/ops/upsample.py. Resizes use half-pixel-center sampling
+(`align_corners=False`), which is what jax.image.resize does when it
+upsamples. Layouts are channel-first: volumes (B, D, H, W) or
+(B, C, D, H, W); convex-upsample masks (B, 9*s*s, H, W).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def resize_trilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Trilinear upsampling of the (D, H, W) axes by `scale`.
+
+    x: (B, D, H, W) or (B, C, D, H, W).
+    """
+    if x.dim() == 4:
+        return resize_trilinear(x[:, None], scale)[:, 0]
+    if x.dim() != 5:
+        raise ValueError(f"expected rank 4/5, got {tuple(x.shape)}")
+    size = tuple(s * scale for s in x.shape[2:])
+    return F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+
+
+def unfold3x3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 zero-padded neighbourhood gather: (B, H, W) -> (B, 9, H, W) with
+    neighbour index k = (dy+1)*3 + (dx+1), F.unfold's channel order."""
+    b, h, w = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+    return torch.stack(
+        [xp[:, dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)], dim=1
+    )
+
+
+def convex_upsample(disp: torch.Tensor, mask_logits: torch.Tensor, scale: int) -> torch.Tensor:
+    """Convex-combination upsampling of a coarse disparity map.
+
+    disp:        (B, H, W) at 1/scale resolution, in coarse-pixel units
+                 (multiplied by `scale` here, as in the reference).
+    mask_logits: (B, 9*scale**2, H, W), channel c = k*scale**2 + i*scale + j
+                 with k the 3x3 neighbour index and (i, j) the subpixel.
+    Returns (B, H*scale, W*scale); output pixel (h*s+i, w*s+j).
+    """
+    b, h, w = disp.shape
+    if mask_logits.shape != (b, 9 * scale * scale, h, w):
+        raise ValueError(f"mask {tuple(mask_logits.shape)} does not fit disparity {tuple(disp.shape)}")
+    mask = mask_logits.view(b, 9, scale, scale, h, w).softmax(dim=1)
+    neighbors = unfold3x3(scale * disp).view(b, 9, 1, 1, h, w)
+    up = (mask * neighbors).sum(dim=1)  # (B, s_i, s_j, H, W)
+    return up.permute(0, 3, 1, 4, 2).reshape(b, h * scale, w * scale)

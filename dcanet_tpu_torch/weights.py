@@ -1,0 +1,268 @@
+"""Weight bridge: flax variables of dcanet_tpu's DCANet <-> the port's state_dict.
+
+The port's own copy of the key table between the reference's state_dict
+keys (the port's module names) and the JAX package's flax paths, with the
+layout transforms:
+
+  conv2d    torch OIHW          <-> flax HWIO
+  conv3d    torch OIDHW         <-> flax DHWIO
+  deconv3d  torch ConvTranspose3d IODHW <-> flax DHW(I,O), spatially flipped
+            (the JAX package runs it as an lhs-dilated correlation)
+  bias      copied as is
+  bn        weight/bias <-> params scale/bias,
+            running_mean/running_var <-> batch_stats mean/var
+
+Flat flax variables are keyed by '/'-joined paths that start with the
+collection, e.g. `params/cva1/fuse/Conv_0/kernel` or
+`batch_stats/guidance/BatchNorm_0/BatchNorm_0/mean`
+(flax.traverse_util.flatten_dict(variables, sep="/")).
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+from typing import Dict, List, Mapping, Tuple, Union
+
+import numpy as np
+import torch
+
+Entry = Tuple[str, str, str]  # (torch key or prefix, flax path, kind)
+
+
+def _t(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def _f(prefix: str, name: str) -> str:
+    return f"{prefix}/{name}" if prefix else name
+
+
+def convbn_table(tp: str, fp: str, dims: int) -> List[Entry]:
+    """torch Sequential(conv, bn) <-> flax ConvBN scope."""
+    kind = "conv3d" if dims == 3 else "conv2d"
+    return [
+        (_t(tp, "0.weight"), _f(fp, "Conv_0/kernel"), kind),
+        (_t(tp, "1"), _f(fp, "BatchNorm_0/BatchNorm_0"), "bn"),
+    ]
+
+
+def basic_block_table(tp: str, fp: str, downsample: bool) -> List[Entry]:
+    out = convbn_table(_t(tp, "conv1.0"), _f(fp, "ConvBNAct_0/ConvBN_0"), 2)
+    out += convbn_table(_t(tp, "conv2"), _f(fp, "ConvBN_0"), 2)
+    if downsample:
+        out += [
+            (_t(tp, "downsample.0.weight"), _f(fp, "Conv_0/kernel"), "conv2d"),
+            (_t(tp, "downsample.1"), _f(fp, "BatchNorm_0/BatchNorm_0"), "bn"),
+        ]
+    return out
+
+
+def feature_extraction_table(tp: str, fp: str) -> List[Entry]:
+    out = []
+    for i, seq in enumerate((0, 2, 4)):
+        out += convbn_table(_t(tp, f"firstconv.{seq}"), _f(fp, f"ConvBNAct_{i}/ConvBN_0"), 2)
+    blk = 0
+    for layer, (n, ch_change) in enumerate(zip((3, 16, 3, 3), (False, True, True, False)), start=1):
+        for j in range(n):
+            out += basic_block_table(
+                _t(tp, f"layer{layer}.{j}"), _f(fp, f"BasicBlock_{blk}"), downsample=j == 0 and ch_change
+            )
+            blk += 1
+    out += convbn_table(_t(tp, "lastconv.0"), _f(fp, "ConvBNAct_3/ConvBN_0"), 2)
+    out.append((_t(tp, "lastconv.2.weight"), _f(fp, "Conv_0/kernel"), "conv2d"))
+    return out
+
+
+def residual_block_table(tp: str, fp: str, downsample: bool) -> List[Entry]:
+    out = []
+    for i in (1, 2):
+        out += [
+            (_t(tp, f"conv{i}.weight"), _f(fp, f"Conv_{i - 1}/kernel"), "conv2d"),
+            (_t(tp, f"conv{i}.bias"), _f(fp, f"Conv_{i - 1}/bias"), "bias"),
+            (_t(tp, f"norm{i}"), _f(fp, f"BatchNorm_{i - 1}/BatchNorm_0"), "bn"),
+        ]
+    if downsample:
+        out += [
+            (_t(tp, "downsample.0.weight"), _f(fp, "Conv_2/kernel"), "conv2d"),
+            (_t(tp, "downsample.0.bias"), _f(fp, "Conv_2/bias"), "bias"),
+            (_t(tp, "downsample.1"), _f(fp, "BatchNorm_2/BatchNorm_0"), "bn"),
+        ]
+    return out
+
+
+def guidance_table(tp: str, fp: str) -> List[Entry]:
+    out = [
+        (_t(tp, "conv_start.0.weight"), _f(fp, "Conv_0/kernel"), "conv2d"),
+        (_t(tp, "conv_start.0.bias"), _f(fp, "Conv_0/bias"), "bias"),
+        (_t(tp, "norm1"), _f(fp, "BatchNorm_0/BatchNorm_0"), "bn"),
+    ]
+    for i, (name, down) in enumerate((("layer1.0", False), ("layer1.1", False), ("layer2.0", True), ("layer2.1", False))):
+        out += residual_block_table(_t(tp, name), _f(fp, f"ResidualBlock_{i}"), down)
+    for i in range(2):
+        out += [
+            (_t(tp, f"conv_g0.{i}.conv.weight"), _f(fp, f"BasicConv_{i}/Conv_0/kernel"), "conv2d"),
+            (_t(tp, f"conv_g0.{i}.bn"), _f(fp, f"BasicConv_{i}/BatchNorm_0/BatchNorm_0"), "bn"),
+        ]
+    out.append((_t(tp, "guidance.weight"), _f(fp, "Conv_1/kernel"), "conv2d"))
+    return out
+
+
+def propagation_table(tp: str, fp: str) -> List[Entry]:
+    out = convbn_table(_t(tp, "conv.0"), _f(fp, "ConvBNAct_0/ConvBN_0"), 2)
+    out.append((_t(tp, "conv.2.weight"), _f(fp, "Conv_0/kernel"), "conv2d"))
+    return out
+
+
+def projection_table(tp: str, fp: str, num_convs: int) -> List[Entry]:
+    out = []
+    for i in range(num_convs):
+        p = _t(tp, str(i)) if num_convs > 1 else tp
+        out += [
+            (_t(p, "0.weight"), _f(fp, f"Conv_{i}/kernel"), "conv3d"),
+            (_t(p, "1"), _f(fp, f"BatchNorm_{i}/BatchNorm_0"), "bn"),
+        ]
+    return out
+
+
+def attention_table(tp: str, fp: str) -> List[Entry]:
+    out = []
+    for name, n in (("query_project", 2), ("key_project", 2), ("value_project", 1), ("out_project", 1)):
+        out += projection_table(_t(tp, name), _f(fp, name), n)
+    return out
+
+
+def multi_aggregation_table(tp: str, fp: str) -> List[Entry]:
+    out = convbn_table(_t(tp, "conv1.0"), _f(fp, "conv1/ConvBN_0"), 3)
+    out += convbn_table(_t(tp, "conv2.0"), _f(fp, "conv2/ConvBN_0"), 3)
+    out += [
+        (_t(tp, "conv3.0.weight"), _f(fp, "conv3/kernel"), "deconv3d"),
+        (_t(tp, "conv3.1"), _f(fp, "conv3_bn/BatchNorm_0"), "bn"),
+    ]
+    out += convbn_table(_t(tp, "redir"), _f(fp, "redir"), 3)
+    return out
+
+
+def cva_table(tp: str, fp: str) -> List[Entry]:
+    out = convbn_table(_t(tp, "downsample.1"), _f(fp, "down_conv/ConvBN_0"), 3)
+    out += convbn_table(_t(tp, "classify.0"), _f(fp, "classify0/ConvBN_0"), 3)
+    out.append((_t(tp, "classify.2.weight"), _f(fp, "classify1/kernel"), "conv3d"))
+    out += attention_table(_t(tp, "slc_net.cross_attention"), _f(fp, "slc/cross_attention"))
+    out += convbn_table(_t(tp, "fuse.0"), _f(fp, "fuse"), 3)
+    out += multi_aggregation_table(_t(tp, "cost_agg"), _f(fp, "cost_agg"))
+    return out
+
+
+def classifier_table(tp: str, fp: str) -> List[Entry]:
+    out = convbn_table(_t(tp, "0"), _f(fp, "ConvBNAct_0/ConvBN_0"), 3)
+    out.append((_t(tp, "2.weight"), _f(fp, "Conv_0/kernel"), "conv3d"))
+    return out
+
+
+def dcanet_table(num_cva: int = 3) -> List[Entry]:
+    """The whole DCANet(num_cva) with its concat volume."""
+    out = feature_extraction_table("feature_extraction", "feature_extraction")
+    out += guidance_table("guidance", "guidance")
+    out += convbn_table("dres0.0", "ConvBNAct_0/ConvBN_0", 3)
+    out += convbn_table("dres0.2", "ConvBNAct_1/ConvBN_0", 3)
+    out += convbn_table("dres1.0", "ConvBNAct_2/ConvBN_0", 3)
+    out += convbn_table("dres1.2", "ConvBN_0", 3)
+    for i in range(1, num_cva + 1):
+        out += cva_table(f"cva{i}", f"cva{i}")
+    for i in range(num_cva + 1):
+        out += classifier_table(f"classif{i}", f"classif{i}")
+    out += propagation_table("prop", "prop")
+    return out
+
+
+# flax -> torch layouts, and their inverses
+_TO_TORCH = {
+    "conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
+    "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),
+    "deconv3d": lambda w: np.transpose(w, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1],
+    "bias": lambda w: w,
+}
+_TO_FLAX = {
+    "conv2d": lambda w: np.transpose(w, (2, 3, 1, 0)),
+    "conv3d": lambda w: np.transpose(w, (2, 3, 4, 1, 0)),
+    "deconv3d": lambda w: np.transpose(w[:, :, ::-1, ::-1, ::-1], (2, 3, 4, 0, 1)),
+    "bias": lambda w: w,
+}
+_BN = (("weight", "params", "scale"), ("bias", "params", "bias"),
+       ("running_mean", "batch_stats", "mean"), ("running_var", "batch_stats", "var"))
+
+
+def _pairs(table: List[Entry]):
+    """(torch key, flax key, kind) per tensor, BN entries expanded."""
+    for tkey, fpath, kind in table:
+        if kind == "bn":
+            for tname, coll, fname in _BN:
+                yield f"{tkey}.{tname}", f"{coll}/{fpath}/{fname}", "bias"
+        else:
+            yield tkey, f"params/{fpath}", kind
+
+
+def state_dict_from_flax(flat: Mapping[str, np.ndarray], table: List[Entry]) -> Dict[str, torch.Tensor]:
+    """Convert flat flax variables by `table`. Raises KeyError if a path of the
+    table is missing, ValueError if a flax parameter or statistic is left over."""
+    sd, used = {}, set()
+    for tkey, fkey, kind in _pairs(table):
+        if fkey not in flat:
+            raise KeyError(f"missing flax variable {fkey} (for {tkey})")
+        arr = np.asarray(flat[fkey], dtype=np.float32)
+        sd[tkey] = torch.from_numpy(np.ascontiguousarray(_TO_TORCH[kind](arr)))
+        used.add(fkey)
+    left = sorted(set(flat) - used)
+    if left:
+        raise ValueError(f"{len(left)} flax variables have no port counterpart, e.g. {left[:5]}")
+    return sd
+
+
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor], table: List[Entry]) -> Dict[str, np.ndarray]:
+    """Inverse of `state_dict_from_flax` (num_batches_tracked is dropped)."""
+    out = {}
+    for tkey, fkey, kind in _pairs(table):
+        arr = sd[tkey].detach().cpu().float().numpy()
+        out[fkey] = np.ascontiguousarray(_TO_FLAX[kind](arr))
+    return out
+
+
+def from_jax_variables(flat: Mapping[str, np.ndarray], num_cva: int = 3) -> Dict[str, torch.Tensor]:
+    """Flat flax variables of dcanet_tpu's DCANet(num_cva) -> a state_dict that
+    the port's DCANet(num_cva) loads with strict=True. The flax model must own
+    classif0..classif{num_cva} (an init with train=True does)."""
+    return state_dict_from_flax(flat, dcanet_table(num_cva))
+
+
+def to_jax_variables(sd: Mapping[str, torch.Tensor], num_cva: int = 3) -> Dict[str, np.ndarray]:
+    """The port's DCANet(num_cva) state_dict -> flat flax variables."""
+    return flax_from_state_dict(sd, dcanet_table(num_cva))
+
+
+# The reference's stride-2 ResidualBlock registers its downsample BN twice,
+# as `norm3` and as `downsample.1`; the port keeps the second name only.
+_ALIAS = re.compile(r"^(.*)\.norm3\.(.*)$")
+
+
+def load_reference_checkpoint(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """A reference torch checkpoint (`torch.save` dict with a `state_dict`,
+    keys prefixed `module.`) -> a state_dict for the port's DCANet: the
+    prefix stripped, `num_batches_tracked` and the `norm3` aliases dropped."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    sd = payload.get("state_dict", payload)
+    sd = {re.sub(r"^module\.", "", k): v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    out = {}
+    for k, v in sd.items():
+        m = _ALIAS.match(k)
+        if m and f"{m.group(1)}.downsample.1.{m.group(2)}" in sd:
+            continue
+        out[k] = v
+    return out
+
+
+def load_weights(path: Union[str, Path], num_cva: int = 3) -> Dict[str, torch.Tensor]:
+    """`.npz` of flat flax variables, or a reference-keyed torch checkpoint."""
+    if str(path).endswith(".npz"):
+        with np.load(path) as f:
+            return from_jax_variables({k: f[k] for k in f.files}, num_cva)
+    return load_reference_checkpoint(path)
