@@ -7,17 +7,33 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device and build: the card's name and power limit (nvidia-smi); every
      CUDA kernel built from the checkout's sources, one nvcc per source.
   2. kernels: each kernel against its plain PyTorch version on the card, at
-     the main path's shapes and at edge cases, TF32 off; CUDA-event times of
-     kernel and plain version beside the card's bound for the same work.
+     the main paths' shapes and at edge cases, TF32 off: the gwc volume, its
+     backward (against autograd through the plain version), conv3d (with
+     scale, bias and ReLU) and conv3d_fast's backward; CUDA-event times of
+     kernel, plain version and, for conv3d, F.conv3d (cuDNN) beside the
+     card's bound for the same work.
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
      weights from `weights.from_jax_variables` on seeded numpy arrays, in bf16
      autocast and in f32; output shape, finiteness, one gwc launch per forward,
      ms/pair, pairs/s, peak memory; and the GPU model against the CPU model
      (plain gwc) on a small input.
   4. serving: three `cli infer --submission` requests on a synthetic
-     KITTI-sized PNG pair; the launch counts of this phase are the main path's.
-  5. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+     KITTI-sized PNG pair; the gwc launches of this phase are counted.
+  5. conv3d path: the counterpart of the JAX package's run_pallas
+     (tools/bench_conv3d.py): the convs at its shapes and one conv3d_fast
+     forward and backward; the conv3d launches of this phase are counted.
+  6. train: `cli train --preset sceneflow` with DCANet(num_cva=3,
+     maxdisp=192) at full width on a synthetic SceneFlow tree (540x960
+     pairs from the seed), the preset's 256x512 crop, batch 1, f32: loss
+     finite at every step, one gwc forward and one gwc backward launch per
+     step (the counts of this phase), ms/step, pairs/s, peak memory, the
+     checkpoints, and a resumed epoch; then one GPU train step against the
+     CPU train step from the same weights on a small input.
+  7. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
+
+`--phases` runs a subset (for iterating on one part); the summary lines are
+printed only for the full run.
 
 Needs CUDA: without a card it exits 1 before printing any result. It imports
 nothing of JAX or of the JAX package.
@@ -39,9 +55,18 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 SEED = 0
 MAIN_SHAPE = (1, 320, 96, 312)  # gwc features of a 384x1248 pair
+TRAIN_SHAPE = (1, 320, 64, 128)  # gwc features of a 256x512 SceneFlow crop
 MAIN_GROUPS, MAIN_D = 40, 48
+# the conv3d kernel's own path: tools/bench_conv3d.py::run_pallas's shapes, NCDHW
+CONV_SHAPE = (1, 32, 48, 96, 312)
+CONV_SHAPE_64 = (1, 64, 48, 96, 312)
+# training phase: synthetic SceneFlow pairs at the dataset's 540x960, the
+# preset's 256x512 crop, TRAIN_EPOCHS epochs, then one resumed epoch
+SCENEFLOW_HW = (540, 960)
+TRAIN_PAIRS, TRAIN_EPOCHS, TRAIN_WARMUP = 5, 2, 2
 KITTI_HW = (375, 1242)  # a KITTI 2015 image, padded to 384x1248 by --submission
 
 
@@ -101,18 +126,74 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
 
 
-def phase_kernels():
-    """gwc kernel vs its plain version; returns the numbers for the kernels line."""
+def check_close(tag: str, got, want, atol: float, rtol: float) -> float:
+    """max |got - want|; raises if any element lies outside atol + rtol*|want|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"[kernels] {tag}: {tuple(got.shape)}/{got.dtype} vs {tuple(want.shape)}/{want.dtype}")
+    err = (got.float() - want.float()).abs()
+    bad = int((err > atol + rtol * want.float().abs()).sum())
+    max_err = float(err.max())
+    log(f"[kernels] {tag}: max|err| {max_err:.3e} (atol {atol:.3g}, rtol {rtol:g}), {bad} elements outside")
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: {tag}")
+    return max_err
+
+
+def gwc_backward_bound_ms(shape, groups: int, maxdisp: int, elem_bytes: int):
+    """Least time for the gwc backward: the volume's grad, L and R read once,
+    dL and dR written once; a multiply-add per channel product this input
+    needs, for dL and again for dR."""
+    b, c, h, w = shape
+    bytes_moved = (4 * b * c * h * w + b * groups * maxdisp * h * w) * elem_bytes
+    pairs = sum(w - d for d in range(min(maxdisp, w)))
+    ops = 2 * 2 * b * c * h * pairs
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv3d_bound_ms(x_shape, co: int, elem_bytes: int):
+    """Least time for a 3x3x3 conv: x and the weight read once, the output
+    written once; 2*27*C*Co operations per output point, at the f32 rate
+    outside the tensor cores for f32 and the dense tensor-core rate for bf16."""
+    b, c, d, h, w = x_shape
+    n = b * d * h * w
+    bytes_moved = (n * (c + co) + 27 * c * co) * elem_bytes
+    ops = 2 * 27 * c * co * n
+    peak = F32_FLOPS if elem_bytes == 4 else BF16_TC_FLOPS
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _gwc_backward_plain(left, right, grad, d, groups):
+    """The plain backward's graph, built once: autograd through the plain
+    forward; the returned closure runs its backward only."""
     import torch
 
+    from dcanet_tpu_torch.kernels import gwc
+
+    l, r = left.detach().requires_grad_(), right.detach().requires_grad_()
+    vol = gwc.gwc_volume_reference(l, r, d, groups)
+    return lambda: torch.autograd.grad(vol, (l, r), grad, retain_graph=True)
+
+
+def phase_kernels():
+    """Each kernel vs its plain version; returns the numbers for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcanet_tpu_torch.kernels import conv3d as cv
     from dcanet_tpu_torch.kernels import gwc
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # f32: the kernel and the plain version differ only in summation order.
-    # bf16: both sum in f32 and round once to bf16, so they differ by at most
-    # one bf16 ulp (2^-7 relative).
+
+    def randn(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    # gwc, f32: the kernel and the plain version differ only in summation
+    # order. bf16: both sum in f32 and round once to bf16, so they differ by
+    # at most one bf16 ulp (2^-7 relative).
     tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0**-7)}
     cases = [
         ("main f32", MAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
@@ -123,34 +204,132 @@ def phase_kernels():
     ]
     errs = {}
     for name, shape, groups, d, dtype in cases:
-        left = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        right = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        left, right = randn(shape, dtype), randn(shape, dtype)
         got = gwc.gwc_volume_cuda(left, right, d, groups)
         want = gwc.gwc_volume_reference(left, right, d, groups)
         torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"[kernels] gwc {name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
-        err = (got.float() - want.float()).abs()
-        atol, rtol = tol[dtype]
-        bad = int((err > atol + rtol * want.float().abs()).sum())
-        errs[name] = float(err.max())
-        log(f"[kernels] gwc {name} {tuple(shape)} G={groups} D={d}: max|err| {errs[name]:.3e} "
-            f"(atol {atol:g}, rtol {rtol:g}), {bad} elements outside")
-        if bad:
-            raise AssertionError(f"gwc kernel disagrees with its plain version in case {name}")
+        errs[name] = check_close(f"gwc {name} {tuple(shape)} G={groups} D={d}", got, want, *tol[dtype])
+
+    # gwc backward against autograd through the plain version; the same
+    # tolerances (f32 sums in another order; bf16 rounds once from f32)
+    bwd_cases = [
+        ("train f32", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train bf16", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("D>W f32", (2, 16, 5, 7), 4, 12, torch.float32),
+        ("D>W bf16", (2, 16, 5, 7), 4, 12, torch.bfloat16),
+    ]
+    bwd_errs = {}
+    for name, shape, groups, d, dtype in bwd_cases:
+        b, c, h, w = shape
+        left, right = randn(shape, dtype), randn(shape, dtype)
+        grad = randn((b, groups, d, h, w), dtype)
+        got = gwc.gwc_volume_backward_cuda(grad, left, right, d, groups)
+        want = gwc.gwc_volume_backward_reference(grad, left, right, d, groups)
+        torch.cuda.synchronize()
+        bwd_errs[name] = max(
+            check_close(f"gwc backward {name} {tuple(shape)} G={groups} D={d} {part}", g_, w_, *tol[dtype])
+            for part, g_, w_ in (("dL", got[0], want[0]), ("dR", got[1], want[1]))
+        )
+
+    # conv3d forward. f32: 27*C products summed in another order, so the
+    # tolerance scales with the output's magnitude: 1e-5 * max(1, max|ref|).
+    # bf16: both sum in f32 and round once, so one bf16 ulp (2^-7 relative)
+    # on top of that.
+    def conv_tol(dtype, ref):
+        scale = max(1.0, float(ref.float().abs().max()))
+        return 1e-5 * scale, (0.0 if dtype == torch.float32 else 2.0**-7)
+
+    conv_cases = [
+        ("32->32 f32", CONV_SHAPE, 32, torch.float32, False),
+        ("32->32 f32 scale+bias+relu", CONV_SHAPE, 32, torch.float32, True),
+        ("32->32 bf16 scale+bias+relu", CONV_SHAPE, 32, torch.bfloat16, True),
+        ("64->32 f32 scale+bias+relu", CONV_SHAPE_64, 32, torch.float32, True),
+        ("64->32 bf16", CONV_SHAPE_64, 32, torch.bfloat16, False),
+        ("ragged f32 scale+bias+relu", (2, 5, 3, 9, 33), 40, torch.float32, True),
+        ("ragged bf16", (2, 5, 3, 9, 33), 40, torch.bfloat16, False),
+    ]
+    conv_errs = {}
+    for name, xs, co, dtype, affine in conv_cases:
+        x = randn(xs, dtype)
+        w = randn((co, xs[1], 3, 3, 3), dtype, 0.1)
+        sc = (torch.rand(co, generator=gen, device="cuda") + 0.5) if affine else None
+        bi = randn((co,), torch.float32, 0.1) if affine else None
+        got = cv.conv3d_cuda(x, w, sc, bi, relu=affine)
+        want = cv.conv3d_reference(x, w, sc, bi, relu=affine)
+        torch.cuda.synchronize()
+        conv_errs[name] = check_close(f"conv3d {name} x{tuple(xs)}", got, want, *conv_tol(dtype, want))
+        del x, got, want
+
+    # conv3d_fast backward (ReLU) against autograd through the plain conv,
+    # both given the grad masked by the kernel's own y > 0 (the plain
+    # output's sign differs where |y| is within rounding of 0, and a flipped
+    # mask moves dx by a whole tap): dx is the kernel (tolerance as the
+    # forward); dw is the library's wgrad, summed over every output point in
+    # another order (1e-4 of max|dw| in f32, 1e-2 in bf16, which may round
+    # partial sums).
+    bwd_conv_errs = {}
+    for name, xs, dtype in (("32->32 f32", CONV_SHAPE, torch.float32), ("32->32 bf16", CONV_SHAPE, torch.bfloat16),
+                            ("64->32 f32", CONV_SHAPE_64, torch.float32), ("64->32 bf16", CONV_SHAPE_64, torch.bfloat16)):
+        x = randn(xs, dtype).requires_grad_()
+        w = randn((32, xs[1], 3, 3, 3), dtype, 0.1).requires_grad_()
+        y = cv.conv3d_fast(x, w, True)
+        g = randn(y.shape, dtype)
+        dx, dw = torch.autograd.grad(y, (x, w), g)
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        gm = torch.where(y.detach() > 0, g, torch.zeros((), dtype=dtype, device="cuda"))
+        dxr, dwr = torch.autograd.grad(cv.conv3d_reference(xr, wr), (xr, wr), gm)
+        torch.cuda.synchronize()
+        dw_scale = float(dwr.float().abs().max())
+        bwd_conv_errs[name] = check_close(f"conv3d_fast backward {name} dx", dx, dxr, *conv_tol(dtype, dxr))
+        check_close(f"conv3d_fast backward {name} dw (library wgrad)", dw, dwr,
+                    (1e-4 if dtype == torch.float32 else 1e-2) * dw_scale, 0.0)
+        del x, w, y, g, gm, dx, dw, xr, wr, dxr, dwr
+    torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, device="cuda")  # 256 MB > 50 MB L2
-    timing = {}
+    timing = {"gwc": {}, "gwc_bwd": {}, "conv3d": {}}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        left = torch.randn(MAIN_SHAPE, generator=gen, device="cuda").to(dtype)
-        right = torch.randn(MAIN_SHAPE, generator=gen, device="cuda").to(dtype)
+        left, right = randn(MAIN_SHAPE, dtype), randn(MAIN_SHAPE, dtype)
         ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
         plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, MAIN_D, MAIN_GROUPS), 5, flush=flush)
         bound_ms, bound_by = gwc_bound_ms(MAIN_SHAPE, MAIN_GROUPS, MAIN_D, left.element_size())
-        timing[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timing["gwc"][tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         log(f"[kernels] gwc main {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
-    return errs, timing
+
+        b, c, h, w = TRAIN_SHAPE
+        left, right = randn(TRAIN_SHAPE, dtype), randn(TRAIN_SHAPE, dtype)
+        ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
+        plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, MAIN_D, MAIN_GROUPS), 5, flush=flush)
+        bound_ms, bound_by = gwc_bound_ms(TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, left.element_size())
+        timing["gwc"][f"train {tag}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                             library_ms=None)
+        log(f"[kernels] gwc train {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
+        grad = randn((b, MAIN_GROUPS, MAIN_D, h, w), dtype)
+        ms = time_cuda(lambda: gwc.gwc_volume_backward_cuda(grad, left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
+        plain_ms = time_cuda(_gwc_backward_plain(left, right, grad, MAIN_D, MAIN_GROUPS), 5, flush=flush)
+        bound_ms, bound_by = gwc_backward_bound_ms(TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, left.element_size())
+        timing["gwc_bwd"][tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        log(f"[kernels] gwc backward train {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
+
+        for shape_tag, xs in (("32->32", CONV_SHAPE), ("64->32", CONV_SHAPE_64)):
+            x = randn(xs, dtype)
+            w = randn((32, xs[1], 3, 3, 3), dtype, 0.1)
+            ms = time_cuda(lambda: cv.conv3d_cuda(x, w), 10, flush=flush)
+            plain_ms = time_cuda(lambda: cv.conv3d_reference(x, w), 3, flush=flush)
+            library_ms = time_cuda(lambda: F.conv3d(x, w, padding=1), 10, flush=flush)
+            bound_ms, bound_by = conv3d_bound_ms(xs, 32, x.element_size())
+            timing["conv3d"][f"{shape_tag} {tag}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+            log(f"[kernels] conv3d {shape_tag} {tag} x{tuple(xs)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"F.conv3d {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{bound_ms / ms:.1%} of bound (cold L2)")
+            del x, w
+    del flush
+    torch.cuda.empty_cache()
+    return dict(gwc=errs, gwc_bwd=bwd_errs, conv3d=conv_errs, conv3d_bwd=bwd_conv_errs), timing
 
 
 def seeded_flax_variables(model, seed: int):
@@ -178,22 +357,23 @@ def seeded_flax_variables(model, seed: int):
 
 def synthetic_pair(seed: int):
     """A KITTI-sized textured stereo pair (uint8 RGB): the right image is the
-    left one shifted by a disparity that grows down the image."""
+    left one shifted by a disparity d that grows down the image,
+    left[y, x] = right[y, x - d]."""
     rng = np.random.default_rng(seed)
     h, w = KITTI_HW
     pad = 96
     base = rng.integers(0, 256, size=(h // 4 + 1, (w + pad) // 4 + 1, 3)).astype(np.float32)
     tex = np.repeat(np.repeat(base, 4, axis=0), 4, axis=1)[:h, : w + pad]
-    left = tex[:, pad:]
+    left = tex[:, :w]
     right = np.empty_like(left)
     for y in range(h):
         d = 8 + (80 * y) // h
-        right[y] = tex[y, pad - d : pad - d + w]
+        right[y] = tex[y, d : d + w]
     return left.astype(np.uint8), right.astype(np.uint8)
 
 
-def profile_forward(fwd, tag: str, top: int = 6) -> None:
-    """One profiled forward: the sum of kernel time against the forward's
+def profile_call(fn, tag: str, top: int = 6) -> None:
+    """One profiled call of `fn`: the sum of kernel time against the call's
     wall time (the device's busy share), and the kernels that take most."""
     import torch
     from torch.autograd import DeviceType
@@ -202,7 +382,7 @@ def profile_forward(fwd, tag: str, top: int = 6) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fwd()
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -210,7 +390,7 @@ def profile_forward(fwd, tag: str, top: int = 6) -> None:
     if busy_ms <= 0:
         log(f"[profile {tag}] the profiler recorded no device time")
         return
-    log(f"[profile {tag}] kernels {busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled forward "
+    log(f"[profile {tag}] kernels {busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled call "
         f"(device busy {busy_ms / wall_ms:.1%}), {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
@@ -268,7 +448,7 @@ def phase_model(flat):
         log(f"[model] DCANet(num_cva=3, maxdisp=192) eval {tag} 1x3x384x1248: {ms:.3f} ms/pair, "
             f"{1e3 / ms:.3f} pairs/s, peak memory {peak / 2**30:.3f} GiB above weights, "
             f"disparity range [{disp[tag].min():.3f}, {disp[tag].max():.3f}], 1 gwc launch per forward")
-        profile_forward(fwd, tag)
+        profile_call(fwd, tag)
     diff = np.abs(disp["bf16"] - disp["f32"])
     log(f"[model] bf16 vs f32 disparity: mean |diff| {diff.mean():.4f} px, max {diff.max():.4f} px")
 
@@ -327,8 +507,205 @@ def phase_serving(flat, ref_disp, workdir: Path):
     return launches
 
 
+def phase_conv3d_path():
+    """The conv3d kernel's own path, the counterpart of the JAX package's
+    tools/bench_conv3d.py::run_pallas: the plain conv and the scale+bias+ReLU
+    conv at 32 -> 32, the 64 -> 32 conv, and one conv3d_fast forward and
+    backward (the JAX package's custom_vjp, whose dgrad is the kernel).
+    Returns the kernel's launch count on this path."""
+    import torch
+
+    from dcanet_tpu_torch.kernels import conv3d as cv
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn(CONV_SHAPE, generator=gen, device="cuda")
+    w = torch.randn((32, 32, 3, 3, 3), generator=gen, device="cuda") * 0.1
+    x64 = torch.randn(CONV_SHAPE_64, generator=gen, device="cuda")
+    w64 = torch.randn((32, 64, 3, 3, 3), generator=gen, device="cuda") * 0.1
+    sc = torch.ones(32, device="cuda")
+    bi = torch.zeros(32, device="cuda")
+    cv.LAUNCHES = 0
+    outs = [cv.conv3d(x, w), cv.conv3d(x, w, sc, bi, relu=True), cv.conv3d(x64, w64)]
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = cv.conv3d_fast(xg, wg, True)
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    launches = cv.LAUNCHES
+    if launches != 5:
+        raise AssertionError(f"[conv3d path] {launches} kernel launches, expected 3 convs + 1 forward + 1 dgrad")
+    want = cv.conv3d_reference(x, w)
+    err = float((outs[0] - want).abs().max())
+    relu_err = float((outs[1] - torch.relu(want)).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (*outs, y, xg.grad, wg.grad))
+    log(f"[conv3d path] 3 convs + conv3d_fast fwd/bwd at {CONV_SHAPE} and {CONV_SHAPE_64}: {launches} launches, "
+        f"max|err| vs plain {err:.3e} (affine+relu {relu_err:.3e}), all finite: {finite}")
+    if not finite or max(err, relu_err) > 1e-5 * max(1.0, float(want.abs().max())):
+        raise AssertionError("[conv3d path] outputs not finite or off the plain version")
+    return launches
+
+
+def phase_train(workdir: Path):
+    """`cli train --preset sceneflow` at full width on a synthetic SceneFlow
+    tree at 540x960, the preset's random 256x512 crop, batch 1, f32, then a
+    resumed epoch. Returns the numbers for the summary."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
+    from dcanet_tpu_torch.kernels import gwc
+
+    t0 = time.perf_counter()
+    root = write_sceneflow_tree(workdir / "sceneflow", TRAIN_PAIRS, SCENEFLOW_HW, seed=SEED)
+    log(f"[train] wrote {TRAIN_PAIRS} synthetic SceneFlow pairs at {SCENEFLOW_HW} in {time.perf_counter() - t0:.2f} s")
+    logdir = workdir / "run"
+    args = ["train", "--preset", "sceneflow", "--data-root", str(root), "--logdir", str(logdir),
+            "--batch-size", "1", "--dtype", "float32", "--seed", str(SEED), "--print-freq", "1",
+            "--num-workers", "4", "--device", "cuda"]
+
+    gwc.LAUNCHES = gwc.BACKWARD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    hist = cli.main(args + ["--epochs", str(TRAIN_EPOCHS)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = gwc.LAUNCHES, gwc.BACKWARD_LAUNCHES
+    steps = len(hist)
+    if steps != TRAIN_PAIRS * TRAIN_EPOCHS:
+        raise AssertionError(f"[train] {steps} steps, expected {TRAIN_PAIRS * TRAIN_EPOCHS}")
+    for rec in hist:
+        log(f"[train] step {rec['step']}: loss {rec['total']:.4f} (focal {rec['focal']:.4f}, smooth-L1 "
+            f"{rec['smooth_l1']:.4f}), grad norm {rec['grad_norm']:.4f}, epe {rec['epe']:.4f}")
+        if not all(math.isfinite(rec[k]) for k in ("total", "focal", "smooth_l1", "grad_norm", "epe")):
+            raise AssertionError(f"[train] step {rec['step']} is not finite: {rec}")
+    if fwd != steps or bwd != steps:
+        raise AssertionError(f"[train] gwc forward {fwd} / backward {bwd} launches in {steps} steps")
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])][TRAIN_WARMUP - 1:]
+    ms = statistics.median(step_ms)
+    log(f"[train] DCANet(num_cva=3, maxdisp=192) f32, 1x3x256x512 crops: {steps} steps, "
+        f"{fwd} gwc forward and {bwd} gwc backward launches (1 each per step); median {ms:.3f} ms/step "
+        f"over steps {TRAIN_WARMUP}-{steps - 1} (range {min(step_ms):.3f}-{max(step_ms):.3f}), "
+        f"{1e3 / ms:.3f} pairs/s, peak memory {peak / 2**30:.3f} GiB")
+
+    ckpts = sorted(p.name for p in (logdir / "ckpt").iterdir())
+    want = [f"ckpt_{TRAIN_PAIRS * (e + 1):08d}.pt" for e in range(TRAIN_EPOCHS)]
+    if ckpts != want:
+        raise AssertionError(f"[train] checkpoints {ckpts}, expected {want}")
+    gwc.LAUNCHES = gwc.BACKWARD_LAUNCHES = 0
+    resumed = cli.main(args + ["--epochs", str(TRAIN_EPOCHS + 1), "--resume"])
+    if [r["step"] for r in resumed] != list(range(steps, steps + TRAIN_PAIRS)):
+        raise AssertionError(f"[train] the resumed run took steps {[r['step'] for r in resumed]}")
+    if not all(math.isfinite(r["total"]) for r in resumed):
+        raise AssertionError("[train] the resumed run's loss is not finite")
+    log(f"[train] checkpoints {ckpts}; resumed at step {resumed[0]['step']}, {len(resumed)} more steps, "
+        f"loss {resumed[0]['total']:.4f} -> {resumed[-1]['total']:.4f}")
+    alone = profile_train_step(root)
+    return dict(alone=alone, steps=steps, ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, fwd=fwd, bwd=bwd,
+                resumed_fwd=gwc.LAUNCHES, resumed_bwd=gwc.BACKWARD_LAUNCHES)
+
+
+def profile_train_step(root: Path) -> dict:
+    """The train step alone, on one batch already on the card (no loader),
+    in f32, in bf16 autocast (`--dtype bfloat16`) and in f32 with `--remat`:
+    median ms of 5 steps after 2 warm-ups, peak memory, finite losses; then
+    one profiled f32 step (device busy share and the kernels that take
+    most). Its launches are not counted as the path's."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.train.loop import LossConfig, train_step
+
+    base = preset("sceneflow", data_root=str(root), seed=SEED)
+    sample = cli.build_dataset(base, training=True)[0]
+    batch = {k: torch.from_numpy(v[None]).cuda() for k, v in sample.items()}
+    loss_cfg = LossConfig(max_disp=base.maxdisp)
+    results = {}
+    for tag, overrides in (("f32", {}), ("bf16 autocast", {"dtype": "bfloat16"}), ("f32 remat", {"remat": True})):
+        state = cli.build_train_state(preset("sceneflow", seed=SEED, **overrides), TRAIN_PAIRS, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(train_step(state, batch, loss_cfg)["total"]))
+            if i >= 2:
+                times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        ms = statistics.median(times)
+        results[tag] = dict(ms=ms, peak_bytes=peak)
+        log(f"[train] the train step alone, {tag} (batch on the card, no loader): median {ms:.3f} ms over 5 steps "
+            f"(range {min(times):.3f}-{max(times):.3f}), peak memory {peak / 2**30:.3f} GiB, "
+            f"losses {', '.join(f'{x:.3f}' for x in losses)}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[train] {tag}: a loss is not finite")
+        if tag == "f32":
+            profile_call(lambda: train_step(state, batch, loss_cfg), "train step", top=10)
+        del state
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_train_parity():
+    """One GPU train step (CUDA kernels, cuDNN) against one CPU train step
+    (plain versions) from the same weights on a small input: loss, grad
+    norm and the updated BatchNorm statistics."""
+    import copy
+
+    import torch
+
+    from dcanet_tpu_torch.models import DCANet
+    from dcanet_tpu_torch.nn.layers import reference_init_
+    from dcanet_tpu_torch.train.loop import LossConfig, train_step
+    from dcanet_tpu_torch.train.state import create_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = reference_init_(DCANet(maxdisp=192, num_cva=3), torch.Generator().manual_seed(SEED + 3))
+    rng = np.random.default_rng(SEED + 3)
+    batch = {
+        "left": rng.standard_normal((1, 3, 64, 128)).astype(np.float32),
+        "right": rng.standard_normal((1, 3, 64, 128)).astype(np.float32),
+        "disparity": rng.uniform(1.0, 60.0, (1, 64, 128)).astype(np.float32),
+    }
+    cfg = LossConfig(max_disp=192)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        state = create_train_state(m, lambda step: 1e-3)
+        metrics = train_step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg)
+        stats = {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}
+        results[dev] = ({k: float(v) for k, v in metrics.items()}, stats)
+    (mc, sc), (mg, sg) = results["cpu"], results["cuda"]
+    stat_err = max(float((sc[k] - sg[k]).abs().max()) for k in sc)
+    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in ("total", "focal", "smooth_l1", "grad_norm")}
+    log(f"[train parity] GPU vs CPU train step, 1x3x64x128 f32: loss {mg['total']:.6f} vs {mc['total']:.6f}, "
+        f"grad norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; relative differences "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; BatchNorm statistics max|diff| {stat_err:.3e} (tolerances: loss terms 1e-4, grad norm 1e-3, "
+        "statistics 1e-4)")
+    if max(rel["total"], rel["focal"], rel["smooth_l1"]) > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
+        raise AssertionError("[train parity] the GPU train step disagrees with the CPU train step")
+    return dict(rel=rel, stat_err=stat_err)
+
+
+def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
+
+
+PHASES = ("kernels", "model", "serving", "conv3d_path", "train")
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %(default)s to run after the build; the summary lines "
+                         "are printed only when all run")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
 
     import torch
 
@@ -343,25 +720,53 @@ def main(argv=None) -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} visible device(s)")
     phase_build()
-    errs, timing = phase_kernels()
+    errs, timing = phase_kernels() if "kernels" in phases else ({}, {})
 
     from dcanet_tpu_torch.models import DCANet
 
     flat = seeded_flax_variables(DCANet(maxdisp=192, num_cva=3), SEED)
-    _, ref_disp = phase_model(flat)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = phase_serving(flat, ref_disp, Path(tmp))
+        if "model" in phases or "serving" in phases:
+            _, ref_disp = phase_model(flat)
+        serving = phase_serving(flat, ref_disp, Path(tmp)) if "serving" in phases else None
+        conv_launches = phase_conv3d_path() if "conv3d_path" in phases else None
+        if "train" in phases:
+            train = phase_train(Path(tmp))
+            parity = phase_train_parity()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    if phases != set(PHASES):
+        log(f"[done] phases {sorted(phases)}; no summary for a subset")
+        return 0
 
-    f32, bf16 = timing["f32"], timing["bf16"]
-    kernels = [{
-        "name": "gwc_volume", "route": "cuda", "source": "dcanet_tpu_torch/csrc/gwc.cu",
-        "replaces": "dcanet_tpu/kernels/gwc.py:51", "launches": launches,
-        "max_abs_err": errs["main f32"], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": None,
-        "dtype": "float32", "shape": {"features": list(MAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
-        "bfloat16": {"max_abs_err": errs["main bf16"], **bf16},
-    }]
+    gwc_t, bwd_t = timing["gwc"], timing["gwc_bwd"]
+    conv_t = timing["conv3d"]
+    kernels = [
+        kernel_entry(
+            "gwc_volume", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:51", train["fwd"],
+            {"train": train["fwd"], "serving": serving}, errs["gwc"]["main f32"], gwc_t["f32"],
+            dtype="float32", shape={"features": list(MAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
+            bfloat16={"max_abs_err": errs["gwc"]["main bf16"], **gwc_t["bf16"]},
+            train_shape={"features": list(TRAIN_SHAPE), "float32": gwc_t["train f32"],
+                         "bfloat16": gwc_t["train bf16"]},
+        ),
+        kernel_entry(
+            "gwc_volume_backward", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
+            train["bwd"], {"train": train["bwd"]}, errs["gwc_bwd"]["train f32"], bwd_t["f32"],
+            dtype="float32", shape={"features": list(TRAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
+            bfloat16={"max_abs_err": errs["gwc_bwd"]["train bf16"], **bwd_t["bf16"]},
+        ),
+        kernel_entry(
+            "conv3d", "dcanet_tpu_torch/csrc/conv3d.cu", "dcanet_tpu/kernels/conv3d.py:54", conv_launches,
+            {"conv3d_path": conv_launches}, errs["conv3d"]["32->32 f32"], conv_t["32->32 f32"],
+            dtype="float32", shape={"x": list(CONV_SHAPE), "out_channels": 32},
+            bfloat16={"max_abs_err": errs["conv3d"]["32->32 bf16 scale+bias+relu"], **conv_t["32->32 bf16"]},
+            **{"64->32": {"x": list(CONV_SHAPE_64), "float32": {"max_abs_err": errs["conv3d"]["64->32 f32 scale+bias+relu"],
+                                                                  **conv_t["64->32 f32"]},
+                          "bfloat16": {"max_abs_err": errs["conv3d"]["64->32 bf16"], **conv_t["64->32 bf16"]}}},
+        ),
+    ]
+    log("[train] summary: " + json.dumps({k: train[k] for k in ("ms", "pairs_per_s", "peak_bytes", "alone")}
+                                         | {"parity": parity}))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,21 @@
-"""Command line of the port: `python -m dcanet_tpu_torch.cli infer ...`.
+"""Command line of the port: `python -m dcanet_tpu_torch.cli {train,infer} ...`.
 
+  train --preset sceneflow|kitti|eth3d|middlebury --data-root DIR
+        [--data-root2 DIR] [--logdir DIR] [--epochs N] [--batch-size N]
+        [--dtype float32|bfloat16] [--remat] [--resume] [--loadckpt PATH]
+        [--seed N] [--maxdisp N] [--print-freq N] [--num-workers N]
+        [--device cuda|cpu]
   infer --left L.png --right R.png --out disp.png [--submission]
         [--weights PATH] [--maxdisp 192] [--num-cva 3] [--dtype bf16|f32]
         [--device cuda|cpu]
+
+`train` (dcanet_tpu/cli.py:87-197): DCANet(num_cva=3) from a reference init
+drawn from --seed, Adam on the preset's LR schedule, the preset's dataset
+and loss, a full checkpoint (model, BatchNorm statistics, optimizer, step)
+under <logdir>/ckpt after each epoch; `--resume` continues from the newest,
+`--loadckpt` starts from weights saved by `train.checkpoint.save_params_only`.
+It prints `epoch E step S/N loss L epe E (R pairs/s)` every --print-freq
+steps and appends the same numbers to <logdir>/train_log.jsonl.
 
 Single-pair inference to a uint16 x256 PNG. `--submission` follows the
 reference's benchmark-submission protocol (my_img.py:47-111): per-channel
@@ -16,12 +29,15 @@ init drawn from seed 0. The model runs on CUDA unless `--device cpu` is given.
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from dcanet_tpu_torch.config import PRESETS, RunConfig, preset
 from dcanet_tpu_torch.data.io import normalize_imagenet, read_image, write_kitti_submission_png
 from dcanet_tpu_torch.data.submission import (
     from_submission_shape, pad_to_multiple, to_submission_shape, unpad, whiten_per_channel,
@@ -88,9 +104,127 @@ def cmd_infer(args: argparse.Namespace) -> None:
     print(f"wrote {args.out}")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def build_dataset(cfg: RunConfig, training: bool):
+    """The preset's StereoDataset (dcanet_tpu/cli.py:24-53)."""
+    from dcanet_tpu_torch.data.datasets import (
+        StereoDataset, scan_eth3d, scan_kitti2012, scan_kitti2015, scan_middlebury, scan_sceneflow,
+    )
+
+    if cfg.dataset == "sceneflow":
+        train, test = scan_sceneflow(cfg.data_root)
+        return StereoDataset(train if training else test, training, "sceneflow")
+    if cfg.dataset == "eth3d":
+        return StereoDataset(scan_eth3d(cfg.data_root), training, "eth3d")
+    if cfg.dataset == "middlebury":
+        return StereoDataset(scan_middlebury(cfg.data_root), training, "middlebury", half_res=cfg.half_res)
+    if cfg.dataset == "kitti2012":
+        samples = scan_kitti2012(cfg.data_root)
+    elif cfg.dataset == "kitti2015":
+        samples = scan_kitti2015(cfg.data_root)
+    elif cfg.dataset == "kitti_mix":
+        samples = scan_kitti2012(cfg.data_root) + (scan_kitti2015(cfg.data_root2) if cfg.data_root2 else [])
+    else:
+        raise ValueError(f"unknown dataset {cfg.dataset!r}")
+    return StereoDataset(samples, training, "kitti")
+
+
+def build_train_state(cfg: RunConfig, steps_per_epoch: int, device: Optional[str] = None):
+    """DCANet(num_cva=3) with a reference init from cfg.seed on `device`, Adam
+    on the preset's LR schedule, autocast bf16 for dtype bfloat16."""
+    from dcanet_tpu_torch.train.schedule import epoch_decay_schedule, kitti_finetune_schedule
+    from dcanet_tpu_torch.train.state import create_train_state
+
+    if cfg.model != "dcanet":
+        raise ValueError(f"the port trains model 'dcanet' only, got {cfg.model!r}")
+    dev = resolve_device(device)
+    model = DCANet(maxdisp=cfg.maxdisp, num_cva=3, remat=cfg.remat)
+    reference_init_(model, torch.Generator().manual_seed(cfg.seed))
+    model.to(dev)
+    if cfg.lr_spec:
+        lr_fn = epoch_decay_schedule(cfg.base_lr, cfg.lr_spec, steps_per_epoch)
+    else:
+        lr_fn = kitti_finetune_schedule(steps_per_epoch)
+    amp = {"float32": None, "bfloat16": torch.bfloat16}[cfg.dtype]
+    return create_train_state(model, lr_fn, amp)
+
+
+def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, float]]:
+    """Train per `cfg`; returns one record per step (epoch, step, the step's
+    metrics and the host time at which they were read)."""
+    from dcanet_tpu_torch.data.loader import Loader, device_prefetch
+    from dcanet_tpu_torch.train.checkpoint import CheckpointManager, load_params_only
+    from dcanet_tpu_torch.train.loop import LossConfig, train_step
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and cfg.dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    train_ds = build_dataset(cfg, training=True)
+    print(f"train samples: {len(train_ds)}")
+    loader = Loader(train_ds, cfg.batch_size, seed=cfg.seed, num_workers=cfg.num_workers)
+    steps_per_epoch = max(len(loader), 1)
+    state = build_train_state(cfg, steps_per_epoch, str(dev))
+    print(f"model params: {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f}M")
+    print(f"device: {dev}, dtype {cfg.dtype}")
+
+    ckpt = CheckpointManager(os.path.join(cfg.logdir, "ckpt"))
+    if cfg.resume and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        print(f"resumed from step {state.step}")
+    elif cfg.loadckpt:
+        load_params_only(cfg.loadckpt, state.model)
+        print(f"loaded pretrained weights from {cfg.loadckpt}")
+
+    loss_cfg = LossConfig(
+        max_disp=cfg.maxdisp, focal_coefficient=cfg.focal_coefficient, sparse=cfg.sparse_gt, preset=cfg.loss_preset
+    )
+    history: List[Dict[str, float]] = []
+    log_path = os.path.join(cfg.logdir, "train_log.jsonl")
+    for epoch in range(state.step // steps_per_epoch, cfg.epochs):
+        loader.set_epoch(epoch)
+        t0 = time.time()
+        pending, window = [], []  # metrics stay on the device until printed
+        for bi, batch in enumerate(device_prefetch(loader, dev)):
+            pending.append((state.step, train_step(state, batch, loss_cfg)))
+            if (bi + 1) % cfg.print_freq == 0 or bi + 1 == steps_per_epoch:
+                now = time.perf_counter()
+                for step, metrics in pending:
+                    rec = {"epoch": epoch, "step": step, **{k: float(v) for k, v in metrics.items()}, "time": now}
+                    history.append(rec)
+                    window.append(rec)
+                pending = []
+                mean = {k: sum(r[k] for r in window) / len(window) for k in ("total", "epe")}
+                rate = cfg.batch_size * (bi + 1) / (time.time() - t0)
+                print(f"epoch {epoch} step {bi + 1}/{steps_per_epoch} loss {mean['total']:.3f} "
+                      f"epe {mean['epe']:.3f} ({rate:.2f} pairs/s)", flush=True)
+                with open(log_path, "a") as f:
+                    f.write(json.dumps({"epoch": epoch, "step": state.step, **mean, "pairs_per_s": rate}) + "\n")
+                window = []
+        if epoch >= cfg.save_after_epoch and (epoch + 1) % cfg.save_every_epochs == 0:
+            ckpt.save(state)
+    print("training done")
+    return history
+
+
+def main(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(prog="dcanet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    st = sub.add_parser("train", help="train DCANet(num_cva=3) with a dataset preset")
+    st.add_argument("--preset", default="sceneflow", choices=sorted(PRESETS))
+    st.add_argument("--data-root", default=None)
+    st.add_argument("--data-root2", default=None)
+    st.add_argument("--logdir", default=None)
+    st.add_argument("--epochs", type=int, default=None)
+    st.add_argument("--batch-size", type=int, default=None)
+    st.add_argument("--dtype", choices=("float32", "bfloat16"), default=None)
+    st.add_argument("--remat", action="store_true", default=None)
+    st.add_argument("--resume", action="store_true", default=None)
+    st.add_argument("--loadckpt", default=None, help="weights-only init (train.checkpoint.save_params_only)")
+    st.add_argument("--seed", type=int, default=None)
+    st.add_argument("--maxdisp", type=int, default=None)
+    st.add_argument("--print-freq", type=int, default=None)
+    st.add_argument("--num-workers", type=int, default=None)
+    st.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp = sub.add_parser("infer", help="single-pair inference -> uint16 x256 PNG")
     sp.add_argument("--left", required=True)
     sp.add_argument("--right", required=True)
@@ -103,8 +237,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     sp.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = p.parse_args(argv)
-    if args.cmd == "infer":
-        cmd_infer(args)
+    if args.cmd == "train":
+        overrides = {k: v for k, v in vars(args).items() if k not in ("cmd", "preset", "device") and v is not None}
+        return cmd_train(preset(args.preset, **overrides), args.device)
+    cmd_infer(args)
 
 
 if __name__ == "__main__":

@@ -1,18 +1,20 @@
-"""Image IO with numpy and zlib alone (no PIL).
+"""Image and disparity IO with numpy and zlib alone (no PIL).
 
 PNG reader: 8- and 16-bit samples, grayscale / gray+alpha / RGB / RGBA,
 non-interlaced, filter types 0-4. PNG writer: 8-bit gray/RGB/RGBA and 16-bit
 grayscale, which carries the KITTI uint16 x256 disparity format
-(my_img.py:105-110). Also the ImageNet normalisation the training
-pipeline uses (port of dcanet_tpu/data/io.py).
+(my_img.py:105-110). PFM reader and writer and `read_disparity` (copies of
+dcanet_tpu/data/io.py:23-112, PNG through the reader here). Also the
+ImageNet normalisation the training pipeline uses.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from pathlib import Path
-from typing import Union
+from typing import Tuple, Union
 
 import numpy as np
 
@@ -151,3 +153,52 @@ def normalize_imagenet(img255: np.ndarray) -> np.ndarray:
 def write_kitti_submission_png(path: PathLike, disp: np.ndarray) -> None:
     """uint16 PNG x256, the KITTI benchmark server format."""
     write_png(path, np.clip(disp * 256.0, 0, 65535).astype(np.uint16))
+
+
+def read_pfm(path: PathLike) -> Tuple[np.ndarray, float]:
+    """Spec-compliant PFM reader. Returns (data, scale); data is float32
+    (H, W) or (H, W, 3), top row first (PFM stores bottom-up)."""
+    with open(path, "rb") as f:
+        header = f.readline().rstrip()
+        if header == b"PF":
+            color = True
+        elif header == b"Pf":
+            color = False
+        else:
+            raise ValueError(f"not a PFM file: {path}")
+        dims = f.readline()
+        while dims.startswith(b"#"):  # comments permitted by the spec
+            dims = f.readline()
+        m = re.match(rb"^\s*(\d+)\s+(\d+)\s*$", dims)
+        if not m:
+            raise ValueError(f"malformed PFM dims in {path}: {dims!r}")
+        width, height = int(m.group(1)), int(m.group(2))
+        scale = float(f.readline().rstrip())
+        endian = "<" if scale < 0 else ">"
+        data = np.frombuffer(f.read(), endian + "f4")
+    shape = (height, width, 3) if color else (height, width)
+    return np.ascontiguousarray(np.flipud(data.reshape(shape))), abs(scale)
+
+
+def write_pfm(path: PathLike, data: np.ndarray, scale: float = 1.0) -> None:
+    data = np.asarray(data, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if data.ndim == 3 else b"Pf\n")
+        f.write(f"{data.shape[1]} {data.shape[0]}\n".encode())
+        f.write(f"{-scale}\n".encode())  # little-endian
+        np.flipud(data).astype("<f4").tofile(f)
+
+
+def read_disparity(path: PathLike) -> np.ndarray:
+    """Disparity as float32 (H, W): .pfm as PFM, else a PNG, divided by 256
+    when uint16-encoded (max > 1024, the KITTI convention); inf -> 0
+    (Middlebury)."""
+    if str(path).endswith(".pfm"):
+        disp, _ = read_pfm(path)
+    else:
+        disp = read_png(path).astype(np.float32)
+        if disp.ndim == 3:
+            disp = disp[..., 0]
+        if disp.max() > 1024:
+            disp = disp / 256.0
+    return np.ascontiguousarray(np.where(np.isinf(disp), 0.0, disp), np.float32)

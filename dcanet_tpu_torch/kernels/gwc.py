@@ -1,17 +1,21 @@
-"""Group-wise correlation cost volume: CUDA kernel, plain version, dispatcher.
+"""Group-wise correlation cost volume: CUDA kernels, plain versions, dispatcher.
 
-The kernel (`dcanet_tpu_torch/csrc/gwc.cu`) replaces the Pallas TPU kernel
-`dcanet_tpu/kernels/gwc.py::_gwc_kernel`. Layouts: features NCHW
-(B, C, H, W), volume NCDHW (B, G, D, H, W); f32 or bf16, accumulated in f32.
+The kernels (`dcanet_tpu_torch/csrc/gwc.cu`) replace the Pallas TPU kernel
+`dcanet_tpu/kernels/gwc.py::_gwc_kernel` and its backward (`_bwd`, XLA
+linear transposes there). Layouts: features NCHW (B, C, H, W), volume NCDHW
+(B, G, D, H, W); f32 or bf16, accumulated in f32.
 
-- `gwc_volume_reference`: the plain PyTorch version (ops/cost_volume.py).
-- `gwc_volume_cuda`: launches the kernel on the current stream of the
-  tensors' device; raises on anything the kernel does not take.
-- `gwc_volume`: the plain version for CPU tensors, the kernel for CUDA
-  tensors. There is no fallback: a CUDA input either launches the kernel or
-  raises.
+- `gwc_volume_reference`: the plain PyTorch version (ops/cost_volume.py);
+  `gwc_volume_backward_reference`: autograd through it.
+- `gwc_volume_cuda`, `gwc_volume_backward_cuda`: launch the forward and
+  backward kernels on the current stream of the tensors' device; raise on
+  anything the kernels do not take.
+- `gwc_volume`: differentiable. CPU tensors take the plain version (autograd
+  through it); CUDA tensors take `GwcVolume`, whose forward and backward are
+  the kernels. There is no fallback: a CUDA input either launches the
+  kernels or raises.
 
-`LAUNCHES` counts kernel launches and nothing else.
+`LAUNCHES` and `BACKWARD_LAUNCHES` count kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -24,18 +28,21 @@ from dcanet_tpu_torch.kernels import build
 from dcanet_tpu_torch.ops.cost_volume import build_gwc_volume as gwc_volume_reference
 
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
-_SUPPORTED_CPG = (1, 2, 4, 8, 16, 32)  # channels per group the kernel is built for
+_SUPPORTED_CPG = (1, 2, 4, 8, 16, 32)  # channels per group the kernels are built for
 _FUNCS = {torch.float32: "gwc_volume_f32", torch.bfloat16: "gwc_volume_bf16"}
+_BWD_FUNCS = {torch.float32: "gwc_volume_backward_f32", torch.bfloat16: "gwc_volume_backward_bf16"}
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("gwc")
-    for fname in _FUNCS.values():
-        fn = getattr(lib, fname)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    for names, n_ptr in ((_FUNCS, 3), (_BWD_FUNCS, 5)):
+        for fname in names.values():
+            fn = getattr(lib, fname)
+            if fn.argtypes is None:
+                fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
     return lib
 
 
@@ -81,11 +88,66 @@ def gwc_volume_cuda(
     return out
 
 
+def gwc_volume_backward_cuda(
+    grad: torch.Tensor, left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
+):
+    """The CUDA backward kernel: the volume's grad (B, G, D, H, W) and the
+    forward's features -> (dL, dR), each (B, C, H, W) in the features' type."""
+    global BACKWARD_LAUNCHES
+    _check(left, right, maxdisp, num_groups)
+    b, c, h, w = left.shape
+    if grad.shape != (b, num_groups, maxdisp, h, w) or grad.dtype != left.dtype:
+        raise ValueError(
+            f"gwc backward needs a {left.dtype} grad of shape {(b, num_groups, maxdisp, h, w)}, "
+            f"got {grad.dtype} {tuple(grad.shape)}"
+        )
+    if grad.device != left.device or not grad.is_contiguous():
+        raise ValueError(f"gwc backward needs a contiguous grad on {left.device}, got {grad.device}")
+    fn = getattr(_lib(), _BWD_FUNCS[left.dtype])
+    dleft, dright = torch.empty_like(left), torch.empty_like(right)
+    stream = torch.cuda.current_stream(left.device).cuda_stream
+    err = fn(
+        grad.data_ptr(), left.data_ptr(), right.data_ptr(), dleft.data_ptr(), dright.data_ptr(),
+        b, c, h, w, num_groups, maxdisp, left.device.index, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"gwc backward kernel launch failed with CUDA error {err}")
+    BACKWARD_LAUNCHES += 1
+    return dleft, dright
+
+
+def gwc_volume_backward_reference(
+    grad: torch.Tensor, left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
+):
+    """The plain backward: autograd through `gwc_volume_reference`."""
+    with torch.enable_grad():
+        l, r = left.detach().requires_grad_(), right.detach().requires_grad_()
+        vol = gwc_volume_reference(l, r, maxdisp, num_groups)
+        dleft, dright = torch.autograd.grad(vol, (l, r), grad)
+    return dleft, dright
+
+
+class GwcVolume(torch.autograd.Function):
+    """The gwc volume on CUDA tensors: forward and backward are the kernels."""
+
+    @staticmethod
+    def forward(ctx, left, right, maxdisp: int, num_groups: int):
+        ctx.save_for_backward(left, right)
+        ctx.maxdisp, ctx.num_groups = maxdisp, num_groups
+        return gwc_volume_cuda(left, right, maxdisp, num_groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        left, right = ctx.saved_tensors
+        dleft, dright = gwc_volume_backward_cuda(grad.contiguous(), left, right, ctx.maxdisp, ctx.num_groups)
+        return dleft, dright, None, None
+
+
 def gwc_volume(
     left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
 ) -> torch.Tensor:
-    """(B, C, H, W) x2 -> (B, G, D, H, W): the plain version for CPU tensors,
-    the CUDA kernel otherwise."""
+    """(B, C, H, W) x2 -> (B, G, D, H, W), differentiable: the plain version
+    for CPU tensors, the CUDA kernels otherwise."""
     if left.device.type == "cpu" and right.device.type == "cpu":
         return gwc_volume_reference(left, right, maxdisp, num_groups)
-    return gwc_volume_cuda(left, right, maxdisp, num_groups)
+    return GwcVolume.apply(left, right, maxdisp, num_groups)

@@ -1,5 +1,5 @@
 """Models of the port."""
 
-from dcanet_tpu_torch.models.dcanet import DCANet, DCANetEvalOutput
+from dcanet_tpu_torch.models.dcanet import DCANet, DCANetEvalOutput, DCANetTrainOutput
 
-__all__ = ["DCANet", "DCANetEvalOutput"]
+__all__ = ["DCANet", "DCANetEvalOutput", "DCANetTrainOutput"]

@@ -1,38 +1,67 @@
-"""DCANet eval forward (port of dcanet_tpu/models/dcanet.py:133-260).
+"""DCANet, eval and train forwards (port of dcanet_tpu/models/dcanet.py:133-313).
 
 Pipeline (reference models/gwcnet_dca_g.py:209-282): shared-weight 2D
-features at 1/4 resolution -> 40-group gwc volume (the CUDA kernel on the
-card) + 24-channel concat volume -> dres0/dres1 pre-aggregation -> chain of
-CVA blocks (residual add after the first) -> classif head -> softmax over D
--> soft-argmin -> convex 4x upsample guided by the left image.
+features at 1/4 resolution -> 40-group gwc volume (the CUDA kernels on the
+card, forward and backward) + 24-channel concat volume -> dres0/dres1
+pre-aggregation -> chain of CVA blocks (residual add after the first) ->
+classif head -> softmax over D -> soft-argmin -> convex 4x upsample guided by
+the left image.
+
+  eval  -> DCANetEvalOutput(disparity, class_logits)
+  train -> DCANetTrainOutput(prob_volumes, disparities, class_logits), the
+           JAX package's supervision contract:
+    * prob_volumes (stereo-focal ladder, softmaxed, 1/4 resolution):
+      [softmax(classif0(cost0))] + [softmax(up2(cva_i logits)), i < num_cva]
+      + [softmax(classif_i(out_i)), 1 <= i < num_cva], i.e.
+      [pred0, pred_dca1, pred_dca2, pred1, pred2] for num_cva=3; for
+      num_cva=0 the final head's probabilities alone;
+    * disparities (smooth-L1 ladder, full resolution): [soft-argmin of
+      up8(last CVA logits), the convex-upsampled final];
+    * full_res_supervision: every CVA's logits (x8) and classif_i(out_i)
+      (x4) soft-argmin'd at full resolution, then the final: 2*num_cva+1
+      disparities and no focal ladder.
 
 Submodule names reproduce the reference's state_dict keys, and the module
-owns classif0..classif{num_cva} although eval runs only the last, so a full
-reference or JAX checkpoint loads with `load_state_dict(strict=True)`.
-Left and right run the shared extractor as one stacked batch (identical to
-two calls in eval mode). Layouts: images (B, 3, H, W), disparity (B, H, W),
-class logits (B, D', H', W').
+owns classif0..classif{num_cva}, so a full reference or JAX checkpoint loads
+with `load_state_dict(strict=True)`. `stacked_features` (default True, as in
+the JAX package) runs left and right through the shared extractor as one
+stacked batch, so train-mode BatchNorm takes its statistics over the pair;
+False runs two calls. `remat` checkpoints each CVA block in train mode
+(torch.utils.checkpoint); the recomputation leaves the BatchNorm running
+statistics alone, as flax's nn.remat does. Softmax and soft-argmin run in
+float32, also under bf16 autocast. Layouts: images (B, 3, H, W), disparity
+(B, H, W), probability volumes (B, D/4, H/4, W/4), class logits
+(B, D/8, H/8, W/8).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dcanet_tpu_torch.kernels.gwc import gwc_volume
 from dcanet_tpu_torch.nn.cva import CVA
 from dcanet_tpu_torch.nn.feature import FeatureExtractor
 from dcanet_tpu_torch.nn.guidance import Guidance
-from dcanet_tpu_torch.nn.layers import ConvBN
+from dcanet_tpu_torch.nn.layers import ConvBN, frozen_bn_statistics
 from dcanet_tpu_torch.nn.propagation import PropagationNet
 from dcanet_tpu_torch.ops.cost_volume import build_concat_volume
 from dcanet_tpu_torch.ops.regression import disparity_regression
+from dcanet_tpu_torch.ops.upsample import resize_trilinear
 
 
 class DCANetEvalOutput(NamedTuple):
     disparity: torch.Tensor  # (B, H, W), float32
+    class_logits: Tuple[torch.Tensor, ...]  # raw CVA logits (B, D/8, H/8, W/8)
+
+
+class DCANetTrainOutput(NamedTuple):
+    prob_volumes: Tuple[torch.Tensor, ...]  # (B, D/4, H/4, W/4) softmax probabilities, float32
+    disparities: Tuple[torch.Tensor, ...]  # (B, H, W) full-resolution estimates, float32
     class_logits: Tuple[torch.Tensor, ...]  # raw CVA logits (B, D/8, H/8, W/8)
 
 
@@ -41,15 +70,26 @@ def _classifier(c: int) -> nn.Sequential:
     return nn.Sequential(ConvBN(c, c, 3, 1, 1, dims=3), nn.ReLU(inplace=True), nn.Conv3d(c, 1, 3, 1, 1, bias=False))
 
 
+def _remat_contexts():
+    """torch.utils.checkpoint's (forward, recomputation) contexts."""
+    return contextlib.nullcontext(), frozen_bn_statistics()
+
+
+def _softmax_f32(logits: torch.Tensor) -> torch.Tensor:
+    return logits.float().softmax(dim=1)
+
+
 class DCANet(nn.Module):
     def __init__(
         self, maxdisp: int = 192, num_cva: int = 3, num_groups: int = 40,
         concat_channels: int = 12, base_channels: int = 32,
+        full_res_supervision: bool = False, stacked_features: bool = True, remat: bool = False,
     ):
         super().__init__()
         if maxdisp % 4:
             raise ValueError(f"maxdisp must be a multiple of 4, got {maxdisp}")
         self.maxdisp, self.num_cva, self.num_groups = maxdisp, num_cva, num_groups
+        self.full_res_supervision, self.stacked_features, self.remat = full_res_supervision, stacked_features, remat
         c = base_channels
         self.feature_extraction = FeatureExtractor(concat_channels)
         self.guidance = Guidance(64)
@@ -66,31 +106,70 @@ class DCANet(nn.Module):
             self.add_module(f"classif{i}", _classifier(c))
         self.prop = PropagationNet(64, scale=4)
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor) -> DCANetEvalOutput:
+    def _features(self, left: torch.Tensor, right: torch.Tensor):
+        if self.stacked_features:
+            b = left.shape[0]
+            feats = self.feature_extraction(torch.cat([left, right], dim=0))
+            return ({k: v[:b] for k, v in feats.items()}, {k: v[b:] for k, v in feats.items()})
+        return self.feature_extraction(left), self.feature_extraction(right)
+
+    def _cva(self, i: int, x: torch.Tensor, post_residual):
+        block = getattr(self, f"cva{i}")
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(block, x, post_residual, use_reentrant=False, context_fn=_remat_contexts)
+        return block(x, post_residual)
+
+    def _head(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"classif{i}")(x)[:, 0]
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
         """left, right: (B, 3, H, W) with H, W multiples of 16."""
-        if self.training:
-            raise RuntimeError("the port's DCANet implements the eval forward only; call .eval() first")
-        b = left.shape[0]
         d4 = self.maxdisp // 4
-        feats = self.feature_extraction(torch.cat([left, right], dim=0))
-        gwc, cat = feats["gwc_feature"], feats["concat_feature"]
+        feats_l, feats_r = self._features(left, right)
         guidance = self.guidance(left)
 
-        volume = gwc_volume(gwc[:b], gwc[b:], d4, self.num_groups)
-        concat = build_concat_volume(cat[:b], cat[b:], d4)
+        volume = gwc_volume(feats_l["gwc_feature"], feats_r["gwc_feature"], d4, self.num_groups)
+        concat = build_concat_volume(feats_l["concat_feature"], feats_r["concat_feature"], d4)
         volume = torch.cat([volume, concat.to(volume.dtype)], dim=1)
 
         cost0 = self.dres0(volume)
         cost0 = self.dres1(cost0) + cost0
 
-        out, cva_logits = cost0, []
+        out, outs, cva_logits = cost0, [cost0], []
         for i in range(1, self.num_cva + 1):
-            logits, out = getattr(self, f"cva{i}")(out, post_residual=cost0 if i == 1 else None)
+            logits, out = self._cva(i, out, cost0 if i == 1 else None)
             cva_logits.append(logits)
+            outs.append(out)
 
-        final_cost = getattr(self, f"classif{self.num_cva}")(out)[:, 0]
-        # softmax and soft-argmin stay in float32, also under bf16 autocast
+        final_cost = self._head(self.num_cva, out)
         with torch.autocast(device_type=final_cost.device.type, enabled=False):
-            pred_coarse = disparity_regression(final_cost.float().softmax(dim=1), d4)
+            final_prob = _softmax_f32(final_cost)
+            pred_coarse = disparity_regression(final_prob, d4)
         disparity = self.prop(guidance, pred_coarse)
-        return DCANetEvalOutput(disparity=disparity, class_logits=tuple(cva_logits))
+        if not self.training:
+            return DCANetEvalOutput(disparity=disparity, class_logits=tuple(cva_logits))
+
+        heads = {i: self._head(i, outs[i]) for i in range(self.num_cva)}
+        with torch.autocast(device_type=final_cost.device.type, enabled=False):
+            if self.full_res_supervision:
+                disparities = [
+                    disparity_regression(_softmax_f32(resize_trilinear(lg.float(), 8)), self.maxdisp)
+                    for lg in cva_logits
+                ]
+                disparities += [
+                    disparity_regression(_softmax_f32(resize_trilinear(heads[i].float(), 4)), self.maxdisp)
+                    for i in range(self.num_cva)
+                ]
+                return DCANetTrainOutput(
+                    prob_volumes=(), disparities=tuple(disparities) + (disparity,), class_logits=tuple(cva_logits)
+                )
+            if self.num_cva == 0:
+                return DCANetTrainOutput(prob_volumes=(final_prob,), disparities=(disparity,), class_logits=())
+            prob_volumes = [_softmax_f32(heads[0])]
+            prob_volumes += [_softmax_f32(resize_trilinear(lg.float(), 2)) for lg in cva_logits[: self.num_cva - 1]]
+            prob_volumes += [_softmax_f32(heads[i]) for i in range(1, self.num_cva)]
+            dca_full = _softmax_f32(resize_trilinear(cva_logits[-1].float(), 8))
+            disparities = (disparity_regression(dca_full, self.maxdisp), disparity)
+        return DCANetTrainOutput(
+            prob_volumes=tuple(prob_volumes), disparities=disparities, class_logits=tuple(cva_logits)
+        )

@@ -1,4 +1,4 @@
-"""Shared building blocks, eval semantics (port of dcanet_tpu/nn/layers.py).
+"""Shared building blocks (port of dcanet_tpu/nn/layers.py).
 
 Layouts are NCHW / NCDHW. Each block is laid out so that its state_dict keys
 are the reference's (models/submodule.py):
@@ -6,23 +6,74 @@ are the reference's (models/submodule.py):
   ConvBN     = Sequential(Conv{2,3}d(bias=False), BatchNorm{2,3}d)  -> .0 / .1
   ConvBNAct  = Sequential(ConvBN, ReLU)                             -> .0.0 / .0.1
 
-BatchNorm uses eps 1e-5 and torch momentum 0.1 (flax decay 0.9). The JAX
-package's TPU layout paths (folded-BN `epilogue=`, `fold_params`,
-`packed_out`, kd-fold, packed dialect, subpixel deconv) are not ported; its
-`residual=` is a plain add in the callers.
+BatchNorm uses eps 1e-5 and torch momentum 0.1 (flax decay 0.9), and in
+train mode flax's statistics (see `BatchNorm2d`). The JAX package's TPU
+layout paths (folded-BN `epilogue=`, `fold_params`, `packed_out`, kd-fold,
+packed dialect, subpixel deconv) are not ported; its `residual=` is a plain
+add in the callers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
+import torch.nn.functional as F
+
+_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_bn_statistics():
+    """Train-mode BatchNorm inside normalises with batch statistics but leaves
+    the running statistics alone. Used for the recomputation of a
+    checkpointed block, which would otherwise update them twice per step
+    (flax's nn.remat likewise drops the recomputed batch_stats)."""
+    depth = getattr(_FROZEN, "depth", 0)
+    _FROZEN.depth = depth + 1
+    try:
+        yield
+    finally:
+        _FROZEN.depth = depth
+
+
+class _FlaxStatistics:
+    """Train mode as flax's nn.BatchNorm(use_running_average=False): normalise
+    with the batch mean and the BIASED batch variance (as F.batch_norm does),
+    and update the running variance with that same biased variance, where
+    torch's BatchNorm would use the unbiased one (x N/(N-1)). Eval mode is
+    torch's, on the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if getattr(_FROZEN, "depth", 0) == 0:
+            with torch.no_grad():
+                dims = [0] + list(range(2, x.dim()))
+                var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm2d(_FlaxStatistics, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxStatistics, nn.BatchNorm3d):
+    pass
 
 
 def batch_norm(features: int, dims: int) -> nn.Module:
-    """BatchNorm{2,3}d with the reference's defaults (eps 1e-5, momentum 0.1)."""
-    cls = nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d
+    """BatchNorm{2,3}d with the reference's defaults (eps 1e-5, momentum 0.1)
+    and flax's train-mode statistics; nn.BatchNorm{2,3}d's state_dict keys."""
+    cls = BatchNorm2d if dims == 2 else BatchNorm3d
     return cls(features, eps=1e-5, momentum=0.1)
 
 

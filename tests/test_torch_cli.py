@@ -218,3 +218,59 @@ def test_pad_to_multiple_matches_jax(rng, hw):
     assert pads == want_pads
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(tsub.unpad(got[..., 0], pads), jloader.unpad(want[..., 0], want_pads))
+
+
+# ---- cli train ----
+
+def _tiny_sceneflow(tmp_path, monkeypatch):
+    """Four 48x96 synthetic SceneFlow pairs, and the preset's crop cut to
+    32x64 so that a CPU step takes a second (the 256x512 crop runs on the card)."""
+    from dcanet_tpu_torch.data import datasets
+    from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
+
+    monkeypatch.setitem(datasets.PRESETS, "sceneflow", dict(datasets.PRESETS["sceneflow"], crop=(32, 64)))
+    return write_sceneflow_tree(tmp_path / "sceneflow", 4, (48, 96), seed=0, max_disp=24)
+
+
+def test_train_cpu_then_resume(tmp_path, monkeypatch, capsys):
+    """`cli train --device cpu`: two steps, a checkpoint, the JAX CLI's
+    print lines; `--resume` continues at the saved step with the saved
+    optimizer state."""
+    root = _tiny_sceneflow(tmp_path, monkeypatch)
+    logdir = tmp_path / "run"
+    args = ["train", "--preset", "sceneflow", "--data-root", str(root), "--logdir", str(logdir),
+            "--maxdisp", "32", "--batch-size", "2", "--num-workers", "2", "--print-freq", "1",
+            "--seed", "3", "--device", "cpu"]
+    hist = cli.main(args + ["--epochs", "1"])
+    assert [r["step"] for r in hist] == [0, 1]
+    assert all(np.isfinite(r[k]) for r in hist for k in ("total", "focal", "smooth_l1", "grad_norm", "epe"))
+    out = capsys.readouterr().out
+    assert "train samples: 4" in out and "epoch 0 step 2/2 loss " in out and " pairs/s)" in out
+    assert sorted(p.name for p in (logdir / "ckpt").iterdir()) == ["ckpt_00000002.pt"]
+    assert len((logdir / "train_log.jsonl").read_text().splitlines()) == 2
+
+    resumed = cli.main(args + ["--epochs", "2", "--resume"])
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert [r["step"] for r in resumed] == [2, 3]
+    assert sorted(p.name for p in (logdir / "ckpt").iterdir()) == ["ckpt_00000002.pt", "ckpt_00000004.pt"]
+    payload = torch.load(logdir / "ckpt" / "ckpt_00000004.pt", weights_only=True)
+    assert payload["step"] == 4 and payload["optimizer"]["state"]
+
+
+def test_train_loadckpt_starts_from_saved_weights(tmp_path, monkeypatch, capsys):
+    from dcanet_tpu_torch.train.checkpoint import save_params_only
+
+    root = _tiny_sceneflow(tmp_path, monkeypatch)
+    model = cli.build_model(32, 3, device="cpu", seed=5)
+    save_params_only(tmp_path / "w.pt", model)
+    cli.main(["train", "--data-root", str(root), "--logdir", str(tmp_path / "run"), "--maxdisp", "32",
+              "--epochs", "0", "--loadckpt", str(tmp_path / "w.pt"), "--device", "cpu"])
+    assert f"loaded pretrained weights from {tmp_path / 'w.pt'}" in capsys.readouterr().out
+
+
+def test_train_without_gpu_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    root = _tiny_sceneflow(tmp_path, monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--data-root", str(root), "--logdir", str(tmp_path / "run"), "--maxdisp", "32"])
+    assert not (tmp_path / "run" / "ckpt").exists()

@@ -138,3 +138,101 @@ def test_cuda_kernel_matches_plain_version(dtype):
         want = G.gwc_volume_reference(left, right, maxdisp, 4)
         rtol = 0.0 if dt == torch.float32 else 2.0**-7
         torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=rtol)
+
+
+# ---- backward ----
+
+def _grad_case(rng, b=2, h=3, w=12, c=16, maxdisp=6, groups=4):
+    left, right = _features(rng, (b, h, w, c))
+    g = rng.standard_normal((b, maxdisp, h, w, groups), dtype=np.float32)  # JAX layout BDHWG
+    return left, right, g, maxdisp, groups
+
+
+def _port_grads(left, right, g, maxdisp, groups):
+    """The port's differentiable gwc_volume on CPU tensors (NCHW / NCDHW)."""
+    l = torch.from_numpy(left.transpose(0, 3, 1, 2).copy()).requires_grad_()
+    r = torch.from_numpy(right.transpose(0, 3, 1, 2).copy()).requires_grad_()
+    vol = G.gwc_volume(l, r, maxdisp, groups)
+    vol.backward(torch.from_numpy(g.transpose(0, 4, 1, 2, 3).copy()))
+    return l.grad.numpy().transpose(0, 2, 3, 1), r.grad.numpy().transpose(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("maxdisp", [6, 16])  # 16 > W: planes d >= W get no gradient
+def test_gwc_grads_match_jax_grad(rng, maxdisp):
+    """Port grads against jax.grad of the JAX package's build_gwc_volume."""
+    import jax
+    import jax.numpy as jnp
+    from dcanet_tpu.ops.cost_volume import build_gwc_volume
+
+    left, right, g, _, groups = _grad_case(rng, maxdisp=maxdisp)
+
+    def loss(l, r):
+        return jnp.sum(build_gwc_volume(l, r, maxdisp, groups) * g)
+
+    want_dl, want_dr = jax.grad(loss, argnums=(0, 1))(jnp.asarray(left), jnp.asarray(right))
+    dl, dr = _port_grads(left, right, g, maxdisp, groups)
+    np.testing.assert_allclose(dl, np.asarray(want_dl), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(dr, np.asarray(want_dr), atol=1e-5, rtol=0)
+
+
+def test_gwc_grads_match_pallas_custom_vjp_backward(rng):
+    """Port grads against the JAX kernel's own backward, gwc.py::_bwd."""
+    import jax.numpy as jnp
+    from dcanet_tpu.kernels.gwc import _bwd
+
+    left, right, g, maxdisp, groups = _grad_case(rng, maxdisp=8, groups=2)
+    want_dl, want_dr = _bwd(maxdisp, groups, (jnp.asarray(left), jnp.asarray(right)), jnp.asarray(g))
+    dl, dr = _port_grads(left, right, g, maxdisp, groups)
+    np.testing.assert_allclose(dl, np.asarray(want_dl), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(dr, np.asarray(want_dr), atol=1e-5, rtol=0)
+
+
+def test_plain_backward_is_autograd_of_plain_forward(rng):
+    """gwc_volume_backward_reference (the kernel's plain version) is autograd
+    through the plain forward, and builds no graph on its caller's tensors."""
+    left, right, g, maxdisp, groups = _grad_case(rng)
+    l, r = (torch.from_numpy(a.transpose(0, 3, 1, 2).copy()) for a in (left, right))
+    gt = torch.from_numpy(g.transpose(0, 4, 1, 2, 3).copy())
+    dl, dr = G.gwc_volume_backward_reference(gt, l, r, maxdisp, groups)
+    assert not dl.requires_grad and dl.shape == l.shape and dr.shape == r.shape
+    want_dl, want_dr = _port_grads(left, right, g, maxdisp, groups)
+    np.testing.assert_allclose(dl.numpy().transpose(0, 2, 3, 1), want_dl, atol=0, rtol=0)
+    np.testing.assert_allclose(dr.numpy().transpose(0, 2, 3, 1), want_dr, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "case", ["grad_shape", "grad_dtype", "grad_non_contiguous", "cpu_tensors"]
+)
+def test_backward_wrapper_rejects_bad_inputs(case):
+    x = torch.zeros(1, 16, 4, 8)
+    grad = torch.zeros(1, 4, 5, 4, 8)
+    args = {
+        "grad_shape": (torch.zeros(1, 4, 6, 4, 8), x, x),
+        "grad_dtype": (grad.double(), x, x),
+        "grad_non_contiguous": (torch.zeros(1, 4, 5, 8, 4).transpose(3, 4), x, x),
+        "cpu_tensors": (grad, x, x),
+    }[case]
+    before = G.BACKWARD_LAUNCHES
+    with pytest.raises(ValueError):
+        G.gwc_volume_backward_cuda(*args, 5, 4)
+    assert G.BACKWARD_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_kernel_matches_plain_version(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(1)
+    dt = getattr(torch, dtype)
+    left, right = (torch.from_numpy(a).cuda().to(dt) for a in _features(rng, (2, 32, 6, 20)))
+    for maxdisp in (8, 12, 60):
+        grad = torch.from_numpy(rng.standard_normal((2, 4, maxdisp, 6, 20), dtype=np.float32)).cuda().to(dt)
+        l, r = left.clone().requires_grad_(), right.clone().requires_grad_()
+        before = G.BACKWARD_LAUNCHES
+        G.gwc_volume(l, r, maxdisp, 4).backward(grad)
+        assert G.BACKWARD_LAUNCHES == before + 1
+        want = G.gwc_volume_backward_reference(grad, left, right, maxdisp, 4)
+        rtol = 0.0 if dt == torch.float32 else 2.0**-7
+        for got, w in zip((l.grad, r.grad), want):
+            torch.testing.assert_close(got.float(), w.float(), atol=1e-5, rtol=rtol)

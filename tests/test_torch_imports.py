@@ -38,6 +38,11 @@ def test_every_submodule_imports(probe):
     expected = {
         "dcanet_tpu_torch.cli", "dcanet_tpu_torch.weights", "dcanet_tpu_torch.models.dcanet",
         "dcanet_tpu_torch.kernels.gwc", "dcanet_tpu_torch.nn.cva", "dcanet_tpu_torch.data.io",
+        "dcanet_tpu_torch.kernels.conv3d", "dcanet_tpu_torch.config", "dcanet_tpu_torch.losses",
+        "dcanet_tpu_torch.ops.disp2prob", "dcanet_tpu_torch.train.checkpoint", "dcanet_tpu_torch.train.loop",
+        "dcanet_tpu_torch.train.metrics", "dcanet_tpu_torch.train.schedule", "dcanet_tpu_torch.train.state",
+        "dcanet_tpu_torch.data.augment", "dcanet_tpu_torch.data.datasets", "dcanet_tpu_torch.data.loader",
+        "dcanet_tpu_torch.data.synthetic",
     }
     assert expected <= set(probe["imported"])
 
