@@ -5,7 +5,9 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device and build: the card's name and power limit (nvidia-smi); every
-     CUDA kernel built from the checkout's sources, one nvcc per source.
+     CUDA kernel built from the checkout's sources, one nvcc per source, with
+     ptxas's registers and spills per kernel; the conv3d library's SASS
+     (cuobjdump) must show HMMA in the bf16 kernel and none in the f32 one.
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at edge cases, TF32 off: the gwc volume, its
      backward (against autograd through the plain version), conv3d (with
@@ -20,8 +22,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. serving: three `cli infer --submission` requests on a synthetic
      KITTI-sized PNG pair; the gwc launches of this phase are counted.
   5. conv3d path: the counterpart of the JAX package's run_pallas
-     (tools/bench_conv3d.py): the convs at its shapes and one conv3d_fast
-     forward and backward; the conv3d launches of this phase are counted.
+     (tools/bench_conv3d.py), in f32 and in bf16: the convs at its shapes and
+     one conv3d_fast forward and backward; the launches of this phase are
+     counted for each of the two conv3d kernels.
   6. train: `cli train --preset sceneflow` with DCANet(num_cva=3,
      maxdisp=192) at full width on a synthetic SceneFlow tree (540x960
      pairs from the seed), the preset's 256x512 crop, batch 1, f32: loss
@@ -122,8 +125,33 @@ def phase_build():
     for name, r in report.items():
         log(f"[build] {name}: {r['seconds']:.2f} s -> {r['path']}")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+    check_tensor_cores(report["conv3d"]["path"])
+
+
+def check_tensor_cores(lib_path: str) -> None:
+    """The conv3d library's SASS (cuobjdump): HMMA instructions per kernel;
+    raises unless the bf16 kernel has them and the f32 kernel has none."""
+    from dcanet_tpu_torch.kernels import build
+
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, first, fn = {}, {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+            first.setdefault(fn, " ".join(line.split()))
+    for fn, n in counts.items():
+        log(f"[build] SASS {fn}: {n} HMMA" + (f", first: {first[fn]}" if n else ""))
+    bf16 = [n for fn, n in counts.items() if "conv3d_bf16_kernel" in fn]
+    f32 = [n for fn, n in counts.items() if "conv3d_kernel" in fn]
+    if not bf16 or min(bf16) == 0 or not f32 or max(f32) != 0:
+        raise AssertionError(f"[build] conv3d SASS: HMMA in the bf16 kernels {bf16}, in the f32 kernels {f32}")
 
 
 def check_close(tag: str, got, want, atol: float, rtol: float) -> float:
@@ -247,6 +275,13 @@ def phase_kernels():
         ("64->32 bf16", CONV_SHAPE_64, 32, torch.bfloat16, False),
         ("ragged f32 scale+bias+relu", (2, 5, 3, 9, 33), 40, torch.float32, True),
         ("ragged bf16", (2, 5, 3, 9, 33), 40, torch.bfloat16, False),
+        # the bf16 tensor-core kernel's edges: two Co tiles, C not a multiple
+        # of its 16-channel step, W not a multiple of 8 (scalar stores) with a
+        # ragged H, and D = 1
+        ("64->64 bf16 scale+bias+relu", (1, 64, 6, 20, 72), 64, torch.bfloat16, True),
+        ("C=24 bf16", (1, 24, 4, 10, 40), 32, torch.bfloat16, False),
+        ("W=33 bf16 scale+bias+relu", (1, 32, 3, 10, 33), 32, torch.bfloat16, True),
+        ("D=1 bf16", (2, 32, 1, 12, 64), 32, torch.bfloat16, False),
     ]
     conv_errs = {}
     for name, xs, co, dtype, affine in conv_cases:
@@ -324,8 +359,8 @@ def phase_kernels():
             timing["conv3d"][f"{shape_tag} {tag}"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
             log(f"[kernels] conv3d {shape_tag} {tag} x{tuple(xs)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"F.conv3d {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                f"{bound_ms / ms:.1%} of bound (cold L2)")
+                f"F.conv3d {library_ms:.4f} ms, kernel / F.conv3d {ms / library_ms:.3f}, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
             del x, w
     del flush
     torch.cuda.empty_cache()
@@ -509,10 +544,11 @@ def phase_serving(flat, ref_disp, workdir: Path):
 
 def phase_conv3d_path():
     """The conv3d kernel's own path, the counterpart of the JAX package's
-    tools/bench_conv3d.py::run_pallas: the plain conv and the scale+bias+ReLU
-    conv at 32 -> 32, the 64 -> 32 conv, and one conv3d_fast forward and
-    backward (the JAX package's custom_vjp, whose dgrad is the kernel).
-    Returns the kernel's launch count on this path."""
+    tools/bench_conv3d.py::run_pallas, in f32 and again in bf16 (its `--bf16`
+    flag): the plain conv and the scale+bias+ReLU conv at 32 -> 32, the
+    64 -> 32 conv, and one conv3d_fast forward and backward (the JAX
+    package's custom_vjp, whose dgrad is the kernel). Returns the launch
+    counts of the f32 (FMA) and the bf16 (tensor-core) kernel on this path."""
     import torch
 
     from dcanet_tpu_torch.kernels import conv3d as cv
@@ -524,23 +560,31 @@ def phase_conv3d_path():
     w64 = torch.randn((32, 64, 3, 3, 3), generator=gen, device="cuda") * 0.1
     sc = torch.ones(32, device="cuda")
     bi = torch.zeros(32, device="cuda")
-    cv.LAUNCHES = 0
-    outs = [cv.conv3d(x, w), cv.conv3d(x, w, sc, bi, relu=True), cv.conv3d(x64, w64)]
-    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
-    y = cv.conv3d_fast(xg, wg, True)
-    y.backward(torch.ones_like(y))
-    torch.cuda.synchronize()
-    launches = cv.LAUNCHES
-    if launches != 5:
-        raise AssertionError(f"[conv3d path] {launches} kernel launches, expected 3 convs + 1 forward + 1 dgrad")
-    want = cv.conv3d_reference(x, w)
-    err = float((outs[0] - want).abs().max())
-    relu_err = float((outs[1] - torch.relu(want)).abs().max())
-    finite = all(bool(torch.isfinite(t).all()) for t in (*outs, y, xg.grad, wg.grad))
-    log(f"[conv3d path] 3 convs + conv3d_fast fwd/bwd at {CONV_SHAPE} and {CONV_SHAPE_64}: {launches} launches, "
-        f"max|err| vs plain {err:.3e} (affine+relu {relu_err:.3e}), all finite: {finite}")
-    if not finite or max(err, relu_err) > 1e-5 * max(1.0, float(want.abs().max())):
-        raise AssertionError("[conv3d path] outputs not finite or off the plain version")
+    launches = {}
+    for tag, dtype, rtol in (("f32", torch.float32, 0.0), ("bf16", torch.bfloat16, 2.0**-7)):
+        xd, wd, x64d, w64d = (t.to(dtype) for t in (x, w, x64, w64))
+        cv.LAUNCHES = cv.BF16_LAUNCHES = 0
+        outs = [cv.conv3d(xd, wd), cv.conv3d(xd, wd, sc, bi, relu=True), cv.conv3d(x64d, w64d)]
+        xg, wg = xd.clone().requires_grad_(), wd.clone().requires_grad_()
+        y = cv.conv3d_fast(xg, wg, True)
+        y.backward(torch.ones_like(y))
+        torch.cuda.synchronize()
+        n, n_bf16 = cv.LAUNCHES, cv.BF16_LAUNCHES
+        launches[tag] = n_bf16 if dtype == torch.bfloat16 else n - n_bf16
+        if n != 5 or launches[tag] != 5:
+            raise AssertionError(f"[conv3d path {tag}] {n} kernel launches ({n_bf16} bf16), expected 3 convs + "
+                                 f"1 forward + 1 dgrad of the {tag} kernel")
+        want = cv.conv3d_reference(xd, wd).float()
+        atol = 1e-5 * max(1.0, float(want.abs().max()))
+        errs = [(outs[0].float() - want).abs(), (outs[1].float() - torch.relu(want)).abs()]
+        bad = sum(int((e > atol + rtol * r.abs()).sum()) for e, r in zip(errs, (want, torch.relu(want))))
+        finite = all(bool(torch.isfinite(t).all()) for t in (*outs, y, xg.grad, wg.grad))
+        log(f"[conv3d path {tag}] 3 convs + conv3d_fast fwd/bwd at {CONV_SHAPE} and {CONV_SHAPE_64}: {n} launches, "
+            f"max|err| vs plain {float(errs[0].max()):.3e} (affine+relu {float(errs[1].max()):.3e}; atol {atol:.3g}, "
+            f"rtol {rtol:g}), all finite: {finite}")
+        if not finite or bad:
+            raise AssertionError(f"[conv3d path {tag}] outputs not finite or off the plain version")
+        del xd, wd, x64d, w64d, outs, xg, wg, y, want, errs
     return launches
 
 
@@ -756,13 +800,19 @@ def main(argv=None) -> int:
             bfloat16={"max_abs_err": errs["gwc_bwd"]["train bf16"], **bwd_t["bf16"]},
         ),
         kernel_entry(
-            "conv3d", "dcanet_tpu_torch/csrc/conv3d.cu", "dcanet_tpu/kernels/conv3d.py:54", conv_launches,
-            {"conv3d_path": conv_launches}, errs["conv3d"]["32->32 f32"], conv_t["32->32 f32"],
-            dtype="float32", shape={"x": list(CONV_SHAPE), "out_channels": 32},
-            bfloat16={"max_abs_err": errs["conv3d"]["32->32 bf16 scale+bias+relu"], **conv_t["32->32 bf16"]},
-            **{"64->32": {"x": list(CONV_SHAPE_64), "float32": {"max_abs_err": errs["conv3d"]["64->32 f32 scale+bias+relu"],
-                                                                  **conv_t["64->32 f32"]},
-                          "bfloat16": {"max_abs_err": errs["conv3d"]["64->32 bf16"], **conv_t["64->32 bf16"]}}},
+            "conv3d", "dcanet_tpu_torch/csrc/conv3d.cu", "dcanet_tpu/kernels/conv3d.py:54", conv_launches["f32"],
+            {"conv3d_path": conv_launches["f32"]}, errs["conv3d"]["32->32 f32"], conv_t["32->32 f32"],
+            dtype="float32", units="fma", shape={"x": list(CONV_SHAPE), "out_channels": 32},
+            **{"64->32": {"x": list(CONV_SHAPE_64), "max_abs_err": errs["conv3d"]["64->32 f32 scale+bias+relu"],
+                          **conv_t["64->32 f32"]}},
+        ),
+        kernel_entry(
+            "conv3d_bf16", "dcanet_tpu_torch/csrc/conv3d.cu", "dcanet_tpu/kernels/conv3d.py:54", conv_launches["bf16"],
+            {"conv3d_path": conv_launches["bf16"]}, errs["conv3d"]["32->32 bf16 scale+bias+relu"],
+            conv_t["32->32 bf16"], dtype="bfloat16", units="tensor cores (mma.sync)",
+            shape={"x": list(CONV_SHAPE), "out_channels": 32},
+            **{"64->32": {"x": list(CONV_SHAPE_64), "max_abs_err": errs["conv3d"]["64->32 bf16"],
+                          **conv_t["64->32 bf16"]}},
         ),
     ]
     log("[train] summary: " + json.dumps({k: train[k] for k in ("ms", "pairs_per_s", "peak_bytes", "alone")}

@@ -5,10 +5,12 @@
 //                            x[b, c, d+kd-1, h+kh-1, w+kw-1] * wt[c, kd, kh, kw, o]
 //                            + bias[o])
 //
-// with zeros outside the volume. Layouts: x and out NCDHW (B, C, D, H, W); the
-// weight is taken as (C, 3, 3, 3, Co), which the wrapper makes from torch's
-// (Co, C, 3, 3, 3) once per call. f32 or bf16 in, f32 accumulation, the input
-// type out; scale and bias are f32 and may be null (1 and 0).
+// with zeros outside the volume. Layouts: x and out NCDHW (B, C, D, H, W).
+// f32 or bf16 in, f32 accumulation, the input type out; scale and bias are
+// f32 and may be null (1 and 0). The wrapper lays the weight out once per
+// call from torch's (Co, C, 3, 3, 3): (C, 3, 3, 3, Co) for f32; for bf16 the
+// tensor-core kernel's packed, zero-padded (Co/32, 3, C/16, 9, 32, 16), see
+// `pack_weight_bf16` in kernels/conv3d.py.
 //
 // Replaces dcanet_tpu/kernels/conv3d.py::_kernel (the Pallas TPU kernel,
 // launched by conv3d_pallas; conv3d_fast reuses it for dgrad). The TPU
@@ -21,32 +23,62 @@
 // dense), where the bytes (~184 MB, ~0.055 ms) come close. 64 -> 32 doubles
 // the operations.
 //
-// Design, simple first, on the FMA units (no tensor cores yet: wgmma and TMA
-// are later work). A block of 256 threads computes an 8 x 32 (h, w) tile of
-// one (b, d) plane for 32 output channels. For each chunk of 4 input
+// f32, on the FMA units. A block of 256 threads computes an 8 x 32 (h, w)
+// tile of one (b, d) plane for 32 output channels. For each chunk of 4 input
 // channels it stages the three input planes' (8+2) x (32+2) halo tiles and
-// the chunk's 27 x 32 weights in shared memory, in f32. A thread owns one row
-// of the tile, four columns 8 apart and 8 output channels: 32 sums in
-// registers, 96 FMAs per 12 input and 6 16-byte weight loads from shared
-// memory. The input rows sit 40 floats apart, so a warp's 4 rows x 8 columns
-// fall in 32 different banks; the weight loads are broadcasts.
+// the chunk's 27 x 32 weights in shared memory. A thread owns one row of the
+// tile, four columns 8 apart and 8 output channels: 32 sums in registers, 96
+// FMAs per 12 input and 6 16-byte weight loads from shared memory. The input
+// rows sit 40 floats apart, so a warp's 4 rows x 8 columns fall in 32
+// different banks; the weight loads are broadcasts.
+//
+// bf16, on the tensor cores: an implicit GEMM with warp-level mma.sync
+// m16n8k16 (bf16 in, f32 accumulate; HMMA in SASS). M is the output pixels
+// of an 8 x 32 (h, w) tile of one (b, d) plane, N the block's 32 output
+// channels (grid z tiles Co, so dgrad's Co = 64 takes two blocks), K the 27
+// taps x C in steps of 16 channels. A step is one kd plane and one 16-channel
+// chunk: 3 * ceil(C/16) steps, each 9 (kh, kw) taps of K = 16. Each of the 8
+// warps owns one row of 32 pixels x 32 channels: 2 x 4 accumulator tiles, 8
+// MMAs per tap from 2 A and 2 B ldmatrix.x4 loads. The tile was chosen on
+// the card among 13 shapes (dcanet_tpu_torch/tune_conv3d.py): 8 x 32 stages
+// 1.33 halo pixels per output pixel (4 x 64: 1.55, 0.45 vs 0.51 ms) and fits
+// 122 registers without spills, 2 blocks per SM.
+//  - Channel-last in shared memory. A kw shift moves the A tile by one pixel;
+//    in NCDHW that is 2 bytes, below ldmatrix's 16-byte row alignment. The
+//    step's (8+2) x (32+2) halo tile is staged as [row][col][c] with the 16
+//    channels of a pixel contiguous, so a shift is one whole pixel row of the
+//    A matrix. The pixel pitch is 24 elements (48 bytes): each ldmatrix phase
+//    reads 8 rows 12 words apart, which cover all 32 banks once. (WMMA's
+//    load_matrix_sync would need 32-byte fragment pointers, a pitch of 16 or
+//    32 elements, and two-way bank conflicts; ldmatrix needs 16 bytes.)
+//  - The transpose happens in the staging loop: a thread loads 8 channels of
+//    one halo pixel (each load coalesced along w across the warp), packs them
+//    and stores 16 bytes channel-last; no NDHWC copy of x is made. Channels
+//    >= C and points outside the volume are stored as zeros.
+//  - Weights: the step's 9 x 32 x 16 slice is contiguous in the packed
+//    layout and goes to shared memory with 16-byte cp.async, rows of 16
+//    channels at the same 24-element pitch.
+//  - Overlap: two stages. While the warps run step s's MMAs, the next step's
+//    input sits in registers (loaded before, stored after the MMAs) and its
+//    weights are in flight by cp.async. One barrier per step.
+//  - Shared memory: 2 stages x (10*34*24 + 9*32*24) bf16 = 60,288 bytes for
+//    any C (dynamic, above the 48 KB static limit): the registers, not the
+//    shared memory, hold the SM to 2 blocks.
+//  - Epilogue: scale, bias and ReLU in f32 on the accumulators, one rounding
+//    to bf16, staged in shared memory as [co][h][w] (co pitch 264 elements,
+//    so the 4 channels a warp writes at once fall in different banks), then
+//    written NCDHW with 16-byte stores along w where W % 8 == 0, masked at
+//    the ragged H, W and Co edges.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+// ---------------------------------------------------------------------------
+// f32: FMA kernel
 
 constexpr int kThreads = 256;
 constexpr int TH = 8;          // output rows per block
@@ -57,11 +89,11 @@ constexpr int ROWS = TH + 2;   // staged rows (halo 1)
 constexpr int COLS = TW + 2;   // staged columns (halo 1)
 constexpr int PITCH = 40;      // shared-memory row pitch, in floats
 
-template <typename T, bool RELU>
+template <bool RELU>
 __global__ void __launch_bounds__(kThreads)
-conv3d_kernel(const T* __restrict__ x, const T* __restrict__ wt,
+conv3d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
               const float* __restrict__ scale, const float* __restrict__ bias,
-              T* __restrict__ out, int C, int D, int H, int W, int Co, int tiles_w) {
+              float* __restrict__ out, int C, int D, int H, int W, int Co, int tiles_w) {
   __shared__ float s_in[CI_T][3][ROWS][PITCH];
   __shared__ __align__(16) float s_w[CI_T][27][CO_T];
 
@@ -77,7 +109,7 @@ conv3d_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 
   const long long plane = (long long)H * W;
   const long long vol = (long long)D * plane;
-  const T* xb = x + (long long)b * C * vol;
+  const float* xb = x + (long long)b * C * vol;
 
   float acc[4][8];
 #pragma unroll
@@ -96,7 +128,7 @@ conv3d_kernel(const T* __restrict__ x, const T* __restrict__ wt,
       const int gc = ci0 + ci, gd = d + kd - 1, gh = h0 + row - 1, gw = w0 + col - 1;
       float v = 0.0f;
       if (gc < C && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = to_f32(xb[gc * vol + gd * plane + (long long)gh * W + gw]);
+        v = xb[gc * vol + gd * plane + (long long)gh * W + gw];
       s_in[ci][kd][row][col] = v;
     }
     for (int i = tid; i < CI_T * 27 * CO_T; i += kThreads) {
@@ -105,8 +137,7 @@ conv3d_kernel(const T* __restrict__ x, const T* __restrict__ wt,
       const int tap = r % 27;
       const int ci = r / 27;
       const int gc = ci0 + ci, gco = co0 + co;
-      s_w[ci][tap][co] =
-          (gc < C && gco < Co) ? to_f32(wt[((long long)gc * 27 + tap) * Co + gco]) : 0.0f;
+      s_w[ci][tap][co] = (gc < C && gco < Co) ? wt[((long long)gc * 27 + tap) * Co + gco] : 0.0f;
     }
     __syncthreads();
 
@@ -147,41 +178,263 @@ conv3d_kernel(const T* __restrict__ x, const T* __restrict__ wt,
     if (co >= Co) break;
     const float s = scale ? scale[co] : 1.0f;
     const float t = bias ? bias[co] : 0.0f;
-    T* o = out + (((long long)b * Co + co) * D + d) * plane + (long long)h * W;
+    float* o = out + (((long long)b * Co + co) * D + d) * plane + (long long)h * W;
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int wc = w0 + tx + 8 * p;
       if (wc < W) {
         float y = fmaf(acc[p][j], s, t);
         if (RELU) y = fmaxf(y, 0.0f);
-        o[wc] = from_f32<T>(y);
+        o[wc] = y;
       }
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* wt, const void* scale, const void* bias, void* out,
-           int B, int C, int D, int H, int W, int Co, int relu, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || C <= 0 || D <= 0 || H <= 0 || W <= 0 || Co <= 0) return (int)cudaErrorInvalidValue;
-  const long long tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
-  const long long bd = (long long)B * D, co_blocks = (Co + CO_T - 1) / CO_T;
-  if (tiles_w * tiles_h > 0x7fffffffLL || bd > 65535 || co_blocks > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(tiles_w * tiles_h), (unsigned)bd, (unsigned)co_blocks);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(wt);
-  const float* sp = static_cast<const float*>(scale);
-  const float* bp = static_cast<const float*>(bias);
-  T* op = static_cast<T*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (relu)
-    conv3d_kernel<T, true><<<grid, kThreads, 0, s>>>(xp, wp, sp, bp, op, C, D, H, W, Co, (int)tiles_w);
-  else
-    conv3d_kernel<T, false><<<grid, kThreads, 0, s>>>(xp, wp, sp, bp, op, C, D, H, W, Co, (int)tiles_w);
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------------
+// bf16: implicit GEMM on the tensor cores
+
+namespace tc {
+
+constexpr int kThreads = 256;     // 8 warps
+constexpr int TH = 8;             // output rows per block
+constexpr int TW = 32;            // output columns per block
+constexpr int MT = 2;             // 16-pixel M tiles per warp, side by side in one row
+constexpr int CO_T = 32;          // output channels per block: 4 N tiles of 8
+constexpr int CK = 16;            // input channels per step: the MMA's K
+constexpr int ROWS = TH + 2;      // staged rows (halo 1)
+constexpr int COLS = TW + 2;      // staged columns (halo 1)
+constexpr int PITCH = 24;         // bf16 elements per staged pixel / weight row
+constexpr int WARPS_PER_ROW = TW / (16 * MT);
+constexpr int IN_ELEMS = ROWS * COLS * PITCH;
+constexpr int W_ELEMS = 9 * CO_T * PITCH;
+constexpr int STAGE = IN_ELEMS + W_ELEMS;        // one step's tiles, in bf16 elements
+constexpr int TASKS = ROWS * COLS * (CK / 8);    // 8 channels of one halo pixel each
+constexpr int NT = (TASKS + kThreads - 1) / kThreads;
+constexpr int W_STEP = 9 * CO_T * CK;            // one step's packed weights, in elements
+constexpr int W_PIECES = W_STEP / 8;             // ... in 16-byte pieces
+constexpr int OUT_PITCH = TH * TW + 8;           // epilogue: elements per output channel
+constexpr int SMEM_BYTES = 2 * (2 * STAGE > CO_T * OUT_PITCH ? 2 * STAGE : CO_T * OUT_PITCH);
+static_assert(WARPS_PER_ROW * TH * 32 == kThreads, "one warp per 16*MT columns of a row");
+static_assert((PITCH * 2) % 16 == 0 && (IN_ELEMS * 2) % 16 == 0 && (STAGE * 2) % 16 == 0,
+              "ldmatrix and cp.async need 16-byte aligned rows");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// D = A * B + D; A 16x16 row-major (pixels x channels), B 16x8 "col" (stored
+// as 8 output channels x 16 channels), D 16x8 f32.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct Geometry {
+  const unsigned short* xb;  // x at batch b, as raw bf16 bits
+  long long plane, vol;
+  int C, D, H, W, d, h0, w0, n_cc;
+};
+
+// Step s's input halo tile, 8 channels of one pixel per task, into registers
+// as packed bf16 pairs (zeros outside the volume and for channels >= C).
+__device__ __forceinline__ void load_input(uint4 (&v)[NT], const Geometry& g, int s, int tid) {
+  const int c0 = (s % g.n_cc) * CK;
+  const int gd = g.d + s / g.n_cc - 1;
+  const bool d_ok = gd >= 0 && gd < g.D;
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    const int i = tid + k * kThreads;
+    const int col = i % COLS, row = (i / COLS) % ROWS, cg = i / (COLS * ROWS);
+    const int gh = g.h0 + row - 1, gw = g.w0 + col - 1;
+    uint32_t p[4] = {0u, 0u, 0u, 0u};
+    if (i < TASKS && d_ok && gh >= 0 && gh < g.H && gw >= 0 && gw < g.W) {
+      const int c = c0 + cg * 8;
+      const unsigned short* src = g.xb + gd * g.plane + (long long)gh * g.W + gw;
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        const uint32_t lo = c + j < g.C ? src[(c + j) * g.vol] : 0u;
+        const uint32_t hi = c + j + 1 < g.C ? src[(c + j + 1) * g.vol] : 0u;
+        p[j / 2] = lo | (hi << 16);
+      }
+    }
+    v[k] = make_uint4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// The registers of load_input into a stage, channel-last: [row][col][c].
+__device__ __forceinline__ void store_input(__nv_bfloat16* s_in, const uint4 (&v)[NT], int tid) {
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < TASKS) {
+      const int col = i % COLS, row = (i / COLS) % ROWS, cg = i / (COLS * ROWS);
+      *reinterpret_cast<uint4*>(s_in + (row * COLS + col) * PITCH + cg * 8) = v[k];
+    }
+  }
+}
+
+// Step s's packed weights ([tap][co][16 c], contiguous) into a stage, rows
+// of 16 channels at the pixel pitch.
+__device__ __forceinline__ void load_weights(uint32_t s_w, const __nv_bfloat16* w_step, int tid) {
+  for (int q = tid; q < W_PIECES; q += kThreads) {
+    const int half = q % (CK / 8), row = q / (CK / 8);  // row = tap * CO_T + co
+    cp_async16(s_w + (row * PITCH + half * 8) * 2, w_step + q * 8);
+  }
+}
+
+template <bool RELU>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3d_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wp,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ out, int C, int D, int H, int W, int Co,
+                   int tiles_w) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp / WARPS_PER_ROW;                  // the warp's tile row
+  const int wc = (warp % WARPS_PER_ROW) * 16 * MT;      // ... and first column
+  Geometry g;
+  g.h0 = (blockIdx.x / tiles_w) * TH;
+  g.w0 = (blockIdx.x % tiles_w) * TW;
+  g.d = blockIdx.y % D;
+  const int b = blockIdx.y / D;
+  const int co0 = blockIdx.z * CO_T;
+  g.C = C, g.D = D, g.H = H, g.W = W;
+  g.plane = (long long)H * W;
+  g.vol = (long long)D * g.plane;
+  g.xb = reinterpret_cast<const unsigned short*>(x) + (long long)b * C * g.vol;
+  g.n_cc = (C + CK - 1) / CK;
+  const int steps = 3 * g.n_cc;
+  const __nv_bfloat16* w_tile = wp + (long long)blockIdx.z * steps * W_STEP;
+
+  // ldmatrix row addresses: A rows are pixels (lanes 0-15 at channels 0-7,
+  // lanes 16-31 at 8-15); B rows are output channels (matrices: co 0-7 at
+  // c 0-7 and 8-15, then co 8-15 at c 0-7 and 8-15).
+  const uint32_t a_lane = ((lane & 15) * PITCH + (lane >> 4) * 8) * 2;
+  const uint32_t b_lane = (((lane & 7) + ((lane >> 4) << 3)) * PITCH + ((lane >> 3) & 1) * 8) * 2;
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.0f;
+
+  uint4 pre[NT];
+  load_input(pre, g, 0, tid);
+  load_weights(smem_addr(smem + IN_ELEMS), w_tile, tid);
+  cp_async_commit();
+  store_input(smem, pre, tid);
+
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    cp_async_wait_all();
+    __syncthreads();  // stage buf is complete; every warp is done with stage buf ^ 1
+    const bool next = s + 1 < steps;
+    if (next) {
+      load_input(pre, g, s + 1, tid);
+      load_weights(smem_addr(smem + (buf ^ 1) * STAGE + IN_ELEMS), w_tile + (long long)(s + 1) * W_STEP,
+                   tid);
+      cp_async_commit();
+    }
+    const uint32_t s_in = smem_addr(smem + buf * STAGE);
+    const uint32_t s_w = s_in + IN_ELEMS * 2;
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        uint32_t a[MT][4], bq[2][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          ldmatrix_x4(s_in + ((wr + kh) * COLS + wc + 16 * m + kw) * PITCH * 2 + a_lane, a[m]);
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          ldmatrix_x4(s_w + ((kh * 3 + kw) * CO_T + 16 * p) * PITCH * 2 + b_lane, bq[p]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_16816(acc[m][n], a[m], bq[n >> 1][(n & 1) * 2], bq[n >> 1][(n & 1) * 2 + 1]);
+      }
+    }
+    if (next) store_input(smem + (buf ^ 1) * STAGE, pre, tid);
+  }
+  __syncthreads();  // the stages are free: reuse them for the output tile
+
+  // Accumulator layout of m16n8: c0, c1 at pixel lane/4, channels 2*(lane%4)
+  // and +1; c2, c3 at pixel lane/4 + 8.
+  const int gp = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int co = 8 * n + 2 * t4 + j, gco = co0 + co;
+      const float sc = (scale && gco < Co) ? scale[gco] : 1.0f;
+      const float bi = (bias && gco < Co) ? bias[gco] : 0.0f;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float y = fmaf(acc[m][n][2 * hf + j], sc, bi);
+          if (RELU) y = fmaxf(y, 0.0f);
+          smem[co * OUT_PITCH + wr * TW + wc + 16 * m + gp + 8 * hf] = __float2bfloat16(y);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const bool vec = (W % 8) == 0;
+  for (int i = tid; i < CO_T * TH * (TW / 8); i += kThreads) {
+    const int v = i % (TW / 8), row = (i / (TW / 8)) % TH, co = i / (TW / 8 * TH);
+    const int gco = co0 + co, h = g.h0 + row, w = g.w0 + 8 * v;
+    if (gco >= Co || h >= H || w >= W) continue;
+    const __nv_bfloat16* src = smem + co * OUT_PITCH + row * TW + 8 * v;
+    __nv_bfloat16* dst = out + (((long long)b * Co + gco) * D + g.d) * g.plane + (long long)h * W + w;
+    if (vec && w + 8 <= W) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < 8 && w + j < W; ++j) dst[j] = src[j];
+    }
+  }
+}
+
+}  // namespace tc
+
+// Grid over (h, w) tiles, B*D planes and output-channel tiles; false for
+// sizes that are empty or that the grid cannot hold.
+bool grid_for(int B, int C, int D, int H, int W, int Co, int th, int tw, int co_t, dim3& grid,
+              int& tiles_w) {
+  if (B <= 0 || C <= 0 || D <= 0 || H <= 0 || W <= 0 || Co <= 0) return false;
+  const long long tw_n = (W + tw - 1) / tw, th_n = (H + th - 1) / th;
+  const long long bd = (long long)B * D, co_blocks = (Co + co_t - 1) / co_t;
+  if (tw_n * th_n > 0x7fffffffLL || bd > 65535 || co_blocks > 65535) return false;
+  grid = dim3((unsigned)(tw_n * th_n), (unsigned)bd, (unsigned)co_blocks);
+  tiles_w = (int)tw_n;
+  return true;
 }
 
 }  // namespace
@@ -192,11 +445,40 @@ int launch(const void* x, const void* wt, const void* scale, const void* bias, v
 extern "C" int conv3d_f32(const void* x, const void* wt, const void* scale, const void* bias,
                           void* out, int B, int C, int D, int H, int W, int Co, int relu,
                           int device, void* stream) {
-  return launch<float>(x, wt, scale, bias, out, B, C, D, H, W, Co, relu, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid;
+  int tiles_w;
+  if (!grid_for(B, C, D, H, W, Co, TH, TW, CO_T, grid, tiles_w)) return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(wt);
+  const float* sp = static_cast<const float*>(scale);
+  const float* bp = static_cast<const float*>(bias);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (relu)
+    conv3d_kernel<true><<<grid, kThreads, 0, s>>>(xp, wp, sp, bp, op, C, D, H, W, Co, tiles_w);
+  else
+    conv3d_kernel<false><<<grid, kThreads, 0, s>>>(xp, wp, sp, bp, op, C, D, H, W, Co, tiles_w);
+  return (int)cudaGetLastError();
 }
 
+// wt: the packed weight of kernels/conv3d.py::pack_weight_bf16.
 extern "C" int conv3d_bf16(const void* x, const void* wt, const void* scale, const void* bias,
                            void* out, int B, int C, int D, int H, int W, int Co, int relu,
                            int device, void* stream) {
-  return launch<__nv_bfloat16>(x, wt, scale, bias, out, B, C, D, H, W, Co, relu, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid;
+  int tiles_w;
+  if (!grid_for(B, C, D, H, W, Co, tc::TH, tc::TW, tc::CO_T, grid, tiles_w))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = relu ? tc::conv3d_bf16_kernel<true> : tc::conv3d_bf16_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, tc::kThreads, tc::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), C, D, H, W, Co, tiles_w);
+  return (int)cudaGetLastError();
 }

@@ -1,14 +1,16 @@
 """3x3x3 stride-1 pad-1 Conv3D: CUDA kernel, plain version, dispatcher, and
 `conv3d_fast`, its autograd form.
 
-The kernel (`dcanet_tpu_torch/csrc/conv3d.cu`) replaces the Pallas TPU kernel
-`dcanet_tpu/kernels/conv3d.py::_kernel` (launched by `conv3d_pallas`).
-Layouts: x and the output NCDHW (B, C, D, H, W), the weight torch's
-(Co, C, 3, 3, 3); f32 or bf16, accumulated in f32; optional per-channel f32
-scale and bias, then an optional ReLU.
+The kernels (`dcanet_tpu_torch/csrc/conv3d.cu`) replace the Pallas TPU kernel
+`dcanet_tpu/kernels/conv3d.py::_kernel` (launched by `conv3d_pallas`):
+f32 runs on the FMA units, bf16 on the tensor cores (an implicit GEMM with
+mma.sync). Layouts: x and the output NCDHW (B, C, D, H, W), the weight
+torch's (Co, C, 3, 3, 3); f32 or bf16, accumulated in f32; optional
+per-channel f32 scale and bias, then an optional ReLU.
 
 - `conv3d_reference`: the plain version, an explicit sum of 27 shifted
   einsums (no cuDNN), in f32, rounded once to the input type.
+- `pack_weight_bf16`: the bf16 kernel's weight layout, made once per call.
 - `conv3d_cuda`: launches the kernel on the current stream of the tensors'
   device; raises on anything the kernel does not take.
 - `conv3d`: the plain version for CPU tensors, the kernel for CUDA tensors;
@@ -23,7 +25,8 @@ scale and bias, then an optional ReLU.
 The JAX package's model does not call this kernel (its layers use XLA
 convs), and neither does the port's `DCANet`.
 
-`LAUNCHES` counts kernel launches (forward and dgrad) and nothing else.
+`LAUNCHES` counts kernel launches of either type (forward and dgrad) and
+nothing else; `BF16_LAUNCHES` those of the bf16 tensor-core kernel alone.
 """
 
 from __future__ import annotations
@@ -37,8 +40,11 @@ import torch.nn.functional as F
 from dcanet_tpu_torch.kernels import build
 
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 
 _FUNCS = {torch.float32: "conv3d_f32", torch.bfloat16: "conv3d_bf16"}
+# the bf16 kernel's output-channel tile and MMA depth (csrc/conv3d.cu, tc::CO_T, tc::CK)
+CO_TILE, C_CHUNK = 32, 16
 
 
 def _lib() -> ctypes.CDLL:
@@ -76,6 +82,19 @@ def conv3d_reference(
     return out.to(x.dtype)
 
 
+def pack_weight_bf16(w: torch.Tensor) -> torch.Tensor:
+    """torch's (Co, C, 3, 3, 3) -> the bf16 kernel's (ceil(Co/32), 3 kd,
+    ceil(C/16), 9 (kh, kw), 32 co, 16 c), zero-padded in Co and C: one
+    kernel step (a kd plane and 16 channels) reads a contiguous 9 x 32 x 16
+    slice for its output-channel tile."""
+    co, c = w.shape[:2]
+    ct, cc = -(-co // CO_TILE), -(-c // C_CHUNK)
+    wpad = w.new_zeros((ct * CO_TILE, cc * C_CHUNK, 3, 3, 3))
+    wpad[:co, :c] = w
+    return (wpad.view(ct, CO_TILE, cc, C_CHUNK, 3, 3, 3).permute(0, 4, 2, 5, 6, 1, 3)
+            .reshape(ct, 3, cc, 9, CO_TILE, C_CHUNK).contiguous())
+
+
 def _check(x, w, scale, bias) -> None:
     if x.dtype not in _FUNCS or w.dtype != x.dtype:
         raise TypeError(f"conv3d kernel takes float32 or bfloat16 x and w of one type, got {x.dtype} and {w.dtype}")
@@ -98,11 +117,12 @@ def conv3d_cuda(
     bias: Optional[torch.Tensor] = None, relu: bool = False,
 ) -> torch.Tensor:
     """The CUDA kernel: (B, C, D, H, W) x (Co, C, 3, 3, 3) -> (B, Co, D, H, W)."""
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
     _check(x, w, scale, bias)
     b, c, d, h, wd = x.shape
     co = w.shape[0]
-    wt = w.permute(1, 2, 3, 4, 0).contiguous()  # (C, 3, 3, 3, Co)
+    bf16 = x.dtype == torch.bfloat16
+    wt = pack_weight_bf16(w) if bf16 else w.permute(1, 2, 3, 4, 0).contiguous()  # f32: (C, 3, 3, 3, Co)
     out = torch.empty((b, co, d, h, wd), dtype=x.dtype, device=x.device)
     fn = getattr(_lib(), _FUNCS[x.dtype])
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -114,6 +134,7 @@ def conv3d_cuda(
     if err != 0:
         raise RuntimeError(f"conv3d kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    BF16_LAUNCHES += bf16
     return out
 
 

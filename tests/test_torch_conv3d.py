@@ -122,6 +122,59 @@ def test_plain_conv3d_bf16_rounds_once():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _emulate_bf16_kernel(x, wp, co, scale, bias, relu):
+    """The bf16 tensor-core kernel's loop, in plain torch: per output-channel
+    tile, kd plane, 16-channel chunk and (kh, kw) tap, one (pixels x 16) x
+    (16 x 32) product of bf16 values over the packed, zero-padded weights,
+    accumulated in f32; then scale, bias, ReLU and one rounding to bf16."""
+    b, c, d, h, wd = x.shape
+    ct, _, cc, _, cot, ck = wp.shape
+    xp = torch.nn.functional.pad(x.float(), (1, 1, 1, 1, 1, 1, 0, cc * ck - c))  # channels zero-padded too
+    acc = torch.zeros(b, ct * cot, d, h, wd)
+    for t in range(ct):
+        for kd in range(3):
+            for ci in range(cc):
+                for tap in range(9):
+                    kh, kw = divmod(tap, 3)
+                    a = xp[:, ci * ck : (ci + 1) * ck, kd : kd + d, kh : kh + h, kw : kw + wd]
+                    acc[:, t * cot : (t + 1) * cot] += torch.einsum("bcdhw,oc->bodhw", a, wp[t, kd, ci, tap].float())
+    y = acc[:, :co] * scale.view(1, -1, 1, 1, 1) + bias.view(1, -1, 1, 1, 1)
+    return (torch.relu(y) if relu else y).bfloat16()
+
+
+@pytest.mark.parametrize("c,co", [(5, 40), (32, 32), (64, 32)])
+def test_bf16_kernel_loop_over_packed_weights_matches_plain_version(c, co):
+    """The packing (`pack_weight_bf16`) and the kernel's step/tap loop over it
+    give the plain conv: catches padding and index mistakes without a card.
+    Both sum bf16 products in f32 and round once, in another order: one bf16
+    ulp (2^-7 relative) on top of 1e-5 * max(1, max|ref|)."""
+    rng = np.random.default_rng(7 + c)
+    x = torch.from_numpy(rng.standard_normal((1, c, 3, 5, 7)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((co, c, 3, 3, 3)) * 0.1).astype(np.float32)).bfloat16()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, co).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0.0, 0.1, co).astype(np.float32))
+    wp = CV.pack_weight_bf16(w)
+    assert wp.shape == (-(-co // 32), 3, -(-c // 16), 9, 32, 16) and wp.dtype == torch.bfloat16
+    pad = torch.zeros(wp.numel() - w.numel())  # every weight once, zeros elsewhere
+    assert torch.equal(wp.flatten().float().sort().values, torch.cat([w.flatten().float(), pad]).sort().values)
+    got = _emulate_bf16_kernel(x, wp, co, scale, bias, relu=True)
+    want = CV.conv3d_reference(x, w, scale, bias, relu=True)
+    atol = 1e-5 * max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=2.0**-7)
+
+
+def test_pack_weight_bf16_places_each_weight():
+    """wp[co // 32, kd, c // 16, 3 kh + kw, co % 32, c % 16] = w[co, c, kd, kh, kw]
+    (distinct f32 values, so each lands in exactly one place)."""
+    co, c = 40, 20
+    w = torch.arange(1, co * c * 27 + 1, dtype=torch.float32).view(co, c, 3, 3, 3)
+    wp = CV.pack_weight_bf16(w)
+    for o, i, kd, kh, kw in [(0, 0, 0, 0, 0), (39, 19, 2, 2, 2), (33, 17, 1, 0, 2), (5, 16, 2, 1, 0)]:
+        assert wp[o // 32, kd, i // 16, 3 * kh + kw, o % 32, i % 16] == w[o, i, kd, kh, kw]
+    assert float(wp[1, :, :, :, co - 32 :].float().abs().sum()) == 0.0  # Co padding
+    assert float(wp[:, :, 1, :, :, c - 16 :].float().abs().sum()) == 0.0  # C padding
+
+
 def test_dispatcher_takes_plain_version_on_cpu():
     x, w, scale, bias = _inputs(6)
     before = CV.LAUNCHES
@@ -182,3 +235,31 @@ def test_cuda_kernel_matches_plain_version(dtype):
         want = CV.conv3d_reference(x, w, sc, bi, relu=True)
         rtol = 0.0 if dt == torch.float32 else 2.0**-7
         torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,co",
+    [
+        ((1, 32, 2, 7, 45), 32),  # ragged H and W (W % 8 != 0: scalar stores)
+        ((2, 32, 1, 9, 72), 32),  # D = 1: both kd neighbours outside the volume
+        ((1, 32, 3, 8, 64), 64),  # Co = 64, conv3d_fast's dgrad shape: two Co tiles
+        ((1, 24, 3, 6, 40), 32),  # C not a multiple of 16
+        ((1, 5, 2, 5, 9), 40),  # C < 16, Co not a multiple of 32
+    ],
+)
+def test_cuda_bf16_kernel_edge_cases(shape, co):
+    """The bf16 tensor-core kernel at the edges of its tiling, with scale,
+    bias and ReLU; bf16 tolerance as above (one ulp, both round once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=gen).bfloat16().cuda()
+    w = (torch.randn((co, shape[1], 3, 3, 3), generator=gen) * 0.1).bfloat16().cuda()
+    sc = (torch.rand(co, generator=gen) + 0.5).cuda()
+    bi = (torch.randn(co, generator=gen) * 0.1).cuda()
+    before = CV.BF16_LAUNCHES
+    got = CV.conv3d(x, w, sc, bi, relu=True)
+    assert CV.BF16_LAUNCHES == before + 1
+    want = CV.conv3d_reference(x, w, sc, bi, relu=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2.0**-7)
