@@ -7,13 +7,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device and build: the card's name and power limit (nvidia-smi); every
      CUDA kernel built from the checkout's sources, one nvcc per source, with
      ptxas's registers and spills per kernel; the conv3d library's SASS
-     (cuobjdump) must show HMMA in the bf16 kernel and none in the f32 one.
+     (cuobjdump) must hold only the two tensor-core kernels, with TF32 HMMA
+     in the f32 (3xTF32) kernel and bf16 HMMA in the bf16 one.
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at edge cases, TF32 off: the gwc volume, its
      backward (against autograd through the plain version), conv3d (with
      scale, bias and ReLU) and conv3d_fast's backward; CUDA-event times of
      kernel, plain version and, for conv3d, F.conv3d (cuDNN) beside the
-     card's bound for the same work.
+     card's bound for the same work; for context only, F.conv3d f32 with
+     TF32 on (time, and its error, which misses the f32 tolerance).
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
      weights from `weights.from_jax_variables` on seeded numpy arrays, in bf16
      autocast and in f32; output shape, finiteness, one gwc launch per forward,
@@ -58,6 +60,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_TC_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
 BF16_TC_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 SEED = 0
 MAIN_SHAPE = (1, 320, 96, 312)  # gwc features of a 384x1248 pair
@@ -132,26 +135,33 @@ def phase_build():
 
 def check_tensor_cores(lib_path: str) -> None:
     """The conv3d library's SASS (cuobjdump): HMMA instructions per kernel;
-    raises unless the bf16 kernel has them and the f32 kernel has none."""
+    raises unless the library holds only the f32 (3xTF32) and the bf16
+    kernels, every HMMA of the f32 ones is TF32 and of the bf16 ones BF16,
+    and each has some."""
     from dcanet_tpu_torch.kernels import build
 
     tool = Path(build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    counts, first, fn = {}, {}, None
+    hmma, first, fn = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
+            hmma[fn] = []
         elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            hmma[fn].append(line.split("HMMA", 1)[1].split()[0])  # e.g. ".1684.F32.TF32"
             first.setdefault(fn, " ".join(line.split()))
-    for fn, n in counts.items():
-        log(f"[build] SASS {fn}: {n} HMMA" + (f", first: {first[fn]}" if n else ""))
-    bf16 = [n for fn, n in counts.items() if "conv3d_bf16_kernel" in fn]
-    f32 = [n for fn, n in counts.items() if "conv3d_kernel" in fn]
-    if not bf16 or min(bf16) == 0 or not f32 or max(f32) != 0:
-        raise AssertionError(f"[build] conv3d SASS: HMMA in the bf16 kernels {bf16}, in the f32 kernels {f32}")
+    for fn, ops in hmma.items():
+        log(f"[build] SASS {fn}: {len(ops)} HMMA {sorted(set(ops))}" + (f", first: {first[fn]}" if ops else ""))
+    want = {"conv3d_tf32x3_kernel": ".TF32", "conv3d_bf16_kernel": ".BF16"}  # x2: with and without ReLU
+    bad = []
+    for fn, ops in hmma.items():
+        types = [t for k, t in want.items() if k in fn]
+        if len(types) != 1 or not ops or not all(op.endswith(types[0]) for op in ops):
+            bad.append(fn)
+    if bad or len(hmma) != 4:
+        raise AssertionError(f"[build] conv3d SASS: expected 2 TF32 and 2 BF16 tensor-core kernels, got "
+                             f"{ {fn: sorted(set(ops)) for fn, ops in hmma.items()} }")
 
 
 def check_close(tag: str, got, want, atol: float, rtol: float) -> float:
@@ -179,17 +189,44 @@ def gwc_backward_bound_ms(shape, groups: int, maxdisp: int, elem_bytes: int):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def conv3d_bound_ms(x_shape, co: int, elem_bytes: int):
+def conv3d_bound_ms(x_shape, co: int, elem_bytes: int, fma: bool = False):
     """Least time for a 3x3x3 conv: x and the weight read once, the output
-    written once; 2*27*C*Co operations per output point, at the f32 rate
-    outside the tensor cores for f32 and the dense tensor-core rate for bf16."""
+    written once; 2*27*C*Co operations per output point at the dense
+    tensor-core rate, for f32 three TF32 passes (3xTF32, the f32 kernel's
+    arithmetic), or with `fma` at the f32 rate outside the tensor cores."""
     b, c, d, h, w = x_shape
     n = b * d * h * w
     bytes_moved = (n * (c + co) + 27 * c * co) * elem_bytes
     ops = 2 * 27 * c * co * n
-    peak = F32_FLOPS if elem_bytes == 4 else BF16_TC_FLOPS
+    if elem_bytes == 2:
+        peak = BF16_TC_FLOPS
+    else:
+        peak = F32_FLOPS if fma else TF32_TC_FLOPS / 3
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_tf32(x, w, flush) -> dict:
+    """For context only: F.conv3d on f32 with TF32 on (cuDNN's default), its
+    time and its error against the plain version, which misses the f32
+    tolerance 1e-5 * max(1, max|ref|); TF32 is off again afterwards."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcanet_tpu_torch.kernels import conv3d as cv
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ms = time_cuda(lambda: F.conv3d(x, w, padding=1), 10, flush=flush)
+        got = F.conv3d(x, w, padding=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = cv.conv3d_reference(x, w)
+    err = float((got - want).abs().max())
+    atol = 1e-5 * max(1.0, float(want.abs().max()))
+    log(f"[kernels] context: F.conv3d f32 with TF32 on x{tuple(x.shape)}: {ms:.4f} ms, max|err| vs plain "
+        f"{err:.3e}, {err / atol:.1f}x the f32 tolerance {atol:.3g}")
+    return dict(ms=ms, max_abs_err=err, tolerance=atol)
 
 
 def _gwc_backward_plain(left, right, grad, d, groups):
@@ -275,6 +312,13 @@ def phase_kernels():
         ("64->32 bf16", CONV_SHAPE_64, 32, torch.bfloat16, False),
         ("ragged f32 scale+bias+relu", (2, 5, 3, 9, 33), 40, torch.float32, True),
         ("ragged bf16", (2, 5, 3, 9, 33), 40, torch.bfloat16, False),
+        # the f32 (3xTF32) kernel's edges: ragged H and W (W % 4 != 0: scalar
+        # stores), D = 1, two Co tiles, C not a multiple of its 8-channel step
+        ("H=7 W=45 f32 scale+bias+relu", (1, 32, 2, 7, 45), 32, torch.float32, True),
+        ("D=1 f32", (2, 32, 1, 9, 72), 32, torch.float32, False),
+        ("64->64 f32 scale+bias+relu", (1, 64, 6, 20, 72), 64, torch.float32, True),
+        ("C=12 f32", (1, 12, 4, 10, 40), 32, torch.float32, False),
+        ("C=5 f32 scale+bias+relu", (1, 5, 2, 5, 9), 40, torch.float32, True),
         # the bf16 tensor-core kernel's edges: two Co tiles, C not a multiple
         # of its 16-channel step, W not a multiple of 8 (scalar stores) with a
         # ragged H, and D = 1
@@ -356,11 +400,18 @@ def phase_kernels():
             plain_ms = time_cuda(lambda: cv.conv3d_reference(x, w), 3, flush=flush)
             library_ms = time_cuda(lambda: F.conv3d(x, w, padding=1), 10, flush=flush)
             bound_ms, bound_by = conv3d_bound_ms(xs, 32, x.element_size())
-            timing["conv3d"][f"{shape_tag} {tag}"] = dict(
+            entry = timing["conv3d"][f"{shape_tag} {tag}"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+            extra = ""
+            if dtype == torch.float32:
+                entry["fma_bound_ms"] = conv3d_bound_ms(xs, 32, 4, fma=True)[0]
+                extra = (f" (3xTF32 on the tensor cores; the FMA bound {entry['fma_bound_ms']:.4f} ms, "
+                         f"{entry['fma_bound_ms'] / ms:.1%})")
             log(f"[kernels] conv3d {shape_tag} {tag} x{tuple(xs)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"F.conv3d {library_ms:.4f} ms, kernel / F.conv3d {ms / library_ms:.3f}, bound {bound_ms:.4f} ms "
-                f"({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
+                f"({bound_by}), {bound_ms / ms:.1%} of bound{extra} (cold L2)")
+            if dtype == torch.float32:
+                entry["library_tf32"] = library_tf32(x, w, flush)
             del x, w
     del flush
     torch.cuda.empty_cache()
@@ -548,7 +599,7 @@ def phase_conv3d_path():
     flag): the plain conv and the scale+bias+ReLU conv at 32 -> 32, the
     64 -> 32 conv, and one conv3d_fast forward and backward (the JAX
     package's custom_vjp, whose dgrad is the kernel). Returns the launch
-    counts of the f32 (FMA) and the bf16 (tensor-core) kernel on this path."""
+    counts of the f32 (3xTF32) and the bf16 kernel on this path."""
     import torch
 
     from dcanet_tpu_torch.kernels import conv3d as cv
@@ -802,7 +853,8 @@ def main(argv=None) -> int:
         kernel_entry(
             "conv3d", "dcanet_tpu_torch/csrc/conv3d.cu", "dcanet_tpu/kernels/conv3d.py:54", conv_launches["f32"],
             {"conv3d_path": conv_launches["f32"]}, errs["conv3d"]["32->32 f32"], conv_t["32->32 f32"],
-            dtype="float32", units="fma", shape={"x": list(CONV_SHAPE), "out_channels": 32},
+            dtype="float32", units="tensor cores (mma.sync m16n8k8 TF32, 3xTF32 split)",
+            shape={"x": list(CONV_SHAPE), "out_channels": 32},
             **{"64->32": {"x": list(CONV_SHAPE_64), "max_abs_err": errs["conv3d"]["64->32 f32 scale+bias+relu"],
                           **conv_t["64->32 f32"]}},
         ),

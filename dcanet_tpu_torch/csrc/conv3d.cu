@@ -7,30 +7,78 @@
 //
 // with zeros outside the volume. Layouts: x and out NCDHW (B, C, D, H, W).
 // f32 or bf16 in, f32 accumulation, the input type out; scale and bias are
-// f32 and may be null (1 and 0). The wrapper lays the weight out once per
-// call from torch's (Co, C, 3, 3, 3): (C, 3, 3, 3, Co) for f32; for bf16 the
-// tensor-core kernel's packed, zero-padded (Co/32, 3, C/16, 9, 32, 16), see
-// `pack_weight_bf16` in kernels/conv3d.py.
+// f32 and may be null (1 and 0). The wrapper packs the weight once per call
+// from torch's (Co, C, 3, 3, 3), zero-padded: for f32 the TF32 halves
+// (Co/32, 3, C/8, 2 [hi, lo], 9, 32, 8) of `pack_weight_tf32x3`, for bf16
+// (Co/32, 3, C/16, 9, 32, 16) of `pack_weight_bf16` (kernels/conv3d.py).
 //
 // Replaces dcanet_tpu/kernels/conv3d.py::_kernel (the Pallas TPU kernel,
 // launched by conv3d_pallas; conv3d_fast reuses it for dgrad). The TPU
 // kernel's kw-folded N=(kw, Co) matmul and its row-tile copies are layout
-// choices for the TPU's matrix unit and are not carried over.
+// choices for the TPU's matrix unit and are not carried over. Both kernels
+// here are implicit GEMMs on the tensor cores with warp-level mma.sync.
 //
 // Bound: operations. At (B, C, D, H, W) = (1, 32, 48, 96, 312), 32 -> 32, the
-// conv is 2*27*32*32*1.44M = 79.5 GFLOP: 1.19 ms at the 67 TFLOP/s of f32
-// outside the tensor cores; ~0.08 ms in bf16 on the tensor cores (989 TFLOP/s
-// dense), where the bytes (~184 MB, ~0.055 ms) come close. 64 -> 32 doubles
-// the operations.
+// conv is 2*27*32*32*1.44M = 79.5 GFLOP. 64 -> 32 doubles the operations.
+//  - f32 on the FMA units (67 TFLOP/s): 1.19 / 2.37 ms. cuDNN's f32 conv
+//    (TF32 off) took 2.71 ms, 44 % of that bound, and this file's earlier
+//    FMA kernel 3.01 ms, 39 % (H100 SXM, PERF.md). Even a very good FMA
+//    kernel stays near 2 ms.
+//  - f32 as 3xTF32 on the tensor cores (495 TFLOP/s dense TF32, three
+//    passes): 3 * 79.5 GFLOP / 495 TFLOP/s = 0.482 / 0.964 ms. The bytes
+//    (368 MB at 32 -> 32, 0.110 ms at 3.35 TB/s) are not the limit.
+//  - bf16 on the tensor cores (989 TFLOP/s dense): ~0.08 ms, where the bytes
+//    (~184 MB, ~0.055 ms) come close.
 //
-// f32, on the FMA units. A block of 256 threads computes an 8 x 32 (h, w)
-// tile of one (b, d) plane for 32 output channels. For each chunk of 4 input
-// channels it stages the three input planes' (8+2) x (32+2) halo tiles and
-// the chunk's 27 x 32 weights in shared memory. A thread owns one row of the
-// tile, four columns 8 apart and 8 output channels: 32 sums in registers, 96
-// FMAs per 12 input and 6 16-byte weight loads from shared memory. The input
-// rows sit 40 floats apart, so a warp's 4 rows x 8 columns fall in 32
-// different banks; the weight loads are broadcasts.
+// f32, on the tensor cores in split precision ("3xTF32", CUTLASS's
+// OpMultiplyAddFastF32). One TF32 pass keeps 10 mantissa bits: at K = 27*C
+// its error against the plain f32 conv is ~30x the f32 tolerance of
+// 1e-5 * max(1, max|ref|) (cuDNN with TF32 on, on the H100, and a plain
+// emulation in tests/test_torch_conv3d.py). Each operand is split as
+// a = hi + lo, both parts TF32, and a*b is taken as hi*hi + hi*lo + lo*hi,
+// three mma.sync m16n8k8 TF32 per tile, accumulated in f32; the dropped
+// lo*lo and the cut of lo are ~2^-20 of |a*b| or less, below f32's own
+// summation error. On the H100 the kernel's max |err| against the plain
+// version is 1.4e-5 / 2.5e-5 at 32 -> 32 / 64 -> 32 (tolerance 1.7e-4 /
+// 3.1e-4), below the FMA kernel it replaced (2.6e-5 / 5.3e-5).
+// The skeleton is the bf16 kernel's below, at half the MMA depth:
+//  - A block computes an 8 x 32 (h, w) tile of one (b, d) plane (M) for 32
+//    output channels (N; grid z tiles Co, so dgrad's Co = 64 takes two
+//    blocks). K is the 27 taps x C in steps of one kd plane and 8 channels,
+//    the K of m16n8k8: 3 * ceil(C/8) steps, each 9 (kh, kw) taps. Each of
+//    the 8 warps owns one row of 32 pixels x 32 channels: 2 x 4 accumulator
+//    tiles, 24 MMAs per tap from 2 A and 4 B (hi, lo) ldmatrix.x4 loads.
+//  - ldmatrix.x4.b16 gives lane t the 32-bit word at row t/4, word t%4 of
+//    each of its four 8 x 16-byte matrices. With A stored [pixel][8 f32
+//    channels] and the matrices at pixels 0-7 / 8-15 x channels 0-3 / 4-7,
+//    that is the m16n8k8 TF32 A fragment: a0 (g, t4), a1 (g+8, t4), a2 (g,
+//    t4+4), a3 (g+8, t4+4), g = lane/4, t4 = lane%4. B stored [co][8 c]
+//    gives b0 (k = t4, n = g) and b1 (k = t4+4, n = g) the same way.
+//  - Channel-last staging at a pitch of 12 floats (48 bytes, as the bf16
+//    kernel's 24 elements): a kw shift is one pixel row and each ldmatrix
+//    phase covers the 32 banks once. The input goes to shared memory by
+//    4-byte cp.async with zero fill (the transpose is in the addresses), so
+//    no registers hold the next step's input.
+//  - The weights' TF32 halves are made on the host; a step's hi and lo
+//    slices (2 x 9 x 32 x 8 floats) are contiguous and go to shared memory
+//    by 16-byte cp.async; the host rounds both to nearest (cvt.rna's
+//    rule). The input is split in registers after ldmatrix, by truncation
+//    (split_tf32): staging both halves would take ~121 KB a block and leave
+//    1 block per SM, which the bf16 kernel's tile sweep measured 1.5x
+//    slower.
+//  - The tensor cores truncate, not round, when they add a product into
+//    the accumulator. A sum carried through every MMA of the conv (3 * 27 *
+//    C/8 of them) drifts by up to an ulp per MMA: 4.5e-4 at 64 -> 32 on the
+//    H100, 1.5x the f32 tolerance. So each step's 27 MMAs per tile go to a
+//    partial sum that starts at zero, added to the running sum by a
+//    round-to-nearest FADD after the step.
+//  - Two stages as in the bf16 kernel; 2 x (10*34*12 + 2*9*32*12) floats =
+//    87,936 bytes of shared memory, 2 blocks per SM.
+//  - Epilogue: scale, bias and ReLU in f32 on the accumulators, staged in
+//    shared memory as [co][h][w] (co pitch 260 floats, so the 4 channels a
+//    warp writes at once fall in different banks), then written NCDHW with
+//    16-byte stores along w where W % 4 == 0, masked at the ragged H, W and
+//    Co edges.
 //
 // bf16, on the tensor cores: an implicit GEMM with warp-level mma.sync
 // m16n8k16 (bf16 in, f32 accumulate; HMMA in SASS). M is the output pixels
@@ -78,118 +126,265 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// f32: FMA kernel
+// PTX helpers of both kernels
 
-constexpr int kThreads = 256;
-constexpr int TH = 8;          // output rows per block
-constexpr int TW = 32;         // output columns per block
-constexpr int CO_T = 32;       // output channels per block
-constexpr int CI_T = 4;        // input channels staged at a time
-constexpr int ROWS = TH + 2;   // staged rows (halo 1)
-constexpr int COLS = TW + 2;   // staged columns (halo 1)
-constexpr int PITCH = 40;      // shared-memory row pitch, in floats
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+// 4 bytes, of which the first n (0 or 4) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 implicit GEMM on the tensor cores
+
+namespace tf32x3 {
+
+constexpr int kThreads = 256;     // 8 warps
+constexpr int TH = 8;             // output rows per block
+constexpr int TW = 32;            // output columns per block
+constexpr int MT = 2;             // 16-pixel M tiles per warp, side by side in one row
+constexpr int CO_T = 32;          // output channels per block: 4 N tiles of 8
+constexpr int CK = 8;             // input channels per step: the MMA's K
+constexpr int ROWS = TH + 2;      // staged rows (halo 1)
+constexpr int COLS = TW + 2;      // staged columns (halo 1)
+constexpr int PITCH = 12;         // floats per staged pixel / weight row (48 bytes)
+constexpr int WARPS_PER_ROW = TW / (16 * MT);
+constexpr int IN_ELEMS = ROWS * COLS * PITCH;
+constexpr int W_ELEMS = 2 * 9 * CO_T * PITCH;    // the hi and the lo weights
+constexpr int STAGE = IN_ELEMS + W_ELEMS;        // one step's tiles, in floats
+constexpr int IN_STEP = ROWS * COLS * CK;        // one step's input values
+constexpr int W_STEP = 2 * 9 * CO_T * CK;        // one step's packed weights, in floats
+constexpr int W_PIECES = W_STEP / 4;             // ... in 16-byte pieces
+constexpr int OUT_PITCH = TH * TW + 4;           // epilogue: floats per output channel
+constexpr int SMEM_BYTES = 4 * (2 * STAGE > CO_T * OUT_PITCH ? 2 * STAGE : CO_T * OUT_PITCH);
+static_assert(WARPS_PER_ROW * TH * 32 == kThreads, "one warp per 16*MT columns of a row");
+static_assert((PITCH * 4) % 16 == 0 && (IN_ELEMS * 4) % 16 == 0 && (STAGE * 4) % 16 == 0,
+              "ldmatrix and cp.async need 16-byte aligned rows");
+static_assert(OUT_PITCH % 16 == 4, "epilogue: a warp's 4 channels x 8 pixels in 32 banks");
+
+// D = A * B + D in TF32; A 16x8 row-major (pixels x channels), B 8x8 "col"
+// (stored as 8 output channels x 8 channels), D 16x8 f32.
+__device__ __forceinline__ void mma_1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a = hi + lo: hi is a's top 19 bits (TF32 by truncation), lo = a - hi is
+// exact in f32, and the MMA reads lo's top 19 bits, which loses less than
+// 2^-20 of |a|. Rounding both with cvt.rna.tf32.f32, as the host rounds the
+// weights, took 10-14 % longer on the H100 at the same accuracy inside the
+// f32 tolerance (tune_conv3d.py, variant th8_tw32_split_rna).
+__device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& hi, uint32_t& lo) {
+  hi = a & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(a) - __uint_as_float(hi));
+}
+
+struct Geometry {
+  const float* xb;  // x at batch b
+  long long plane, vol;
+  int C, D, H, W, d, h0, w0, n_cc;
+};
+
+// Step s's input halo tile into a stage, channel-last ([row][col][c]), by
+// 4-byte cp.async, zero-filled outside the volume and for channels >= C. A
+// warp's 32 copies are 8 neighbouring pixels x 4 channels: 8 consecutive
+// floats of each of 4 channel planes, and 32 different banks.
+__device__ __forceinline__ void stage_input(uint32_t s_in, const Geometry& g, int s, int tid) {
+  const int c0 = (s % g.n_cc) * CK;
+  const int gd = g.d + s / g.n_cc - 1;
+  const bool d_ok = gd >= 0 && gd < g.D;
+  for (int e = tid; e < IN_STEP; e += kThreads) {
+    const int c4 = e & 3, pix = (e >> 2) % (ROWS * COLS), cg = (e >> 2) / (ROWS * COLS);
+    const int gh = g.h0 + pix / COLS - 1, gw = g.w0 + pix % COLS - 1, c = c0 + cg * 4 + c4;
+    const bool ok = d_ok && c < g.C && gh >= 0 && gh < g.H && gw >= 0 && gw < g.W;
+    const float* src = ok ? g.xb + c * g.vol + gd * g.plane + (long long)gh * g.W + gw : g.xb;
+    cp_async4(s_in + (pix * PITCH + cg * 4 + c4) * 4, src, ok ? 4u : 0u);
+  }
+}
+
+// Step s's packed weights ([hi, lo][tap][co][8 c], contiguous) into a stage,
+// rows of 8 channels at the pixel pitch.
+__device__ __forceinline__ void load_weights(uint32_t s_w, const float* w_step, int tid) {
+  for (int q = tid; q < W_PIECES; q += kThreads) {
+    const int half = q % (CK / 4), row = q / (CK / 4);  // row = (part * 9 + tap) * CO_T + co
+    cp_async16(s_w + (row * PITCH + half * 4) * 4, w_step + q * 4);
+  }
+}
 
 template <bool RELU>
-__global__ void __launch_bounds__(kThreads)
-conv3d_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-              const float* __restrict__ scale, const float* __restrict__ bias,
-              float* __restrict__ out, int C, int D, int H, int W, int Co, int tiles_w) {
-  __shared__ float s_in[CI_T][3][ROWS][PITCH];
-  __shared__ __align__(16) float s_w[CI_T][27][CO_T];
+__global__ void __launch_bounds__(kThreads, 2)
+conv3d_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+                     const float* __restrict__ scale, const float* __restrict__ bias,
+                     float* __restrict__ out, int C, int D, int H, int W, int Co, int tiles_w) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
 
-  const int h0 = (blockIdx.x / tiles_w) * TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
-  const int d = blockIdx.y % D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp / WARPS_PER_ROW;                  // the warp's tile row
+  const int wc = (warp % WARPS_PER_ROW) * 16 * MT;      // ... and first column
+  Geometry g;
+  g.h0 = (blockIdx.x / tiles_w) * TH;
+  g.w0 = (blockIdx.x % tiles_w) * TW;
+  g.d = blockIdx.y % D;
   const int b = blockIdx.y / D;
   const int co0 = blockIdx.z * CO_T;
-  const int tid = threadIdx.x;
-  const int co_grp = tid >> 6;  // 8 output channels: co0 + 8*co_grp + j
-  const int ty = (tid & 63) >> 3;
-  const int tx = tid & 7;       // columns tx + 8p, p = 0..3
+  g.C = C, g.D = D, g.H = H, g.W = W;
+  g.plane = (long long)H * W;
+  g.vol = (long long)D * g.plane;
+  g.xb = x + (long long)b * C * g.vol;
+  g.n_cc = (C + CK - 1) / CK;
+  const int steps = 3 * g.n_cc;
+  const float* w_tile = wp + (long long)blockIdx.z * steps * W_STEP;
 
-  const long long plane = (long long)H * W;
-  const long long vol = (long long)D * plane;
-  const float* xb = x + (long long)b * C * vol;
+  // ldmatrix row addresses, in bytes: A rows are pixels (lanes 0-15 at
+  // channels 0-3, lanes 16-31 at 4-7); B rows are output channels (matrices:
+  // co 0-7 at c 0-3 and 4-7, then co 8-15 at c 0-3 and 4-7).
+  const uint32_t a_lane = ((lane & 15) * PITCH + (lane >> 4) * 4) * 4;
+  const uint32_t b_lane = (((lane & 7) + ((lane >> 4) << 3)) * PITCH + ((lane >> 3) & 1) * 4) * 4;
 
-  float acc[4][8];
+  // acc sums the steps; part sums one step's 27 MMAs per tile. The tensor
+  // cores truncate when they add into the accumulator, so a sum carried
+  // through all 3 * 27 * C/8 MMAs drifts by up to an ulp of it per MMA
+  // (4.5e-4 at C = 64, above the f32 tolerance, on the H100); a step's
+  // partial sum is small, and adding it to acc rounds to nearest.
+  float acc[MT][4][4], part[MT][4][4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[p][j] = 0.0f;
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.0f;
 
-  for (int ci0 = 0; ci0 < C; ci0 += CI_T) {
-    for (int i = tid; i < CI_T * 3 * ROWS * COLS; i += kThreads) {
-      const int col = i % COLS;
-      int r = i / COLS;
-      const int row = r % ROWS;
-      r /= ROWS;
-      const int kd = r % 3;
-      const int ci = r / 3;
-      const int gc = ci0 + ci, gd = d + kd - 1, gh = h0 + row - 1, gw = w0 + col - 1;
-      float v = 0.0f;
-      if (gc < C && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = xb[gc * vol + gd * plane + (long long)gh * W + gw];
-      s_in[ci][kd][row][col] = v;
+  stage_input(smem_addr(smem), g, 0, tid);
+  load_weights(smem_addr(smem + IN_ELEMS), w_tile, tid);
+  cp_async_commit();
+
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    cp_async_wait_all();
+    __syncthreads();  // stage buf is complete; every warp is done with stage buf ^ 1
+    if (s + 1 < steps) {
+      stage_input(smem_addr(smem + (buf ^ 1) * STAGE), g, s + 1, tid);
+      load_weights(smem_addr(smem + (buf ^ 1) * STAGE + IN_ELEMS), w_tile + (long long)(s + 1) * W_STEP,
+                   tid);
+      cp_async_commit();
     }
-    for (int i = tid; i < CI_T * 27 * CO_T; i += kThreads) {
-      const int co = i % CO_T;
-      const int r = i / CO_T;
-      const int tap = r % 27;
-      const int ci = r / 27;
-      const int gc = ci0 + ci, gco = co0 + co;
-      s_w[ci][tap][co] = (gc < C && gco < Co) ? wt[((long long)gc * 27 + tap) * Co + gco] : 0.0f;
+    const uint32_t s_in = smem_addr(smem + buf * STAGE);
+    const uint32_t s_w = s_in + IN_ELEMS * 4;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[m][n][j] = 0.0f;
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int tap = kh * 3 + kw;
+        uint32_t a_hi[MT][4], a_lo[MT][4], bq[2][2][4];  // bq[hi / lo][co 0-15 / 16-31]
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          uint32_t a[4];
+          ldmatrix_x4(s_in + ((wr + kh) * COLS + wc + 16 * m + kw) * PITCH * 4 + a_lane, a);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) split_tf32(a[r], a_hi[m][r], a_lo[m][r]);
+        }
+#pragma unroll
+        for (int part = 0; part < 2; ++part)
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            ldmatrix_x4(s_w + ((part * 9 + tap) * CO_T + 16 * p) * PITCH * 4 + b_lane, bq[part][p]);
+        // The small products first. Each pass's 2 x 4 MMAs go to different
+        // accumulators, so they do not wait on one another.
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_1688(part[m][n], a_lo[m], bq[0][n >> 1][(n & 1) * 2], bq[0][n >> 1][(n & 1) * 2 + 1]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_1688(part[m][n], a_hi[m], bq[1][n >> 1][(n & 1) * 2], bq[1][n >> 1][(n & 1) * 2 + 1]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_1688(part[m][n], a_hi[m], bq[0][n >> 1][(n & 1) * 2], bq[0][n >> 1][(n & 1) * 2 + 1]);
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][n][j] += part[m][n][j];
+  }
+  __syncthreads();  // the stages are free: reuse them for the output tile
 
-#pragma unroll 1
-    for (int ci = 0; ci < CI_T; ++ci) {
+  // Accumulator layout of m16n8: c0, c1 at pixel lane/4, channels 2*(lane%4)
+  // and +1; c2, c3 at pixel lane/4 + 8.
+  const int gp = lane >> 2, t4 = lane & 3;
 #pragma unroll
-      for (int kd = 0; kd < 3; ++kd) {
+  for (int n = 0; n < 4; ++n) {
 #pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-          const float* row = &s_in[ci][kd][ty + kh][tx];
-          float v[4][3];
+    for (int j = 0; j < 2; ++j) {
+      const int co = 8 * n + 2 * t4 + j, gco = co0 + co;
+      const float sc = (scale && gco < Co) ? scale[gco] : 1.0f;
+      const float bi = (bias && gco < Co) ? bias[gco] : 0.0f;
 #pragma unroll
-          for (int p = 0; p < 4; ++p)
+      for (int m = 0; m < MT; ++m) {
 #pragma unroll
-            for (int kw = 0; kw < 3; ++kw) v[p][kw] = row[8 * p + kw];
-#pragma unroll
-          for (int kw = 0; kw < 3; ++kw) {
-            const float4* wp =
-                reinterpret_cast<const float4*>(&s_w[ci][(kd * 3 + kh) * 3 + kw][co_grp * 8]);
-            const float4 wa = wp[0], wb = wp[1];
-            const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-            for (int p = 0; p < 4; ++p)
-#pragma unroll
-              for (int j = 0; j < 8; ++j) acc[p][j] = fmaf(v[p][kw], wv[j], acc[p][j]);
-          }
+        for (int hf = 0; hf < 2; ++hf) {
+          float y = fmaf(acc[m][n][2 * hf + j], sc, bi);
+          if (RELU) y = fmaxf(y, 0.0f);
+          smem[co * OUT_PITCH + wr * TW + wc + 16 * m + gp + 8 * hf] = y;
         }
       }
     }
-    __syncthreads();
   }
+  __syncthreads();
 
-  const int h = h0 + ty;
-  if (h >= H) return;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int co = co0 + co_grp * 8 + j;
-    if (co >= Co) break;
-    const float s = scale ? scale[co] : 1.0f;
-    const float t = bias ? bias[co] : 0.0f;
-    float* o = out + (((long long)b * Co + co) * D + d) * plane + (long long)h * W;
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int wc = w0 + tx + 8 * p;
-      if (wc < W) {
-        float y = fmaf(acc[p][j], s, t);
-        if (RELU) y = fmaxf(y, 0.0f);
-        o[wc] = y;
-      }
+  const bool vec = (W % 4) == 0;
+  for (int i = tid; i < CO_T * TH * (TW / 4); i += kThreads) {
+    const int v = i % (TW / 4), row = (i / (TW / 4)) % TH, co = i / (TW / 4 * TH);
+    const int gco = co0 + co, h = g.h0 + row, w = g.w0 + 4 * v;
+    if (gco >= Co || h >= H || w >= W) continue;
+    const float* src = smem + co * OUT_PITCH + row * TW + 4 * v;
+    float* dst = out + (((long long)b * Co + gco) * D + g.d) * g.plane + (long long)h * W + w;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    } else {
+      for (int j = 0; j < 4 && w + j < W; ++j) dst[j] = src[j];
     }
   }
 }
+
+}  // namespace tf32x3
 
 // ---------------------------------------------------------------------------
 // bf16: implicit GEMM on the tensor cores
@@ -219,16 +414,6 @@ static_assert(WARPS_PER_ROW * TH * 32 == kThreads, "one warp per 16*MT columns o
 static_assert((PITCH * 2) % 16 == 0 && (IN_ELEMS * 2) % 16 == 0 && (STAGE * 2) % 16 == 0,
               "ldmatrix and cp.async need 16-byte aligned rows");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // D = A * B + D; A 16x16 row-major (pixels x channels), B 16x8 "col" (stored
 // as 8 output channels x 16 channels), D 16x8 f32.
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -238,16 +423,6 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 struct Geometry {
@@ -441,7 +616,8 @@ bool grid_for(int B, int C, int D, int H, int W, int Co, int th, int tw, int co_
 
 // Plain C interface for ctypes. Pointers and the stream are passed as void*
 // (scale and bias may be null); the return value is the cudaError_t of the
-// launch (0 = success).
+// launch (0 = success). wt: the packed weight of
+// kernels/conv3d.py::pack_weight_tf32x3.
 extern "C" int conv3d_f32(const void* x, const void* wt, const void* scale, const void* bias,
                           void* out, int B, int C, int D, int H, int W, int Co, int relu,
                           int device, void* stream) {
@@ -449,17 +625,14 @@ extern "C" int conv3d_f32(const void* x, const void* wt, const void* scale, cons
   if (err != cudaSuccess) return (int)err;
   dim3 grid;
   int tiles_w;
-  if (!grid_for(B, C, D, H, W, Co, TH, TW, CO_T, grid, tiles_w)) return (int)cudaErrorInvalidValue;
-  const float* xp = static_cast<const float*>(x);
-  const float* wp = static_cast<const float*>(wt);
-  const float* sp = static_cast<const float*>(scale);
-  const float* bp = static_cast<const float*>(bias);
-  float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (relu)
-    conv3d_kernel<true><<<grid, kThreads, 0, s>>>(xp, wp, sp, bp, op, C, D, H, W, Co, tiles_w);
-  else
-    conv3d_kernel<false><<<grid, kThreads, 0, s>>>(xp, wp, sp, bp, op, C, D, H, W, Co, tiles_w);
+  if (!grid_for(B, C, D, H, W, Co, tf32x3::TH, tf32x3::TW, tf32x3::CO_T, grid, tiles_w))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = relu ? tf32x3::conv3d_tf32x3_kernel<true> : tf32x3::conv3d_tf32x3_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tf32x3::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, tf32x3::kThreads, tf32x3::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wt), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<float*>(out), C, D, H, W, Co, tiles_w);
   return (int)cudaGetLastError();
 }
 

@@ -2,15 +2,19 @@
 `conv3d_fast`, its autograd form.
 
 The kernels (`dcanet_tpu_torch/csrc/conv3d.cu`) replace the Pallas TPU kernel
-`dcanet_tpu/kernels/conv3d.py::_kernel` (launched by `conv3d_pallas`):
-f32 runs on the FMA units, bf16 on the tensor cores (an implicit GEMM with
-mma.sync). Layouts: x and the output NCDHW (B, C, D, H, W), the weight
-torch's (Co, C, 3, 3, 3); f32 or bf16, accumulated in f32; optional
-per-channel f32 scale and bias, then an optional ReLU.
+`dcanet_tpu/kernels/conv3d.py::_kernel` (launched by `conv3d_pallas`). Both
+are implicit GEMMs on the tensor cores with mma.sync: bf16 in one pass, f32
+in three TF32 passes (each operand split as hi + lo, both TF32; a*b taken as
+hi*hi + hi*lo + lo*hi), which keeps f32 accuracy. Layouts: x and the output
+NCDHW (B, C, D, H, W), the weight torch's (Co, C, 3, 3, 3); f32 or bf16,
+accumulated in f32; optional per-channel f32 scale and bias, then an
+optional ReLU.
 
 - `conv3d_reference`: the plain version, an explicit sum of 27 shifted
   einsums (no cuDNN), in f32, rounded once to the input type.
-- `pack_weight_bf16`: the bf16 kernel's weight layout, made once per call.
+- `round_tf32`: f32 -> TF32 as cvt.rna.tf32.f32 rounds (the weights' split).
+- `pack_weight_tf32x3`, `pack_weight_bf16`: the kernels' weight layouts,
+  made once per call.
 - `conv3d_cuda`: launches the kernel on the current stream of the tensors'
   device; raises on anything the kernel does not take.
 - `conv3d`: the plain version for CPU tensors, the kernel for CUDA tensors;
@@ -43,8 +47,9 @@ LAUNCHES = 0
 BF16_LAUNCHES = 0
 
 _FUNCS = {torch.float32: "conv3d_f32", torch.bfloat16: "conv3d_bf16"}
-# the bf16 kernel's output-channel tile and MMA depth (csrc/conv3d.cu, tc::CO_T, tc::CK)
-CO_TILE, C_CHUNK = 32, 16
+# the kernels' output-channel tile and MMA depths (csrc/conv3d.cu: tc::CO_T,
+# tc::CK for bf16, tf32x3::CK for f32)
+CO_TILE, C_CHUNK, C_CHUNK_F32 = 32, 16, 8
 
 
 def _lib() -> ctypes.CDLL:
@@ -95,6 +100,33 @@ def pack_weight_bf16(w: torch.Tensor) -> torch.Tensor:
             .reshape(ct, 3, cc, 9, CO_TILE, C_CHUNK).contiguous())
 
 
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 (10 mantissa bits) as cvt.rna.tf32.f32: round to nearest
+    with ties away from zero, then clear the low 13 bits. Adding half of the
+    dropped range to the bits rounds the magnitude; inf and nan pass as they
+    are."""
+    bits = t.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(t), rounded, t.float())
+
+
+def pack_weight_tf32x3(w: torch.Tensor) -> torch.Tensor:
+    """torch's f32 (Co, C, 3, 3, 3) -> the f32 kernel's (ceil(Co/32), 3 kd,
+    ceil(C/8), 2, 9 (kh, kw), 32 co, 8 c), zero-padded in Co and C. Index 0
+    of the fifth axis holds hi = round_tf32(w), index 1 lo = round_tf32(w - hi):
+    both TF32, hi + lo = w within 2^-22 relative. One kernel step (a kd plane
+    and 8 channels) reads a contiguous 2 x 9 x 32 x 8 slice for its
+    output-channel tile."""
+    co, c = w.shape[:2]
+    ct, cc = -(-co // CO_TILE), -(-c // C_CHUNK_F32)
+    wpad = w.new_zeros((ct * CO_TILE, cc * C_CHUNK_F32, 3, 3, 3), dtype=torch.float32)
+    wpad[:co, :c] = w
+    hi = round_tf32(wpad)
+    parts = torch.stack([hi, round_tf32(wpad - hi)])  # (2, Co', C', 3, 3, 3)
+    return (parts.view(2, ct, CO_TILE, cc, C_CHUNK_F32, 3, 3, 3).permute(1, 5, 3, 0, 6, 7, 2, 4)
+            .reshape(ct, 3, cc, 2, 9, CO_TILE, C_CHUNK_F32).contiguous())
+
+
 def _check(x, w, scale, bias) -> None:
     if x.dtype not in _FUNCS or w.dtype != x.dtype:
         raise TypeError(f"conv3d kernel takes float32 or bfloat16 x and w of one type, got {x.dtype} and {w.dtype}")
@@ -122,7 +154,7 @@ def conv3d_cuda(
     b, c, d, h, wd = x.shape
     co = w.shape[0]
     bf16 = x.dtype == torch.bfloat16
-    wt = pack_weight_bf16(w) if bf16 else w.permute(1, 2, 3, 4, 0).contiguous()  # f32: (C, 3, 3, 3, Co)
+    wt = pack_weight_bf16(w) if bf16 else pack_weight_tf32x3(w)
     out = torch.empty((b, co, d, h, wd), dtype=x.dtype, device=x.device)
     fn = getattr(_lib(), _FUNCS[x.dtype])
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -7,8 +7,11 @@ JAX package's `conv3d_fast` custom_vjp in interpret mode; the dispatcher's
 CPU path and the wrapper's input checks. Tolerance 1e-4: float32 sums of
 27*C products in another order (the JAX side measured 4.8e-6 forward and
 3.3e-6 dx against XLA's conv at these sizes).
-The CUDA kernel itself is compared with its plain version by the card-only
-test below and by chip_smoke.py; there, run
+The f32 and bf16 kernels' loops over their packed weights are emulated in
+plain torch against the plain version (the f32 one at the f32 tolerance,
+and with one TF32 pass, which misses it). The CUDA kernels themselves are
+compared with the plain version by the card-only tests below and by
+chip_smoke.py; there, run
     python -m pytest --noconftest -m cuda tests/test_torch_conv3d.py
 """
 
@@ -175,6 +178,109 @@ def test_pack_weight_bf16_places_each_weight():
     assert float(wp[:, :, 1, :, :, c - 16 :].float().abs().sum()) == 0.0  # C padding
 
 
+def test_round_tf32_rounds_to_nearest_ties_away():
+    """cvt.rna.tf32.f32: 10 mantissa bits, ties away from zero, low 13 bits
+    zero; inf and nan unchanged."""
+    u = 2.0**-10  # TF32 ulp at 1
+    x = torch.tensor([1 + u / 2, -(1 + u / 2), 1 + u / 2 - 2.0**-23, 1 + 1.5 * u, 3.0, 0.0,
+                      float("inf"), float("-inf")])
+    want = torch.tensor([1 + u, -(1 + u), 1.0, 1 + 2 * u, 3.0, 0.0, float("inf"), float("-inf")])
+    got = CV.round_tf32(x)
+    assert torch.equal(got, want)
+    assert bool(torch.isnan(CV.round_tf32(torch.tensor([float("nan")]))).all())
+    r = CV.round_tf32(torch.randn(1000, generator=torch.Generator().manual_seed(0)) * 100)
+    assert int((r.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+
+
+def test_pack_weight_tf32x3_places_each_weight_once():
+    """wp[co // 32, kd, c // 8, part, 3 kh + kw, co % 32, c % 8]: part 0 is
+    hi, part 1 lo, both TF32 (low 13 bits zero); hi + lo = w within 2^-21
+    relative; the Co and C padding is zero."""
+    co, c = 40, 12
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy((rng.standard_normal((co, c, 3, 3, 3)) * 0.1).astype(np.float32))
+    wp = CV.pack_weight_tf32x3(w)
+    assert wp.shape == (2, 3, 2, 2, 9, 32, 8) and wp.dtype == torch.float32
+    assert int((wp.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    hi, lo = wp[:, :, :, 0], wp[:, :, :, 1]  # (ct, 3, cc, 9, 32, 8)
+    # back to (Co', C', 3, 3, 3)
+    back = (hi + lo).permute(0, 4, 2, 5, 1, 3).reshape(64, 16, 3, 3, 3)
+    assert float(back[co:].abs().sum()) == 0.0 and float(back[:, c:].abs().sum()) == 0.0
+    assert bool(((back[:co, :c] - w).abs() <= 2.0**-21 * w.abs()).all())
+    assert torch.equal(hi.permute(0, 4, 2, 5, 1, 3).reshape(64, 16, 3, 3, 3)[:co, :c], CV.round_tf32(w))
+    assert bool((lo.abs() <= 2.0**-11 * hi.abs()).all())
+    for o, i, kd, kh, kw in [(0, 0, 0, 0, 0), (39, 11, 2, 2, 2), (33, 9, 1, 0, 2), (5, 8, 2, 1, 0)]:
+        v = wp[o // 32, kd, i // 8, :, 3 * kh + kw, o % 32, i % 8]
+        assert v[0] == CV.round_tf32(w[o, i, kd, kh, kw]) and abs(float(v.sum() - w[o, i, kd, kh, kw])) <= 1e-8
+
+
+def _truncate_tf32(t):
+    """The top 19 bits of each f32 (sign, exponent, 10 mantissa bits)."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _emulate_tf32x3_kernel(x, wp, co, scale, bias, relu, passes=3):
+    """The f32 kernel's loop, in plain torch: per output-channel tile, kd
+    plane and 8-channel chunk (a step), and (kh, kw) tap, the input split
+    into TF32 halves as the kernel splits its A fragments (hi truncated, lo
+    = x - hi, of which the MMA reads the top 19 bits) and the packed
+    weight's halves, lo*hi + hi*lo + hi*hi (or hi*hi alone, passes=1) summed
+    in f32 into the step's partial sum, which is added to the running sum;
+    then scale, bias and ReLU."""
+    b, c, d, h, wd = x.shape
+    ct, _, cc, _, _, cot, ck = wp.shape
+    xp = torch.nn.functional.pad(x.float(), (1, 1, 1, 1, 1, 1, 0, cc * ck - c))  # channels zero-padded too
+    x_hi = _truncate_tf32(xp)
+    x_lo = _truncate_tf32(xp - x_hi)
+    acc = torch.zeros(b, ct * cot, d, h, wd)
+    for t in range(ct):
+        for kd in range(3):
+            for ci in range(cc):
+                part = torch.zeros(b, cot, d, h, wd)
+                for tap in range(9):
+                    kh, kw = divmod(tap, 3)
+                    win = (slice(None), slice(ci * ck, (ci + 1) * ck), slice(kd, kd + d), slice(kh, kh + h),
+                           slice(kw, kw + wd))
+                    w_hi, w_lo = wp[t, kd, ci, 0, tap], wp[t, kd, ci, 1, tap]
+                    if passes == 3:
+                        part += torch.einsum("bcdhw,oc->bodhw", x_lo[win], w_hi)
+                        part += torch.einsum("bcdhw,oc->bodhw", x_hi[win], w_lo)
+                    part += torch.einsum("bcdhw,oc->bodhw", x_hi[win], w_hi)
+                acc[:, t * cot : (t + 1) * cot] += part
+    y = acc[:, :co] * scale.view(1, -1, 1, 1, 1) + bias.view(1, -1, 1, 1, 1)
+    return torch.relu(y) if relu else y
+
+
+def _f32_case(c, co):
+    rng = np.random.default_rng(17 + c)
+    x = torch.from_numpy(rng.standard_normal((1, c, 3, 5, 7)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((co, c, 3, 3, 3)) * 0.1).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, co).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0.0, 0.1, co).astype(np.float32))
+    want = CV.conv3d_reference(x, w, scale, bias, relu=True)
+    return x, w, scale, bias, want, 1e-5 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("c,co", [(5, 40), (32, 32), (64, 32)])
+def test_tf32x3_kernel_loop_over_packed_weights_matches_plain_version(c, co):
+    """The f32 kernel's three TF32 passes over `pack_weight_tf32x3`'s layout
+    give the plain f32 conv within the f32 tolerance, 1e-5 * max(1, max|ref|)
+    (as chip_smoke.py holds the kernel to): catches packing, index and
+    split mistakes without a card."""
+    x, w, scale, bias, want, atol = _f32_case(c, co)
+    got = _emulate_tf32x3_kernel(x, CV.pack_weight_tf32x3(w), co, scale, bias, relu=True)
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("c,co", [(5, 40), (32, 32), (64, 32)])
+def test_one_tf32_pass_misses_the_f32_tolerance(c, co):
+    """hi*hi alone (one TF32 pass) is tens of times off the f32 tolerance:
+    the reason for the lo terms."""
+    x, w, scale, bias, want, atol = _f32_case(c, co)
+    got = _emulate_tf32x3_kernel(x, CV.pack_weight_tf32x3(w), co, scale, bias, relu=True, passes=1)
+    assert float((got - want).abs().max()) > 10 * atol
+
+
 def test_dispatcher_takes_plain_version_on_cpu():
     x, w, scale, bias = _inputs(6)
     before = CV.LAUNCHES
@@ -237,29 +343,59 @@ def test_cuda_kernel_matches_plain_version(dtype):
         torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=rtol)
 
 
+# the tensor-core kernels at the edges of their tiling
+_EDGE_CASES = [
+    ((1, 32, 2, 7, 45), 32),  # ragged H and W (W % 8 and W % 4 != 0: scalar stores)
+    ((2, 32, 1, 9, 72), 32),  # D = 1: both kd neighbours outside the volume
+    ((1, 32, 3, 8, 64), 64),  # Co = 64, conv3d_fast's dgrad shape: two Co tiles
+]
+
+
+def _edge_case(dtype, shape, co, rtol, atol=None):
+    """The kernel against the plain version with scale, bias and ReLU; one
+    kernel launch, counted. atol defaults to the f32 tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=gen).to(dtype).cuda()
+    w = (torch.randn((co, shape[1], 3, 3, 3), generator=gen) * 0.1).to(dtype).cuda()
+    sc = (torch.rand(co, generator=gen) + 0.5).cuda()
+    bi = (torch.randn(co, generator=gen) * 0.1).cuda()
+    before, before_bf16 = CV.LAUNCHES, CV.BF16_LAUNCHES
+    got = CV.conv3d(x, w, sc, bi, relu=True)
+    assert CV.LAUNCHES == before + 1
+    assert CV.BF16_LAUNCHES == before_bf16 + (dtype == torch.bfloat16)
+    want = CV.conv3d_reference(x, w, sc, bi, relu=True)
+    if atol is None:
+        atol = 1e-5 * max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape,co",
-    [
-        ((1, 32, 2, 7, 45), 32),  # ragged H and W (W % 8 != 0: scalar stores)
-        ((2, 32, 1, 9, 72), 32),  # D = 1: both kd neighbours outside the volume
-        ((1, 32, 3, 8, 64), 64),  # Co = 64, conv3d_fast's dgrad shape: two Co tiles
+    _EDGE_CASES + [
         ((1, 24, 3, 6, 40), 32),  # C not a multiple of 16
         ((1, 5, 2, 5, 9), 40),  # C < 16, Co not a multiple of 32
     ],
 )
 def test_cuda_bf16_kernel_edge_cases(shape, co):
-    """The bf16 tensor-core kernel at the edges of its tiling, with scale,
-    bias and ReLU; bf16 tolerance as above (one ulp, both round once)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    gen = torch.Generator().manual_seed(1)
-    x = torch.randn(shape, generator=gen).bfloat16().cuda()
-    w = (torch.randn((co, shape[1], 3, 3, 3), generator=gen) * 0.1).bfloat16().cuda()
-    sc = (torch.rand(co, generator=gen) + 0.5).cuda()
-    bi = (torch.randn(co, generator=gen) * 0.1).cuda()
-    before = CV.BF16_LAUNCHES
-    got = CV.conv3d(x, w, sc, bi, relu=True)
-    assert CV.BF16_LAUNCHES == before + 1
-    want = CV.conv3d_reference(x, w, sc, bi, relu=True)
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2.0**-7)
+    """The bf16 tensor-core kernel; bf16 tolerance: one ulp on top of the f32
+    one, both round once."""
+    _edge_case(torch.bfloat16, shape, co, 2.0**-7, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,co",
+    _EDGE_CASES + [
+        ((1, 12, 3, 6, 40), 32),  # C not a multiple of the 8-channel step
+        ((1, 5, 2, 5, 9), 40),  # C < 8, Co not a multiple of 32
+    ],
+)
+def test_cuda_f32_kernel_edge_cases(shape, co):
+    """The f32 3xTF32 tensor-core kernel; the f32 tolerance, 1e-5 *
+    max(1, max|ref|) (sums in another order)."""
+    _edge_case(torch.float32, shape, co, 0.0)
