@@ -6,11 +6,12 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device and build: the card's name and power limit (nvidia-smi); every
      CUDA kernel built from the checkout's sources, one nvcc per source, with
-     ptxas's registers and spills per kernel; the conv3d library's SASS
+     ptxas's registers, shared memory and spills per kernel; the conv3d library's SASS
      (cuobjdump) must hold only the two tensor-core kernels, with TF32 HMMA
      in the f32 (3xTF32) kernel and bf16 HMMA in the bf16 one.
   2. kernels: each kernel against its plain PyTorch version on the card, at
-     the main paths' shapes and at edge cases, TF32 off: the gwc volume, its
+     the main paths' shapes and at edge cases (for the gwc forward: odd W,
+     D = 60, D > W, 1 and 32 channels per group), TF32 off: the gwc volume, its
      backward (against autograd through the plain version), conv3d (with
      scale, bias and ReLU) and conv3d_fast's backward; CUDA-event times of
      kernel, plain version and, for conv3d, F.conv3d (cuDNN) beside the
@@ -32,8 +33,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      pairs from the seed), the preset's 256x512 crop, batch 1, f32: loss
      finite at every step, one gwc forward and one gwc backward launch per
      step (the counts of this phase), ms/step, pairs/s, peak memory, the
-     checkpoints, and a resumed epoch; then one GPU train step against the
-     CPU train step from the same weights on a small input.
+     checkpoints, a resumed epoch, and one `cli infer --submission --logdir`
+     request served from the run's newest checkpoint (its gwc launch
+     counted, its PNG against the checkpoint's weights run in-process); then
+     one GPU train step against the CPU train step from the same weights on
+     a small input.
   7. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
@@ -128,7 +132,7 @@ def phase_build():
     for name, r in report.items():
         log(f"[build] {name}: {r['seconds']:.2f} s -> {r['path']}")
         for line in r["log"].splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers", "smem", "spill")):
                 log(f"[build]   {line.strip()}")
     check_tensor_cores(report["conv3d"]["path"])
 
@@ -263,9 +267,21 @@ def phase_kernels():
     cases = [
         ("main f32", MAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("main bf16", MAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train f32", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train bf16", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("D=60 f32", MAIN_SHAPE, MAIN_GROUPS, 60, torch.float32),
+        ("D=60 bf16", MAIN_SHAPE, MAIN_GROUPS, 60, torch.bfloat16),
         ("D>W f32", (2, 16, 5, 7), 4, 12, torch.float32),
         ("D>W bf16", (2, 16, 5, 7), 4, 12, torch.bfloat16),
+        # the forward kernel's edges: odd W (scalar loads and stores), one
+        # channel per group with D > its 128-column tile (three passes over
+        # d), 32 channels per group with W % 8 != 0 on two tiles
+        ("odd W f32", (1, 16, 5, 45), 4, 60, torch.float32),
+        ("odd W bf16", (1, 16, 5, 45), 4, 60, torch.bfloat16),
+        ("CPG=1 f32", (2, 8, 2, 150), 8, 140, torch.float32),
+        ("CPG=1 bf16", (2, 8, 2, 150), 8, 140, torch.bfloat16),
+        ("CPG=32 f32", (1, 64, 3, 130), 2, 48, torch.float32),
+        ("CPG=32 bf16", (1, 64, 3, 130), 2, 48, torch.bfloat16),
     ]
     errs = {}
     for name, shape, groups, d, dtype in cases:
@@ -413,6 +429,14 @@ def phase_kernels():
             if dtype == torch.float32:
                 entry["library_tf32"] = library_tf32(x, w, flush)
             del x, w
+    # the gwc forward at the main shape once more, after everything else: the
+    # first f32 timing above has read up to ~15 % above later ones in the
+    # same process (not the clock, fresh memory or the host: PERF.md §7)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        left, right = randn(MAIN_SHAPE, dtype), randn(MAIN_SHAPE, dtype)
+        ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
+        timing["gwc"][tag]["ms_retimed"] = ms
+        log(f"[kernels] gwc main {tag} retimed: kernel {ms:.4f} ms, {timing['gwc'][tag]['bound_ms'] / ms:.1%} of bound")
     del flush
     torch.cuda.empty_cache()
     return dict(gwc=errs, gwc_bwd=bwd_errs, conv3d=conv_errs, conv3d_bwd=bwd_conv_errs), timing
@@ -692,9 +716,56 @@ def phase_train(workdir: Path):
         raise AssertionError("[train] the resumed run's loss is not finite")
     log(f"[train] checkpoints {ckpts}; resumed at step {resumed[0]['step']}, {len(resumed)} more steps, "
         f"loss {resumed[0]['total']:.4f} -> {resumed[-1]['total']:.4f}")
+    resumed_fwd, resumed_bwd = gwc.LAUNCHES, gwc.BACKWARD_LAUNCHES
+    infer_launches = serve_from_logdir(logdir, workdir)
     alone = profile_train_step(root)
     return dict(alone=alone, steps=steps, ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, fwd=fwd, bwd=bwd,
-                resumed_fwd=gwc.LAUNCHES, resumed_bwd=gwc.BACKWARD_LAUNCHES)
+                resumed_fwd=resumed_fwd, resumed_bwd=resumed_bwd, infer=infer_launches)
+
+
+def serve_from_logdir(logdir: Path, workdir: Path) -> int:
+    """One `cli infer --submission --logdir` request from the train run's
+    newest checkpoint, f32; the served PNG against the checkpoint's "model"
+    weights run in-process on the same pair. Returns the request's gwc
+    launches."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.data.io import read_png, write_png
+    from dcanet_tpu_torch.data.submission import from_submission_shape, to_submission_shape, whiten_per_channel
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.models import DCANet
+
+    left, right = synthetic_pair(SEED)
+    lp, rp, out = workdir / "train_left.png", workdir / "train_right.png", workdir / "train_disp.png"
+    write_png(lp, left)
+    write_png(rp, right)
+    gwc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cli.main(["infer", "--left", str(lp), "--right", str(rp), "--out", str(out), "--submission",
+              "--logdir", str(logdir), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = gwc.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"[train infer] gwc kernel launched {launches} times for 1 request")
+
+    newest = sorted((logdir / "ckpt").iterdir())[-1]
+    model = DCANet(maxdisp=192, num_cva=3)
+    model.load_state_dict(torch.load(newest, map_location="cpu", weights_only=True)["model"], strict=True)
+    model = model.cuda().eval()
+    tl, tr = (torch.from_numpy(to_submission_shape(whiten_per_channel(x.astype(np.float32)))[0]
+                               .transpose(2, 0, 1)[None].copy()).cuda() for x in (left, right))
+    with torch.inference_mode():
+        ref = from_submission_shape(model(tl, tr).disparity[0].float().cpu().numpy(), KITTI_HW)
+    png = read_png(out)
+    if png.shape != KITTI_HW or png.dtype != np.uint16:
+        raise AssertionError(f"[train infer] {out.name}: {png.shape} {png.dtype}, expected {KITTI_HW} uint16")
+    close = np.abs(png.astype(np.float32) / 256.0 - np.clip(ref, 0, 65535 / 256.0)) <= 1.0 / 128
+    log(f"[train infer] cli infer --submission --logdir: {newest.name}, {wall:.3f} s wall, {launches} gwc launch, "
+        f"{close.mean():.4%} of pixels within 1/128 px of the checkpoint's weights run in-process")
+    if close.mean() < 0.99:
+        raise AssertionError("[train infer] the served PNG disagrees with the checkpoint's weights")
+    return launches
 
 
 def profile_train_step(root: Path) -> dict:
@@ -838,7 +909,8 @@ def main(argv=None) -> int:
     kernels = [
         kernel_entry(
             "gwc_volume", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:51", train["fwd"],
-            {"train": train["fwd"], "serving": serving}, errs["gwc"]["main f32"], gwc_t["f32"],
+            {"train": train["fwd"], "serving": serving, "train_infer": train["infer"]}, errs["gwc"]["main f32"],
+            gwc_t["f32"],
             dtype="float32", shape={"features": list(MAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
             bfloat16={"max_abs_err": errs["gwc"]["main bf16"], **gwc_t["bf16"]},
             train_shape={"features": list(TRAIN_SHAPE), "float32": gwc_t["train f32"],

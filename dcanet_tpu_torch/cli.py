@@ -6,8 +6,8 @@
         [--seed N] [--maxdisp N] [--print-freq N] [--num-workers N]
         [--device cuda|cpu]
   infer --left L.png --right R.png --out disp.png [--submission]
-        [--weights PATH] [--maxdisp 192] [--num-cva 3] [--dtype bf16|f32]
-        [--device cuda|cpu]
+        [--weights PATH | --logdir DIR] [--maxdisp 192] [--num-cva 3]
+        [--dtype bf16|f32] [--device cuda|cpu]
 
 `train` (dcanet_tpu/cli.py:87-197): DCANet(num_cva=3) from a reference init
 drawn from --seed, Adam on the preset's LR schedule, the preset's dataset
@@ -21,9 +21,13 @@ Single-pair inference to a uint16 x256 PNG. `--submission` follows the
 reference's benchmark-submission protocol (my_img.py:47-111): per-channel
 whitening, a fixed 384x1248 pad/crop and a per-image time print. Without it
 the images take the training normalisation (ImageNet statistics) and are
-padded to multiples of 16. `--weights` takes an `.npz` of flat flax variables
-or a reference-keyed torch checkpoint; without it the model takes a reference
-init drawn from seed 0. The model runs on CUDA unless `--device cpu` is given.
+padded to multiples of 16. `--weights` takes an `.npz` of flat flax variables,
+a checkpoint of `train` or a reference-keyed torch checkpoint. `--logdir DIR`
+restores the weights of the newest `DIR/ckpt/ckpt_<step>.pt` that `train`
+wrote (dcanet_tpu/cli.py:416-420; there the preset's logdir is the default,
+here the flag is opt-in) and reads only. With neither, or with no checkpoint
+under DIR, the model takes a reference init drawn from seed 0; infer prints
+which weights it used. The model runs on CUDA unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -72,8 +76,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _infer_weights(args: argparse.Namespace) -> Optional[str]:
+    """The weights file infer loads (None: the seed-0 reference init)."""
+    from dcanet_tpu_torch.train.checkpoint import latest_checkpoint
+
+    if args.logdir is None:
+        return args.weights
+    path = latest_checkpoint(os.path.join(args.logdir, "ckpt"))
+    if path is None:
+        print(f"no checkpoint under {os.path.join(args.logdir, 'ckpt')}; using the reference init from seed 0")
+        return None
+    print(f"restored weights from {path}")
+    return str(path)
+
+
 def cmd_infer(args: argparse.Namespace) -> None:
-    model = build_model(args.maxdisp, args.num_cva, args.weights, args.device)
+    model = build_model(args.maxdisp, args.num_cva, _infer_weights(args), args.device)
     dev = next(model.parameters()).device
     if dev.type == "cuda" and args.dtype == "f32":
         # f32 means float32 arithmetic: cuDNN convolutions default to TF32
@@ -231,7 +249,10 @@ def main(argv: Optional[Sequence[str]] = None):
     sp.add_argument("--out", required=True)
     sp.add_argument("--submission", action="store_true",
                     help="my_img.py protocol: per-channel whitening + 384x1248 pad/crop")
-    sp.add_argument("--weights", default=None, help=".npz of flax variables or a reference torch checkpoint")
+    src = sp.add_mutually_exclusive_group()
+    src.add_argument("--weights", default=None,
+                     help=".npz of flax variables, a train checkpoint or a reference torch checkpoint")
+    src.add_argument("--logdir", default=None, help="restore the newest DIR/ckpt/ckpt_<step>.pt of `train`")
     sp.add_argument("--maxdisp", type=int, default=192)
     sp.add_argument("--num-cva", type=int, default=3)
     sp.add_argument("--dtype", choices=("f32", "bf16"), default="f32")

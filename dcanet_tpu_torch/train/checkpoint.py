@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 import re
 from pathlib import Path
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
@@ -22,6 +22,21 @@ from dcanet_tpu_torch.train.state import TrainState
 
 PathLike = Union[str, Path]
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+
+
+def checkpoint_steps(directory: PathLike) -> List[int]:
+    """Steps of the `ckpt_<step>.pt` files in `directory`, oldest first; []
+    when it does not exist. Reads only: creates nothing."""
+    directory = Path(directory)
+    if not directory.is_dir():
+        return []
+    return sorted(int(m.group(1)) for p in directory.iterdir() if (m := _NAME.match(p.name)))
+
+
+def latest_checkpoint(directory: PathLike) -> Optional[Path]:
+    """Path of the newest `ckpt_<step>.pt` in `directory`, or None."""
+    steps = checkpoint_steps(directory)
+    return Path(directory) / f"ckpt_{steps[-1]:08d}.pt" if steps else None
 
 
 def _save(payload: dict, path: Path) -> None:
@@ -38,8 +53,8 @@ class CheckpointManager:
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
 
-    def steps(self):
-        return sorted(int(m.group(1)) for p in self.directory.iterdir() if (m := _NAME.match(p.name)))
+    def steps(self) -> List[int]:
+        return checkpoint_steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()

@@ -248,7 +248,10 @@ def load_reference_checkpoint(path: Union[str, Path]) -> Dict[str, torch.Tensor]
     """A reference torch checkpoint (`torch.save` dict with a `state_dict`,
     keys prefixed `module.`) -> a state_dict for the port's DCANet: the
     prefix stripped, `num_batches_tracked` and the `norm3` aliases dropped."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return _from_reference_payload(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def _from_reference_payload(payload: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     sd = payload.get("state_dict", payload)
     sd = {re.sub(r"^module\.", "", k): v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
     out = {}
@@ -261,8 +264,13 @@ def load_reference_checkpoint(path: Union[str, Path]) -> Dict[str, torch.Tensor]
 
 
 def load_weights(path: Union[str, Path], num_cva: int = 3) -> Dict[str, torch.Tensor]:
-    """`.npz` of flat flax variables, or a reference-keyed torch checkpoint."""
+    """`.npz` of flat flax variables; a checkpoint of the port's `cli train`
+    (`train.checkpoint.CheckpointManager`: the weights under `"model"`); or a
+    reference-keyed torch checkpoint (`"state_dict"`, `module.` prefixes)."""
     if str(path).endswith(".npz"):
         with np.load(path) as f:
             return from_jax_variables({k: f[k] for k in f.files}, num_cva)
-    return load_reference_checkpoint(path)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in payload:
+        return dict(payload["model"])
+    return _from_reference_payload(payload)

@@ -5,7 +5,8 @@
 - without `--device cpu` and with no GPU, `infer` raises before any work;
 - the numpy/zlib PNG reader and writer against PIL, for every filter type;
 - the submission and padding protocol against dcanet_tpu.data;
-- the reference-checkpoint loader.
+- the reference-checkpoint loader, and `infer --logdir` / `load_weights`
+  on the checkpoints of the port's own `cli train`.
 """
 
 import functools
@@ -232,15 +233,19 @@ def _tiny_sceneflow(tmp_path, monkeypatch):
     return write_sceneflow_tree(tmp_path / "sceneflow", 4, (48, 96), seed=0, max_disp=24)
 
 
+def _train_args(root, logdir):
+    return ["train", "--preset", "sceneflow", "--data-root", str(root), "--logdir", str(logdir),
+            "--maxdisp", "32", "--batch-size", "2", "--num-workers", "2", "--print-freq", "1",
+            "--seed", "3", "--device", "cpu"]
+
+
 def test_train_cpu_then_resume(tmp_path, monkeypatch, capsys):
     """`cli train --device cpu`: two steps, a checkpoint, the JAX CLI's
     print lines; `--resume` continues at the saved step with the saved
     optimizer state."""
     root = _tiny_sceneflow(tmp_path, monkeypatch)
     logdir = tmp_path / "run"
-    args = ["train", "--preset", "sceneflow", "--data-root", str(root), "--logdir", str(logdir),
-            "--maxdisp", "32", "--batch-size", "2", "--num-workers", "2", "--print-freq", "1",
-            "--seed", "3", "--device", "cpu"]
+    args = _train_args(root, logdir)
     hist = cli.main(args + ["--epochs", "1"])
     assert [r["step"] for r in hist] == [0, 1]
     assert all(np.isfinite(r[k]) for r in hist for k in ("total", "focal", "smooth_l1", "grad_norm", "epe"))
@@ -274,3 +279,70 @@ def test_train_without_gpu_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train", "--data-root", str(root), "--logdir", str(tmp_path / "run"), "--maxdisp", "32"])
     assert not (tmp_path / "run" / "ckpt").exists()
+
+
+# ---- infer from the checkpoints of cli train ----
+
+def _infer_args(lp, rp, out, *extra):
+    return ["infer", "--left", str(lp), "--right", str(rp), "--out", str(out), "--maxdisp", "32",
+            "--device", "cpu", *extra]
+
+
+def test_infer_logdir_serves_train_checkpoint(tmp_path, rng, monkeypatch, capsys):
+    """`infer --logdir` after `cli train` restores the newest checkpoint's
+    weights: the PNG of a model loaded straight from its "model", not the
+    PNG of the seed-0 init."""
+    from dcanet_tpu_torch.models import DCANet
+
+    root = _tiny_sceneflow(tmp_path, monkeypatch)
+    logdir = tmp_path / "run"
+    cli.main(_train_args(root, logdir) + ["--epochs", "1"])
+    capsys.readouterr()
+    lp, rp = _stereo_png_pair(tmp_path, rng, 40, 72)
+    out, init_out = tmp_path / "disp.png", tmp_path / "init.png"
+    cli.main(_infer_args(lp, rp, out, "--logdir", str(logdir)))
+    ckpt = logdir / "ckpt" / "ckpt_00000002.pt"
+    assert f"restored weights from {ckpt}" in capsys.readouterr().out
+    cli.main(_infer_args(lp, rp, init_out))
+
+    model = DCANet(maxdisp=32, num_cva=3)
+    model.load_state_dict(torch.load(ckpt, weights_only=True)["model"], strict=True)
+    left, pads = tsub.pad_to_multiple(tio.normalize_imagenet(tio.read_image(lp)), 16)
+    right, _ = tsub.pad_to_multiple(tio.normalize_imagenet(tio.read_image(rp)), 16)
+    want = _kitti_png(tsub.unpad(_direct(model.eval(), left, right), pads))
+    got = tio.read_png(out)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, tio.read_png(init_out))
+
+
+def test_load_weights_takes_train_checkpoint(tmp_path):
+    """A CheckpointManager file gives exactly the model's state_dict."""
+    from dcanet_tpu_torch.train.checkpoint import CheckpointManager
+    from dcanet_tpu_torch.train.state import create_train_state
+
+    model = cli.build_model(MAXDISP, 3, device="cpu", seed=4)
+    state = create_train_state(model, lambda step: 1e-3)
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    loaded = W.load_weights(mgr.directory / f"ckpt_{mgr.save(state):08d}.pt", 3)
+    assert list(loaded) == list(model.state_dict())
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(loaded[k], v, rtol=0, atol=0)
+
+
+def test_infer_weights_and_logdir_exclude_each_other(tmp_path, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_infer_args("l.png", "r.png", tmp_path / "d.png", "--weights", "w.npz", "--logdir", str(tmp_path)))
+    assert exc.value.code == 2
+    assert "not allowed with argument" in capsys.readouterr().err
+
+
+def test_infer_logdir_missing_creates_nothing(tmp_path, rng, capsys):
+    """No checkpoint under --logdir: the seed-0 init, and no directory made."""
+    lp, rp = _stereo_png_pair(tmp_path, rng, 16, 32)
+    missing = tmp_path / "no_run"
+    out, init_out = tmp_path / "disp.png", tmp_path / "init.png"
+    cli.main(_infer_args(lp, rp, out, "--num-cva", "1", "--logdir", str(missing)))
+    assert "using the reference init from seed 0" in capsys.readouterr().out
+    assert not missing.exists()
+    cli.main(_infer_args(lp, rp, init_out, "--num-cva", "1"))
+    np.testing.assert_array_equal(tio.read_png(out), tio.read_png(init_out))

@@ -1,7 +1,9 @@
 """The gwc cost-volume kernel module of the port (dcanet_tpu_torch.kernels.gwc).
 
 On the CPU: the plain version against the JAX package's Pallas kernel run in
-interpret mode, the dispatcher's CPU path, and the wrapper's input checks.
+interpret mode, the dispatcher's CPU path, the wrapper's input checks, and a
+numpy emulation of the forward kernel's index map (its tiles read from
+csrc/gwc.cu).
 The CUDA kernel itself is compared with its plain version by the card-only
 test below and by chip_smoke.py. The card's machine has no JAX, so JAX is
 imported inside the one test that needs it and the card-only test uses no
@@ -11,6 +13,7 @@ fixture of tests/conftest.py; there, run:
 
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -123,6 +126,89 @@ def test_import_needs_no_nvcc():
     assert res.returncode == 0, res.stderr
 
 
+_TILE = re.compile(
+    r"struct FwdTile<(float|__nv_bfloat16)> \{\s*"
+    r"static constexpr int kTW = (\d+), kV = (\d+), kND = (\d+), kSlices = (\d+);"
+)
+
+
+def _forward_tiles():
+    """(kTW, kV, kND, kSlices) of the forward kernel per element type, as csrc/gwc.cu sets them."""
+    with open(os.path.join(REPO, "dcanet_tpu_torch", "csrc", "gwc.cu")) as f:
+        tiles = {m.group(1): tuple(int(x) for x in m.groups()[1:]) for m in _TILE.finditer(f.read())}
+    assert set(tiles) == {"float", "__nv_bfloat16"}, tiles
+    return tiles
+
+
+def _emulate_forward(left, right, maxdisp, groups, tw, v, nd, slices):
+    """The forward kernel of csrc/gwc.cu in numpy at f32: block by block
+    (b, g, h, W-tile), pass by pass over d, the shared-memory tiles with
+    their zero halo, and each thread's strip of R from which its window
+    slides one column per d. Returns the volume (NaN where nothing was
+    written) and the number of writes per element."""
+    b_, c_, h_, w_ = left.shape
+    cpg, ncg, dpass = c_ // groups, tw // v, slices * nd
+    cg, s = (a.ravel() for a in np.meshgrid(np.arange(ncg), np.arange(slices), indexing="ij"))
+    k, vv = np.arange(nd)[:, None], np.arange(v)[None, :]
+    out = np.full((b_, groups, maxdisp, h_, w_), np.nan, np.float32)
+    writes = np.zeros(out.shape, np.int64)
+
+    def staged(rows, first, n):  # columns [first, first + n) of each row, zero outside [0, W)
+        cols = first + np.arange(n)
+        return np.where((cols >= 0) & (cols < w_), rows[:, np.clip(cols, 0, w_ - 1)], np.float32(0))
+
+    for b in range(b_):
+        for g in range(groups):
+            chans = slice(g * cpg, (g + 1) * cpg)
+            for h in range(h_):
+                for w0 in range(0, w_, tw):
+                    ls = staged(left[b, chans, h], w0, tw)  # (cpg, kTW)
+                    for dc in range(0, maxdisp, dpass):
+                        rs = staged(right[b, chans, h], w0 - dc - dpass, tw + dpass)
+                        wv, d0 = w0 + cg * v, dc + s * nd
+                        lwin = ls[:, (cg * v)[:, None] + np.arange(v)]  # (cpg, threads, kV)
+                        strip = rs[:, (cg * v + dpass - (s + 1) * nd)[:, None] + np.arange(nd + v)]
+                        rwin = strip[:, :, vv - k + nd]  # (cpg, threads, kND, kV): R[w - d]
+                        acc = np.zeros(rwin.shape[1:], np.float32)
+                        for c in range(cpg):
+                            acc = acc + lwin[c][:, None, :] * rwin[c]
+                        d = (d0[:, None, None] + k).repeat(v, 2)
+                        w = (wv[:, None, None] + vv).repeat(nd, 1)
+                        live = (wv < w_)[:, None, None] & (d0 < maxdisp)[:, None, None] & (d < maxdisp) & (w < w_)
+                        val = np.where(w >= d, acc / np.float32(cpg), np.float32(0))
+                        out[b, g, d[live], h, w[live]] = val[live]
+                        np.add.at(writes, (b, g, d[live], h, w[live]), 1)
+    return out, writes
+
+
+@pytest.mark.parametrize("tile", ["float", "__nv_bfloat16"])
+@pytest.mark.parametrize(
+    "shape,groups,maxdisp",
+    [
+        ((1, 16, 2, 45), 4, 60),  # odd W (W % kV != 0, W < kTW), D = 60 > W
+        ((2, 8, 2, 150), 8, 140),  # CPG = 1, W % kTW != 0, D > kTW: three passes over d
+        ((1, 64, 1, 130), 2, 48),  # CPG = 32, W % kV != 0 on two tiles
+        ((1, 32, 3, 24), 4, 8),  # D < one pass, W % kV == 0
+    ],
+)
+def test_forward_index_map_emulation(tile, shape, groups, maxdisp):
+    tw, v, nd, slices = _forward_tiles()[tile]
+    rng = np.random.default_rng(5)
+    left, right = _features(rng, shape)
+    got, writes = _emulate_forward(left, right, maxdisp, groups, tw, v, nd, slices)
+    assert (writes == 1).all(), f"{int((writes == 0).sum())} elements unwritten, {int((writes > 1).sum())} twice"
+    want = G.gwc_volume_reference(torch.from_numpy(left), torch.from_numpy(right), maxdisp, groups)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-6, rtol=0)
+
+
+# every shape of the index-map emulation, and the main and train shapes cut in H
+_CUDA_CASES = [
+    ((2, 32, 6, 20), 4, 8), ((2, 32, 6, 20), 4, 12), ((2, 32, 6, 20), 4, 60),
+    ((1, 16, 5, 45), 4, 60), ((2, 8, 2, 150), 8, 140), ((1, 64, 1, 130), 2, 48), ((1, 32, 3, 24), 4, 8),
+    ((1, 320, 4, 312), 40, 48), ((1, 320, 4, 128), 40, 48),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
@@ -130,12 +216,12 @@ def test_cuda_kernel_matches_plain_version(dtype):
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     rng = np.random.default_rng(0)
     dt = getattr(torch, dtype)
-    left, right = (torch.from_numpy(a).cuda().to(dt) for a in _features(rng, (2, 32, 6, 20)))
-    for maxdisp in (8, 12, 60):
+    for shape, groups, maxdisp in _CUDA_CASES:
+        left, right = (torch.from_numpy(a).cuda().to(dt) for a in _features(rng, shape))
         before = G.LAUNCHES
-        got = G.gwc_volume(left, right, maxdisp, 4)
+        got = G.gwc_volume(left, right, maxdisp, groups)
         assert G.LAUNCHES == before + 1
-        want = G.gwc_volume_reference(left, right, maxdisp, 4)
+        want = G.gwc_volume_reference(left, right, maxdisp, groups)
         rtol = 0.0 if dt == torch.float32 else 2.0**-7
         torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=rtol)
 
