@@ -10,13 +10,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      (cuobjdump) must hold only the two tensor-core kernels, with TF32 HMMA
      in the f32 (3xTF32) kernel and bf16 HMMA in the bf16 one.
   2. kernels: each kernel against its plain PyTorch version on the card, at
-     the main paths' shapes and at edge cases (for the gwc forward: odd W,
-     D = 60, D > W, 1 and 32 channels per group), TF32 off: the gwc volume, its
-     backward (against autograd through the plain version), conv3d (with
-     scale, bias and ReLU) and conv3d_fast's backward; CUDA-event times of
-     kernel, plain version and, for conv3d, F.conv3d (cuDNN) beside the
-     card's bound for the same work; for context only, F.conv3d f32 with
-     TF32 on (time, and its error, which misses the f32 tolerance).
+     the main paths' shapes and at edge cases (for the gwc forward and
+     backward: odd W, D = 60, D > W, 1 and 32 channels per group; for the
+     backward also D = 140, 2 and 16 channels per group, 32 on a full tile,
+     the Middlebury shape and a batch of 12), TF32
+     off: the gwc volume, its backward (against autograd through the plain
+     version), conv3d (with scale, bias and ReLU) and conv3d_fast's
+     backward; CUDA-event times of kernel, plain version and, for conv3d,
+     F.conv3d (cuDNN) beside the card's bound for the same work (the gwc
+     backward at the train and the Middlebury shape); the gwc kernels
+     retimed at the end; for context only, F.conv3d f32 with TF32 on (time,
+     and its error, which misses the f32 tolerance).
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
      weights from `weights.from_jax_variables` on seeded numpy arrays, in bf16
      autocast and in f32; output shape, finiteness, one gwc launch per forward,
@@ -70,6 +74,8 @@ SEED = 0
 MAIN_SHAPE = (1, 320, 96, 312)  # gwc features of a 384x1248 pair
 TRAIN_SHAPE = (1, 320, 64, 128)  # gwc features of a 256x512 SceneFlow crop
 MAIN_GROUPS, MAIN_D = 40, 48
+# the gwc backward at the Middlebury preset's 320x704 crop, maxdisp 240
+MIDDLEBURY_SHAPE, MIDDLEBURY_D = (1, 320, 80, 176), 60
 # the conv3d kernel's own path: tools/bench_conv3d.py::run_pallas's shapes, NCDHW
 CONV_SHAPE = (1, 32, 48, 96, 312)
 CONV_SHAPE_64 = (1, 64, 48, 96, 312)
@@ -182,12 +188,13 @@ def check_close(tag: str, got, want, atol: float, rtol: float) -> float:
 
 
 def gwc_backward_bound_ms(shape, groups: int, maxdisp: int, elem_bytes: int):
-    """Least time for the gwc backward: the volume's grad, L and R read once,
-    dL and dR written once; a multiply-add per channel product this input
+    """Least time for the gwc backward: the entries w >= d of the volume's
+    grad (the occluded w < d reach neither dL nor dR), L and R read once, dL
+    and dR written once; a multiply-add per channel product this input
     needs, for dL and again for dR."""
     b, c, h, w = shape
-    bytes_moved = (4 * b * c * h * w + b * groups * maxdisp * h * w) * elem_bytes
     pairs = sum(w - d for d in range(min(maxdisp, w)))
+    bytes_moved = (4 * b * c * h * w + b * groups * h * pairs) * elem_bytes
     ops = 2 * 2 * b * c * h * pairs
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -291,13 +298,42 @@ def phase_kernels():
         torch.cuda.synchronize()
         errs[name] = check_close(f"gwc {name} {tuple(shape)} G={groups} D={d}", got, want, *tol[dtype])
 
-    # gwc backward against autograd through the plain version; the same
-    # tolerances (f32 sums in another order; bf16 rounds once from f32)
+    # gwc backward against autograd through the plain version, grad at unit
+    # scale. f32: sums of up to D products (no mean over the channels where
+    # one channel makes a group) in another order, so the tolerance scales
+    # with the output's magnitude as conv3d's does: 1e-5 * max(1, max|ref|);
+    # bf16: one ulp on top, both round once from f32.
+    def bwd_tol(dtype, ref):
+        return 1e-5 * max(1.0, float(ref.float().abs().max())), tol[dtype][1]
+
     bwd_cases = [
         ("train f32", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("train bf16", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("D>W f32", (2, 16, 5, 7), 4, 12, torch.float32),
         ("D>W bf16", (2, 16, 5, 7), 4, 12, torch.bfloat16),
+        # the backward kernel's edges: odd W (scalar loads and stores), one
+        # channel per group with D = 140 > its 64-disparity pass (three
+        # passes, the later ones staged once for dL and once for dR), 32
+        # channels per group on two ragged tiles and on one full 128-column
+        # tile (f32: one thread per set of sums, 512 threads), 2 and 16
+        # channels per group; the Middlebury train shape (three tiles of 64,
+        # D = 60) and the KITTI preset's batch of 12
+        ("odd W f32", (1, 16, 5, 45), 4, 60, torch.float32),
+        ("odd W bf16", (1, 16, 5, 45), 4, 60, torch.bfloat16),
+        ("CPG=1 f32", (2, 8, 2, 150), 8, 140, torch.float32),
+        ("CPG=1 bf16", (2, 8, 2, 150), 8, 140, torch.bfloat16),
+        ("CPG=32 f32", (1, 64, 3, 130), 2, 48, torch.float32),
+        ("CPG=32 bf16", (1, 64, 3, 130), 2, 48, torch.bfloat16),
+        ("CPG=32 W=128 f32", (1, 64, 3, 128), 2, 48, torch.float32),
+        ("CPG=32 W=128 bf16", (1, 64, 3, 128), 2, 48, torch.bfloat16),
+        ("CPG=2 f32", (2, 8, 3, 100), 4, 48, torch.float32),
+        ("CPG=2 bf16", (2, 8, 3, 100), 4, 48, torch.bfloat16),
+        ("CPG=16 f32", (1, 32, 3, 256), 2, 48, torch.float32),
+        ("CPG=16 bf16", (1, 32, 3, 256), 2, 48, torch.bfloat16),
+        ("middlebury f32", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, torch.float32),
+        ("middlebury bf16", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, torch.bfloat16),
+        ("kitti batch f32", (12,) + TRAIN_SHAPE[1:], MAIN_GROUPS, MAIN_D, torch.float32),
+        ("kitti batch bf16", (12,) + TRAIN_SHAPE[1:], MAIN_GROUPS, MAIN_D, torch.bfloat16),
     ]
     bwd_errs = {}
     for name, shape, groups, d, dtype in bwd_cases:
@@ -308,9 +344,11 @@ def phase_kernels():
         want = gwc.gwc_volume_backward_reference(grad, left, right, d, groups)
         torch.cuda.synchronize()
         bwd_errs[name] = max(
-            check_close(f"gwc backward {name} {tuple(shape)} G={groups} D={d} {part}", g_, w_, *tol[dtype])
+            check_close(f"gwc backward {name} {tuple(shape)} G={groups} D={d} {part}", g_, w_, *bwd_tol(dtype, w_))
             for part, g_, w_ in (("dL", got[0], want[0]), ("dR", got[1], want[1]))
         )
+        del left, right, grad, got, want
+    torch.cuda.empty_cache()
 
     # conv3d forward. f32: 27*C products summed in another order, so the
     # tolerance scales with the output's magnitude: 1e-5 * max(1, max|ref|).
@@ -401,13 +439,18 @@ def phase_kernels():
                                              library_ms=None)
         log(f"[kernels] gwc train {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
-        grad = randn((b, MAIN_GROUPS, MAIN_D, h, w), dtype)
-        ms = time_cuda(lambda: gwc.gwc_volume_backward_cuda(grad, left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
-        plain_ms = time_cuda(_gwc_backward_plain(left, right, grad, MAIN_D, MAIN_GROUPS), 5, flush=flush)
-        bound_ms, bound_by = gwc_backward_bound_ms(TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, left.element_size())
-        timing["gwc_bwd"][tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        log(f"[kernels] gwc backward train {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
+        for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("middlebury", MIDDLEBURY_SHAPE, MIDDLEBURY_D)):
+            b, c, h, w = xs
+            left, right = randn(xs, dtype), randn(xs, dtype)
+            grad = randn((b, MAIN_GROUPS, d, h, w), dtype)
+            ms = time_cuda(lambda: gwc.gwc_volume_backward_cuda(grad, left, right, d, MAIN_GROUPS), 20, flush=flush)
+            plain_ms = time_cuda(_gwc_backward_plain(left, right, grad, d, MAIN_GROUPS), 5, flush=flush)
+            bound_ms, bound_by = gwc_backward_bound_ms(xs, MAIN_GROUPS, d, left.element_size())
+            key = tag if shape_tag == "train" else f"{shape_tag} {tag}"
+            timing["gwc_bwd"][key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                          library_ms=None)
+            log(f"[kernels] gwc backward {shape_tag} {tag} x{tuple(xs)} D={d}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
 
         for shape_tag, xs in (("32->32", CONV_SHAPE), ("64->32", CONV_SHAPE_64)):
             x = randn(xs, dtype)
@@ -437,6 +480,14 @@ def phase_kernels():
         ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
         timing["gwc"][tag]["ms_retimed"] = ms
         log(f"[kernels] gwc main {tag} retimed: kernel {ms:.4f} ms, {timing['gwc'][tag]['bound_ms'] / ms:.1%} of bound")
+        # and the backward at the train shape, for the same reason
+        b, c, h, w = TRAIN_SHAPE
+        left, right = randn(TRAIN_SHAPE, dtype), randn(TRAIN_SHAPE, dtype)
+        grad = randn((b, MAIN_GROUPS, MAIN_D, h, w), dtype)
+        ms = time_cuda(lambda: gwc.gwc_volume_backward_cuda(grad, left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
+        timing["gwc_bwd"][tag]["ms_retimed"] = ms
+        log(f"[kernels] gwc backward train {tag} retimed: kernel {ms:.4f} ms, "
+            f"{timing['gwc_bwd'][tag]['bound_ms'] / ms:.1%} of bound")
     del flush
     torch.cuda.empty_cache()
     return dict(gwc=errs, gwc_bwd=bwd_errs, conv3d=conv_errs, conv3d_bwd=bwd_conv_errs), timing
@@ -921,6 +972,10 @@ def main(argv=None) -> int:
             train["bwd"], {"train": train["bwd"]}, errs["gwc_bwd"]["train f32"], bwd_t["f32"],
             dtype="float32", shape={"features": list(TRAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
             bfloat16={"max_abs_err": errs["gwc_bwd"]["train bf16"], **bwd_t["bf16"]},
+            middlebury_shape={"features": list(MIDDLEBURY_SHAPE), "maxdisp": MIDDLEBURY_D,
+                              "float32": {"max_abs_err": errs["gwc_bwd"]["middlebury f32"], **bwd_t["middlebury f32"]},
+                              "bfloat16": {"max_abs_err": errs["gwc_bwd"]["middlebury bf16"],
+                                           **bwd_t["middlebury bf16"]}},
         ),
         kernel_entry(
             "conv3d", "dcanet_tpu_torch/csrc/conv3d.cu", "dcanet_tpu/kernels/conv3d.py:54", conv_launches["f32"],

@@ -43,15 +43,39 @@
 // and cpg = C/G, g = c / cpg:
 //   dL[b, c, h, w]  = (1/cpg) sum_{d <= w}       Gv[b, g, d, h, w]      R[b, c, h, w - d]
 //   dR[b, c, h, w'] = (1/cpg) sum_{d: w'+d < W}  Gv[b, g, d, h, w' + d] L[b, c, h, w' + d]
-// It replaces the JAX package's backward of the same kernel (gwc.py::_bwd,
-// XLA linear transposes). One thread per (b, g, h, w) writes dL and dR for
-// the group's cpg channels, so each Gv element is read twice per group and
-// not once per channel; no atomics. Reads of Gv, L, R and the writes coalesce
-// along w. Sums in f32, rounded once to the input type.
+// The occluded entries (w < d) of Gv reach neither. It replaces the JAX
+// package's backward of the same kernel (gwc.py::_bwd, XLA linear
+// transposes).
 // Bound: memory traffic. At the SceneFlow train shape (B=1, C=320, H=64,
-// W=128, G=40, D=48) in f32 it must read Gv (62.9 MB) and L, R (21.0 MB) and
-// write dL, dR (21.0 MB): ~105 MB, ~31 us at 3.35 TB/s; ~0.4 GFLOP of
-// products. bf16 halves the bytes.
+// W=128, G=40, D=48) in f32 it must read the entries w >= d of Gv (51.4 MB
+// of its 62.9 MB) and L, R (21.0 MB) and write dL, dR (21.0 MB): ~93 MB,
+// ~28 us at 3.35 TB/s; ~0.4 GFLOP of products. bf16 halves the bytes.
+// Design: the work items are (b, g, h, W-tile of TW columns; TW = kTW, or
+// kTW / 2 where that leaves fewer columns idle), as in the forward, walked
+// by as many blocks as are resident. A pass stages, by cp.async 16-byte
+// copies with zero fill outside [0, W) (scalar loads for ragged rows), up
+// to kPass rows of Gv (rows dc + [0, rows)) over w0 + [0, TW + dc + rows),
+// the group's rows of R over w0 - dc - rows + [0, TW + rows) and of L over
+// w0 + dc + [0, TW + rows) into dynamic shared memory (above 48 KB, opted
+// in at launch); the next pass's copies are in flight while this one is
+// computed (two buffers).
+// Every element of Gv, L and R is then read from device memory about once
+// per item. Half the threads make dL, half dR; thread (e, s, q) of a half
+// owns the kV columns w0 + q*kV + [0, kV) and the kCh channels s*kCh +
+// [0, kCh), keeps its sums in registers across passes, and takes every
+// kSplit-th step of kND disparities from e on; at the item's end the kSplit
+// threads of a set add their sums through shared memory. A step loads the
+// kND x kV values of Gv its columns need once for all its channels (dL:
+// Gv[d, w]; dR: the diagonal Gv[d, w + d], from one or two aligned 16-byte
+// loads per d, the offset known at compile time), then per channel one
+// strip of kND + kV values (dL: R[w - d]; dR: L[w + d]) from which each d
+// takes its window in registers. Sums in f32, divided by cpg and rounded
+// once; one 16-byte store per channel, neighbouring threads on neighbouring
+// columns. The occluded Gv[d, w < d] are zeros in shared memory for dL:
+// whole vectors by the copies' zero fill, the one vector per row that
+// straddles d by hand. Staged rows span TW + halo columns (halo = D rounded
+// up to kND, at most kHalo); a pass whose rows end beyond the halo (D >
+// kHalo) stages twice, Gv from w0 for dL and from w0 + dc for dR.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,20 +84,6 @@
 #include <numeric>
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-constexpr int kThreads = 256;  // the backward kernel's block
 
 // Tile of the forward kernel per element type: kTW output columns per block,
 // kV columns per thread (one store of kV elements per d), kND disparities per
@@ -90,13 +100,36 @@ struct FwdTile<__nv_bfloat16> {
   static constexpr int kTW = 128, kV = 8, kND = 8, kSlices = 6;
 };
 
-// The forward kernel moves elements as raw bits and converts by hand.
+// Tile of the backward kernel per element type: kTW columns per work item
+// (or kTW / 2 where that leaves fewer columns idle: bwd_tile_width), kV
+// columns per thread (one store of kV elements per channel), kND
+// disparities per step of a thread's loop, at most kCH channels per thread,
+// kSplit threads sharing the steps of one set of sums (1 where the block
+// would pass 512 threads: bwd_split), at most kPass
+// disparities per pass (one staging), staged rows of at most kTW + kHalo
+// columns.
+// tests/test_torch_gwc.py reads these lines to emulate the kernel's index map.
+template <typename T>
+struct BwdTile;
+template <>
+struct BwdTile<float> {
+  static constexpr int kTW = 128, kV = 4, kND = 8, kCH = 4, kSplit = 2, kPass = 48, kHalo = 64;
+};
+template <>
+struct BwdTile<__nv_bfloat16> {
+  static constexpr int kTW = 64, kV = 8, kND = 8, kCH = 4, kSplit = 2, kPass = 64, kHalo = 64;
+};
+
+// The kernels move elements as raw bits and convert by hand.
 template <typename T>
 struct Elem;
 template <>
 struct Elem<float> {
   using bits = unsigned int;
   static __device__ __forceinline__ float to_f32(bits v) { return __uint_as_float(v); }
+  // element i of a run held as 32-bit words (i known at compile time)
+  template <int NW>
+  static __device__ __forceinline__ float at(const unsigned (&w)[NW], int i) { return __uint_as_float(w[i]); }
   template <int N>
   static __device__ __forceinline__ void round(const float (&x)[N], bits (&o)[N]) {
 #pragma unroll
@@ -107,6 +140,10 @@ template <>
 struct Elem<__nv_bfloat16> {
   using bits = unsigned short;
   static __device__ __forceinline__ float to_f32(bits v) { return __uint_as_float((unsigned int)v << 16); }
+  template <int NW>
+  static __device__ __forceinline__ float at(const unsigned (&w)[NW], int i) {
+    return __uint_as_float(i & 1 ? w[i >> 1] & 0xffff0000u : w[i >> 1] << 16);
+  }
   // round to nearest even, two values per instruction (cvt.rn.bf16x2.f32)
   template <int N>
   static __device__ __forceinline__ void round(const float (&x)[N], bits (&o)[N]) {
@@ -144,6 +181,21 @@ __device__ __forceinline__ void load_run(const S* src, S (&dst)[N]) {
 #pragma unroll
     for (int k = 0; k < U; ++k) dst[i * U + k] = u.e[k];
   }
+}
+
+// NW 32-bit words of shared memory at p (16-byte aligned) in 16-byte loads,
+// all of them: the compiler does not narrow them to the words the caller
+// uses, which at a 16-byte stride between lanes would cost as many bank
+// cycles as whole vectors and more instructions.
+template <int NW>
+__device__ __forceinline__ void lds_words(const void* p, unsigned (&w)[NW]) {
+  static_assert(NW % 4 == 0, "whole 16-byte vectors");
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+#pragma unroll
+  for (int i = 0; i < NW / 4; ++i)
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[4 * i]), "=r"(w[4 * i + 1]), "=r"(w[4 * i + 2]), "=r"(w[4 * i + 3])
+                 : "r"(a + 16 * i));
 }
 
 // Asynchronous copy of BYTES (4, 8 or 16) from global src to shared dst;
@@ -333,85 +385,346 @@ gwc_volume_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __
   }
 }
 
-template <typename T, int CPG>
-__global__ void __launch_bounds__(kThreads)
-gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ left,
-                           const T* __restrict__ right, T* __restrict__ dleft,
-                           T* __restrict__ dright, int B, int G, int H, int W, int D) {
-  const long long n = (long long)B * G * H * W;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int w = (int)(idx % W);
-  long long t = idx / W;
-  const int h = (int)(t % H);
-  t /= H;
-  const int g = (int)(t % G);
-  const int b = (int)(t / G);
-
-  const long long plane = (long long)H * W;
-  const long long C = (long long)G * CPG;
-  const long long fbase = ((long long)b * C + (long long)g * CPG) * plane + (long long)h * W;
-  // Gv[b, g, 0, h, 0]
-  const T* gv = grad + ((long long)b * G + g) * D * plane + (long long)h * W;
-
-  float dl[CPG], dr[CPG];
-#pragma unroll
-  for (int c = 0; c < CPG; ++c) dl[c] = dr[c] = 0.0f;
-
-  // dL: the volume entries at this pixel, against R shifted left by d
-  const int dl_end = min(D - 1, w);
-  for (int d = 0; d <= dl_end; ++d) {
-    const float gd = to_f32(gv[d * plane + w]);
-#pragma unroll
-    for (int c = 0; c < CPG; ++c) dl[c] += gd * to_f32(right[fbase + c * plane + w - d]);
-  }
-  // dR: the volume entries at w + d, against L at w + d
-  const int dr_end = min(D - 1, W - 1 - w);
-  for (int d = 0; d <= dr_end; ++d) {
-    const float gd = to_f32(gv[d * plane + w + d]);
-#pragma unroll
-    for (int c = 0; c < CPG; ++c) dr[c] += gd * to_f32(left[fbase + c * plane + w + d]);
-  }
-  const float inv = 1.0f / (float)CPG;
-#pragma unroll
-  for (int c = 0; c < CPG; ++c) {
-    dleft[fbase + c * plane + w] = from_f32<T>(dl[c] * inv);
-    dright[fbase + c * plane + w] = from_f32<T>(dr[c] * inv);
-  }
+// Threads sharing one set of backward sums: kSplit, or 1 where kSplit would
+// take the block past 512 threads (and so below 128 registers per thread).
+template <typename T>
+__host__ __device__ constexpr int bwd_split(int cpg, int tw) {
+  using F = BwdTile<T>;
+  const int sums = tw / F::kV * (cpg / (cpg < F::kCH ? cpg : F::kCH));
+  return 2 * sums * F::kSplit <= 512 ? F::kSplit : 1;
 }
 
+template <typename T, int CPG, int TW>
+struct BwdShape {
+  using F = BwdTile<T>;
+  static constexpr int kCols = TW / F::kV;                 // column groups per item
+  static constexpr int kCh = CPG < F::kCH ? CPG : F::kCH;  // channels per thread
+  static constexpr int kSums = kCols * (CPG / kCh);        // sets of sums per role (dL, dR)
+  static constexpr int kSplit = bwd_split<T>(CPG, TW);     // threads per set of sums
+  static constexpr int kRole = kSums * kSplit;             // threads making dL, and as many dR
+  static constexpr int kThreads = 2 * kRole;
+  static_assert(kThreads <= 512, "at most 512 threads per block");
+};
+
+// Columns per work item of the backward on rows of W: kTW, or kTW / 2 where
+// its tiles leave fewer columns idle (a row of 176 is 3 items of 64, not 2
+// of 128).
 template <typename T>
-int launch_backward(const void* grad, const void* left, const void* right, void* dleft,
-                    void* dright, int B, int C, int H, int W, int G, int D, int device,
-                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (G <= 0 || C % G != 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * G * H * W;
-  if (n == 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const T* gv = static_cast<const T*>(grad);
-  const T* l = static_cast<const T*>(left);
-  const T* r = static_cast<const T*>(right);
-  T* dl = static_cast<T*>(dleft);
-  T* dr = static_cast<T*>(dright);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)blocks), block(kThreads);
-#define GWC_BWD(CPG)                                                                     \
-  gwc_volume_backward_kernel<T, CPG><<<grid, block, 0, s>>>(gv, l, r, dl, dr, B, G, H, W, D); \
-  break;
-  switch (C / G) {
-    case 1: GWC_BWD(1)
-    case 2: GWC_BWD(2)
-    case 4: GWC_BWD(4)
-    case 8: GWC_BWD(8)
-    case 16: GWC_BWD(16)
-    case 32: GWC_BWD(32)
-    default: return (int)cudaErrorInvalidValue;
+int bwd_tile_width(int W) {
+  constexpr int tw = BwdTile<T>::kTW, half = tw / 2;
+  return (W + half - 1) / half * half < (W + tw - 1) / tw * tw ? half : tw;
+}
+
+// The backward's passes over d for a given D and tile width TW. Staged rows
+// span TW + halo columns (halo: D rounded up to kND, at most kHalo); pass p
+// stages rows dc + [0, rows) of Gv, dc = p * pass. The first `joint` passes
+// (dc + rows <= halo) serve dL and dR from one staging (Gv's window from
+// w0); a later pass stages twice: Gv from w0 for dL, from w0 + dc for dR.
+template <typename T>
+struct BwdPlan {
+  int halo, pass, pitch, passes, joint;
+  __host__ __device__ BwdPlan(int D, int TW) {
+    using F = BwdTile<T>;
+    const int d = (D + F::kND - 1) / F::kND * F::kND;
+    halo = d < F::kHalo ? d : F::kHalo;
+    pass = F::kPass < halo ? F::kPass : halo;
+    pitch = TW + halo;
+    passes = (D + pass - 1) / pass;
+    const int full = halo / pass;  // passes wholly inside the window
+    joint = passes < full ? passes : full;
+    if (passes > full && full * pass + rows(D, full * pass) <= halo) ++joint;
   }
-#undef GWC_BWD
-  return (int)cudaGetLastError();
+  // rows of Gv a pass at dc stages: up to D rounded up to kND
+  __host__ __device__ int rows(int D, int dc) const {
+    const int r = (D - dc + BwdTile<T>::kND - 1) / BwdTile<T>::kND * BwdTile<T>::kND;
+    return r < pass ? r : pass;
+  }
+  __host__ __device__ int phases() const { return joint + 2 * (passes - joint); }
+};
+
+// Dynamic shared memory of the backward kernel: two buffers, each with
+// `pass` rows of Gv and the group's rows of L and R, `pitch` elements each;
+// then the f32 partial sums of all but the first of each set's kSplit
+// threads.
+template <typename T>
+long long bwd_smem_bytes(int cpg, int D, int TW) {
+  const BwdPlan<T> plan(D, TW);
+  return 2 * (plan.pass + 2LL * cpg) * plan.pitch * (long long)sizeof(T) +
+         (bwd_split<T>(cpg, TW) - 1) * 2LL * cpg * TW * (long long)sizeof(float);
+}
+
+template <typename T, int CPG, int TW>
+__global__ void __launch_bounds__(BwdShape<T, CPG, TW>::kThreads)
+gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ left,
+                           const T* __restrict__ right, T* __restrict__ dleft,
+                           T* __restrict__ dright, int H, int W, int D, int tiles, int items,
+                           bool vec) {
+  using E = Elem<T>;
+  using S = typename E::bits;
+  using F = BwdTile<T>;
+  using Sh = BwdShape<T, CPG, TW>;
+  constexpr int V = F::kV, ND = F::kND, CH = Sh::kCh, NCG = Sh::kCols;
+  constexpr int NT = Sh::kThreads, SPLIT = Sh::kSplit;
+  static_assert(TW % V == 0 && ND % V == 0 && F::kPass % ND == 0 && F::kHalo % ND == 0,
+                "columns, steps and passes are whole vectors");
+  static_assert(V * sizeof(S) == 16, "a thread's kV columns are one 16-byte vector");
+  constexpr int VW = 4, SW = (ND + V) * (int)sizeof(S) / 4;  // words of a vector, of a strip
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* const smem = reinterpret_cast<S*>(smem_raw);
+
+  const BwdPlan<T> plan(D, TW);
+  const int P = plan.pitch, phases = plan.phases();
+  const int buf_elems = (plan.pass + 2 * CPG) * P;
+  // partial sums of threads e > 0: [dL, dR][e - 1][channel][column]
+  float* const part = reinterpret_cast<float*>(smem + 2 * buf_elems);
+  // thread t: role (dL, dR), e (which of the kSplit threads sharing the
+  // steps over d: steps e, e + kSplit, ...), channels c0 + [0, kCh), columns
+  // q*kV + [0, kV); the role is warp-uniform where kRole is a multiple of 32
+  const int t = threadIdx.x;
+  const bool is_dr = t >= Sh::kRole;
+  const int tr = is_dr ? t - Sh::kRole : t;
+  const int e = tr / Sh::kSums, q = tr % NCG, c0 = tr % Sh::kSums / NCG * CH;
+  const long long plane = (long long)H * W;
+
+  // work item -> (b, g, h, tile), tile fastest: the first column, Gv[b, g,
+  // 0, h, 0], and the rows of channel g*CPG at (b, h, 0) of L, R, dL, dR
+  struct Item {
+    int w0;
+    const S* g;
+    const S* l;
+    const S* r;
+    S* dl;
+    S* dr;
+  };
+  auto decode = [&](int item) {
+    const int tile = item % tiles;
+    item /= tiles;
+    const int h = item % H;
+    item /= H;
+    const long long bg = item;  // b * G + g
+    const long long fbase = bg * CPG * plane + (long long)h * W;
+    return Item{tile * TW,
+                reinterpret_cast<const S*>(grad) + bg * D * plane + (long long)h * W,
+                reinterpret_cast<const S*>(left) + fbase,
+                reinterpret_cast<const S*>(right) + fbase,
+                reinterpret_cast<S*>(dleft) + fbase,
+                reinterpret_cast<S*>(dright) + fbase};
+  };
+  // An item's phases: pass p < joint for dL and dR; then each later pass
+  // once for dL and once for dR. a: Gv's window starts at w0 + a.
+  struct Phase {
+    int dc, rows, a;
+    bool dl, dr;
+  };
+  auto phase_of = [&](int ph) {
+    Phase x;
+    if (ph < plan.joint) {
+      x.dc = ph * plan.pass;
+      x.dl = x.dr = true;
+    } else {
+      const int k = ph - plan.joint;
+      x.dc = (plan.joint + k / 2) * plan.pass;
+      x.dl = k % 2 == 0;
+      x.dr = !x.dl;
+    }
+    x.rows = plan.rows(D, x.dc);
+    x.a = x.dl ? 0 : x.dc;
+    return x;
+  };
+  // f(row, column) for the vectors of a rows x vecs region, the block's
+  // threads in turn; the indices advance without a division
+  auto for_each_vector = [&](int rows, int vecs, auto&& f) {
+    int row = t / vecs, j = t % vecs;
+    const int drow = NT / vecs, dj = NT % vecs;
+    while (row < rows) {
+      f(row, j * V);
+      row += drow;
+      j += dj;
+      if (j >= vecs) {
+        j -= vecs;
+        ++row;
+      }
+    }
+  };
+  // A phase's windows into buffer buf, one commit group: Gv rows dc + [0,
+  // rows) over w0 + a + [0, TW), or + [0, TW + dc - a + rows) where dR reads
+  // them; for dL R[w0 - dc - rows + [0, TW + rows)), for dR L[w0 + dc +
+  // [0, TW + rows)). Zeros outside [0, W), and for dL in place of the
+  // vectors of Gv that lie wholly left of their row's d (occluded).
+  auto stage = [&](const Item& it, const Phase& x, int buf) {
+    S* gs = smem + buf * buf_elems;
+    S* ls = gs + plan.pass * P;
+    S* rs = ls + CPG * P;
+    const int ga = it.w0 + x.a;
+    for_each_vector(x.rows, (x.dr ? TW + x.dc - x.a + x.rows : TW) / V, [&](int row, int j) {
+      const int d = x.dc + row;
+      const bool live = d < D && !(x.dl && ga + j + V <= d);
+      stage_run<S, V>(it.g + (live ? d : 0) * plane, ga + j, live ? W : 0, vec, gs + row * P + j);
+    });
+    for_each_vector(CPG, (TW + x.rows) / V, [&](int c, int j) {
+      if (x.dl) stage_run<S, V>(it.r + c * plane, it.w0 - x.dc - x.rows + j, W, vec, rs + c * P + j);
+      if (x.dr) stage_run<S, V>(it.l + c * plane, it.w0 + x.dc + j, W, vec, ls + c * P + j);
+    });
+    cp_async_commit();
+  };
+
+  float acc[CH][V];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[c][v] = 0.0f;
+
+  int item = blockIdx.x, phase = 0;
+  if (item >= items) return;
+  Item it = decode(item);
+  stage(it, phase_of(0), 0);
+  for (int n = 0;; ++n) {
+    const int buf = n & 1;
+    int next = item, next_phase = phase + 1;
+    if (next_phase == phases) {
+      next += gridDim.x;
+      next_phase = 0;
+    }
+    Item next_it = it;
+    if (next < items) {
+      if (next != item) next_it = decode(next);
+      stage(next_it, phase_of(next_phase), buf ^ 1);
+      cp_async_wait_group<1>();  // this phase's group has landed, the next one's may be in flight
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();
+    const Phase x = phase_of(phase);
+    const int w = it.w0 + q * V;  // this thread's first column
+    S* const gs = smem + buf * buf_elems;
+    if (x.dl && it.w0 < x.dc + x.rows - 1) {
+      // the occluded Gv[d, u < d] never reach dL (dR reads only u >= d):
+      // staging put zeros in place of whole vectors of them, here the rest
+      for (int row = t; row < x.rows; row += NT) {
+        const int occluded = x.dc + row - it.w0;  // columns [0, occluded) of the row
+        if (occluded > 0 && occluded < TW)
+          for (int u = occluded - occluded % V; u < occluded; ++u) gs[row * P + u] = S(0);
+      }
+      __syncthreads();
+    }
+    if (w < W && !is_dr && x.dl) {
+      // dL(c, w + v) += Gv[d0 + k, w + v] R[c, w + v - d0 - k]; the strip
+      // r[i] = R[c, w - d0 - kND + i] from rs[c][q*kV + rows - (j + 1)*kND]
+      const S* rs = gs + (plan.pass + CPG) * P;
+      for (int j = e; j * ND < x.rows; j += SPLIT) {
+        const int d0 = x.dc + j * ND;
+        if (d0 >= D || d0 >= w + V) break;  // later d lie past D or right of every column (w < d)
+        unsigned gw[ND][VW], rw[CH][SW];  // every load of the step first, then the products
+#pragma unroll
+        for (int k = 0; k < ND; ++k) lds_words(gs + (j * ND + k) * P + q * V, gw[k]);
+#pragma unroll
+        for (int c = 0; c < CH; ++c) lds_words(rs + (c0 + c) * P + q * V + x.rows - (j + 1) * ND, rw[c]);
+        float g[ND][V];
+#pragma unroll
+        for (int k = 0; k < ND; ++k)
+#pragma unroll
+          for (int v = 0; v < V; ++v) g[k][v] = E::at(gw[k], v);
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          float r[ND + V];
+#pragma unroll
+          for (int i = 1; i < ND + V; ++i) r[i] = E::at(rw[c], i);
+#pragma unroll
+          for (int k = 0; k < ND; ++k)
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[c][v] = fmaf(g[k][v], r[v - k + ND], acc[c][v]);
+        }
+      }
+    }
+    if (w < W && is_dr && x.dr) {
+      // dR(c, w + v) += Gv[d0 + k, w + v + d0 + k] L[c, w + v + d0 + k]: row
+      // j*kND + k of Gv at column q*kV + d0 - dc + (dc - a) + k + v, and the
+      // strip l[i] = L[c, w + d0 + i] from ls[c][q*kV + j*kND]
+      const S* ls = gs + plan.pass * P;
+      for (int j = e; j * ND < x.rows; j += SPLIT) {
+        const int d0 = x.dc + j * ND;
+        if (d0 >= D || w + d0 >= W) break;  // later d lie past D or read only zeros past W
+        unsigned lw[CH][SW];
+#pragma unroll
+        for (int c = 0; c < CH; ++c) lds_words(ls + (c0 + c) * P + q * V + j * ND, lw[c]);
+        float g[ND][V];
+#pragma unroll
+        for (int k = 0; k < ND; ++k) {
+          const int o = k % V;  // known at compile time once unrolled
+          const S* row = gs + (j * ND + k) * P + q * V + d0 - x.a + (k - o);
+          if (o == 0) {
+            unsigned y[VW];
+            lds_words(row, y);
+#pragma unroll
+            for (int v = 0; v < V; ++v) g[k][v] = E::at(y, v);
+          } else {
+            unsigned y[2 * VW];
+            lds_words(row, y);
+#pragma unroll
+            for (int v = 0; v < V; ++v) g[k][v] = E::at(y, o + v);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          float l[ND + V - 1];
+#pragma unroll
+          for (int i = 0; i < ND + V - 1; ++i) l[i] = E::at(lw[c], i);
+#pragma unroll
+          for (int k = 0; k < ND; ++k)
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[c][v] = fmaf(g[k][v], l[k + v], acc[c][v]);
+        }
+      }
+    }
+    if (phase == phases - 1) {  // the item's last phase: its sums are complete
+      if constexpr (SPLIT > 1) {  // thread e = 0 of each set adds the others' partial sums
+        float* pp = part + (is_dr * (SPLIT - 1) * CPG + c0) * TW + q * V;
+        if (e > 0) {
+#pragma unroll
+          for (int c = 0; c < CH; ++c)
+#pragma unroll
+            for (int v = 0; v < V; ++v) pp[((e - 1) * CPG + c) * TW + v] = acc[c][v];
+        }
+        __syncthreads();
+        if (e == 0) {
+#pragma unroll
+          for (int f = 1; f < SPLIT; ++f)
+#pragma unroll
+            for (int c = 0; c < CH; ++c)
+#pragma unroll
+              for (int v = 0; v < V; ++v) acc[c][v] += pp[((f - 1) * CPG + c) * TW + v];
+        }
+      }
+      if (e == 0 && w < W) {
+        S* out = is_dr ? it.dr : it.dl;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          float y[V];
+#pragma unroll
+          for (int v = 0; v < V; ++v) y[v] = acc[c][v] / (float)CPG;
+          S o[V];
+          E::round(y, o);
+          S* dst = out + (c0 + c) * plane + w;
+          if (vec) {
+            store_run<S, V>(dst, o);
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              if (w + v < W) dst[v] = o[v];
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[c][v] = 0.0f;
+    }
+    __syncthreads();  // this buffer is read: free to refill
+    if (next >= items) break;
+    item = next;
+    phase = next_phase;
+    it = next_it;
+  }
 }
 
 // Blocks for `items` work items on a card that holds `resident` blocks at
@@ -470,6 +783,71 @@ int launch(const void* left, const void* right, void* out, int B, int C, int H, 
   return (int)cudaGetLastError();
 }
 
+// One launch of the backward kernel at tile width TW: as many blocks as are
+// resident at once, each walking its items; above 48 KB of shared memory
+// only once the kernel is opted in (each launch, for what it asks; costs no
+// measurable time).
+template <typename T, int CPG, int TW>
+cudaError_t launch_backward_tw(const T* gv, const T* l, const T* r, T* dl, T* dr, int B, int G, int H,
+                               int W, int D, int sms, bool vec, cudaStream_t s) {
+  auto kernel = gwc_volume_backward_kernel<T, CPG, TW>;
+  constexpr int threads = BwdShape<T, CPG, TW>::kThreads;
+  const long long tiles = (W + TW - 1) / TW;
+  const long long items = (long long)B * G * H * tiles;
+  if (items > 0x3fffffffLL) return cudaErrorInvalidValue;  // item + gridDim.x stays an int
+  const int smem = (int)bwd_smem_bytes<T>(CPG, D, TW);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = grid_size(items, tiles, (long long)sms * std::max(per_sm, 1));
+  kernel<<<(unsigned)blocks, threads, smem, s>>>(gv, l, r, dl, dr, H, W, D, (int)tiles, (int)items, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_backward(const void* grad, const void* left, const void* right, void* dleft,
+                    void* dright, int B, int C, int H, int W, int G, int D, int device,
+                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (G <= 0 || C % G != 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  if ((long long)B * G * H * W == 0) return 0;
+  constexpr int TW = BwdTile<T>::kTW;
+  constexpr unsigned kAlign = BwdTile<T>::kV * sizeof(T);
+  const bool vec = W % BwdTile<T>::kV == 0 && (size_t)grad % kAlign == 0 && (size_t)left % kAlign == 0 &&
+                   (size_t)right % kAlign == 0 && (size_t)dleft % kAlign == 0 && (size_t)dright % kAlign == 0;
+  const T* gv = static_cast<const T*>(grad);
+  const T* l = static_cast<const T*>(left);
+  const T* r = static_cast<const T*>(right);
+  T* dl = static_cast<T*>(dleft);
+  T* dr = static_cast<T*>(dright);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool narrow = bwd_tile_width<T>(W) < TW;
+  int sms = 0, optin = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  if (bwd_smem_bytes<T>(C / G, D, bwd_tile_width<T>(W)) > optin) return (int)cudaErrorInvalidConfiguration;
+#define GWC_BWD(CPG)                                                                                  \
+  err = narrow ? launch_backward_tw<T, CPG, TW / 2>(gv, l, r, dl, dr, B, G, H, W, D, sms, vec, s)    \
+               : launch_backward_tw<T, CPG, TW>(gv, l, r, dl, dr, B, G, H, W, D, sms, vec, s);       \
+  break;
+  switch (C / G) {
+    case 1: GWC_BWD(1)
+    case 2: GWC_BWD(2)
+    case 4: GWC_BWD(4)
+    case 8: GWC_BWD(8)
+    case 16: GWC_BWD(16)
+    case 32: GWC_BWD(32)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GWC_BWD
+  return (int)err;
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Pointers and the stream are passed as
@@ -489,6 +867,17 @@ extern "C" int gwc_volume_backward_f32(const void* grad, const void* left, const
                                        int G, int D, int device, void* stream) {
   return launch_backward<float>(grad, left, right, dleft, dright, B, C, H, W, G, D, device,
                                 stream);
+}
+
+// Bytes of dynamic shared memory a backward launch asks for per block (the
+// card allows cudaDevAttrMaxSharedMemoryPerBlockOptin); -1 for a shape the
+// kernels do not take. A launch that would ask for more fails with
+// cudaErrorInvalidConfiguration.
+extern "C" long long gwc_volume_backward_smem_bytes(int C, int W, int G, int D, int elem_bytes) {
+  if (G <= 0 || C % G != 0 || D <= 0 || W <= 0) return -1;
+  if (elem_bytes == 4) return bwd_smem_bytes<float>(C / G, D, bwd_tile_width<float>(W));
+  if (elem_bytes == 2) return bwd_smem_bytes<__nv_bfloat16>(C / G, D, bwd_tile_width<__nv_bfloat16>(W));
+  return -1;
 }
 
 extern "C" int gwc_volume_backward_bf16(const void* grad, const void* left, const void* right,

@@ -43,6 +43,10 @@ def _lib() -> ctypes.CDLL:
             if fn.argtypes is None:
                 fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+    fn = lib.gwc_volume_backward_smem_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -103,7 +107,8 @@ def gwc_volume_backward_cuda(
         )
     if grad.device != left.device or not grad.is_contiguous():
         raise ValueError(f"gwc backward needs a contiguous grad on {left.device}, got {grad.device}")
-    fn = getattr(_lib(), _BWD_FUNCS[left.dtype])
+    lib = _lib()
+    fn = getattr(lib, _BWD_FUNCS[left.dtype])
     dleft, dright = torch.empty_like(left), torch.empty_like(right)
     stream = torch.cuda.current_stream(left.device).cuda_stream
     err = fn(
@@ -111,7 +116,12 @@ def gwc_volume_backward_cuda(
         b, c, h, w, num_groups, maxdisp, left.device.index, stream,
     )
     if err != 0:
-        raise RuntimeError(f"gwc backward kernel launch failed with CUDA error {err}")
+        smem = lib.gwc_volume_backward_smem_bytes(c, w, num_groups, maxdisp, left.element_size())
+        limit = getattr(torch.cuda.get_device_properties(left.device), "shared_memory_per_block_optin", None)
+        raise RuntimeError(
+            f"gwc backward kernel launch failed with CUDA error {err}; it asks for {smem} bytes of shared "
+            f"memory per block (C/G={c // num_groups}, D={maxdisp}), the card allows {limit}"
+        )
     BACKWARD_LAUNCHES += 1
     return dleft, dright
 
