@@ -12,13 +12,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at edge cases (for the gwc forward and
      backward: odd W, D = 60, D > W, 1 and 32 channels per group; for the
+     forward also the KITTI eval protocol's features, W = 308; for the
      backward also D = 140, 2 and 16 channels per group, 32 on a full tile,
      the Middlebury shape and a batch of 12), TF32
      off: the gwc volume, its backward (against autograd through the plain
      version), conv3d (with scale, bias and ReLU) and conv3d_fast's
      backward; CUDA-event times of kernel, plain version and, for conv3d,
      F.conv3d (cuDNN) beside the card's bound for the same work (the gwc
-     backward at the train and the Middlebury shape); the gwc kernels
+     forward also at the train and the KITTI eval shape, the backward at
+     the train and the Middlebury shape); the gwc kernels
      retimed at the end; for context only, F.conv3d f32 with TF32 on (time,
      and its error, which misses the f32 tolerance).
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
@@ -42,7 +44,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      counted, its PNG against the checkpoint's weights run in-process); then
      one GPU train step against the CPU train step from the same weights on
      a small input.
-  7. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+  7. eval: `cli eval --preset kitti --dataset kitti2015` with DCANet(num_cva=3,
+     maxdisp=192) on a synthetic KITTI 2015 tree of 6 pairs at 375x1242
+     (sparse gt, one pair that the per-image skip rule drops), in f32 and in
+     bf16, with phase 6's newest checkpoint (the seed-0 init when phase 6
+     does not run): one gwc launch per pair (the counts of this phase), EPE,
+     D1 and >1/2/3 px against direct model calls with numpy formulas (rel
+     1e-5), the class scores of every CVA volume against a numpy count of
+     the same logits (exact), `--log-images 2` panels read back; then the
+     command again with cuDNN's default algorithms, as a user runs it:
+     ms/pair, pairs/s (host clock, after the first pair), peak memory, the
+     host's decode of a pair and the forward alone. Then `cli infer --list`
+     over 3 names against single `infer --submission` requests, and `cli
+     export` of phase 6's run with `infer --weights` on it against `infer
+     --logdir`, each bit for bit. The checks that compare two runs take
+     cuDNN's deterministic algorithms in both (`cudnn_deterministic`).
+  8. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
 `--phases` runs a subset (for iterating on one part); the summary lines are
@@ -55,6 +72,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -72,6 +90,9 @@ TF32_TC_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
 BF16_TC_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 SEED = 0
 MAIN_SHAPE = (1, 320, 96, 312)  # gwc features of a 384x1248 pair
+# gwc features of the KITTI eval protocol's 368x1232 crop: W % 8 != 0, the
+# bf16 forward's scalar route
+KITTI_EVAL_SHAPE = (1, 320, 92, 308)
 TRAIN_SHAPE = (1, 320, 64, 128)  # gwc features of a 256x512 SceneFlow crop
 MAIN_GROUPS, MAIN_D = 40, 48
 # the gwc backward at the Middlebury preset's 320x704 crop, maxdisp 240
@@ -84,6 +105,9 @@ CONV_SHAPE_64 = (1, 64, 48, 96, 312)
 SCENEFLOW_HW = (540, 960)
 TRAIN_PAIRS, TRAIN_EPOCHS, TRAIN_WARMUP = 5, 2, 2
 KITTI_HW = (375, 1242)  # a KITTI 2015 image, padded to 384x1248 by --submission
+# eval phase: a synthetic KITTI 2015 tree at KITTI_HW, the last pair's gt
+# almost all at maxdisp, so that the per-image skip rule drops it
+EVAL_PAIRS, EVAL_LIST = 6, ("000000_10.png", "000002_10.png", "000004_10.png")
 
 
 def log(msg: str) -> None:
@@ -274,6 +298,8 @@ def phase_kernels():
     cases = [
         ("main f32", MAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("main bf16", MAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("kitti eval f32", KITTI_EVAL_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("kitti eval bf16", KITTI_EVAL_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("train f32", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("train bf16", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("D=60 f32", MAIN_SHAPE, MAIN_GROUPS, 60, torch.float32),
@@ -430,15 +456,15 @@ def phase_kernels():
         log(f"[kernels] gwc main {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
 
-        b, c, h, w = TRAIN_SHAPE
-        left, right = randn(TRAIN_SHAPE, dtype), randn(TRAIN_SHAPE, dtype)
-        ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
-        plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, MAIN_D, MAIN_GROUPS), 5, flush=flush)
-        bound_ms, bound_by = gwc_bound_ms(TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, left.element_size())
-        timing["gwc"][f"train {tag}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                             library_ms=None)
-        log(f"[kernels] gwc train {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
+        for shape_tag, xs in (("train", TRAIN_SHAPE), ("kitti eval", KITTI_EVAL_SHAPE)):
+            left, right = randn(xs, dtype), randn(xs, dtype)
+            ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
+            plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, MAIN_D, MAIN_GROUPS), 5, flush=flush)
+            bound_ms, bound_by = gwc_bound_ms(xs, MAIN_GROUPS, MAIN_D, left.element_size())
+            timing["gwc"][f"{shape_tag} {tag}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                                       library_ms=None)
+            log(f"[kernels] gwc {shape_tag} {tag} x{tuple(xs)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
         for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("middlebury", MIDDLEBURY_SHAPE, MIDDLEBURY_D)):
             b, c, h, w = xs
             left, right = randn(xs, dtype), randn(xs, dtype)
@@ -905,13 +931,236 @@ def phase_train_parity():
     return dict(rel=rel, stat_err=stat_err)
 
 
+def _eval_reference(model, ds, bf16: bool, maxdisp: int = 192):
+    """The eval command's numbers from direct model calls on the same
+    transformed pairs: EPE, D1 and >1/2/3 px with numpy (float32 errors,
+    float64 means), the per-image skip rule, the means weighted by the
+    images kept; and per CVA volume the (gt class, argmax class) counts."""
+    import torch
+
+    from dcanet_tpu_torch.data.eval_protocol import eval_transform
+
+    sums, kept, confusions = dict.fromkeys(("epe", "d1", "thres1", "thres2", "thres3"), 0.0), 0, None
+    for i in range(len(ds)):
+        left, right, gt, pads = eval_transform(ds[i], "kitti")
+        tl, tr = (torch.from_numpy(np.ascontiguousarray(x[None])).cuda() for x in (left, right))
+        with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=bf16):
+            out = model(tl, tr)
+        disp = out.disparity[0].float().cpu().numpy()
+        disp = disp[pads[0]:, : disp.shape[1] - pads[1]]
+        mask = (gt > 0) & (gt < maxdisp)
+        if mask.mean() >= 0.1 * (gt > 0).mean() and (gt > 0).any():
+            err = np.abs(disp - gt)[mask]
+            bad = {"epe": err, "d1": (err > 3.0) & (err > 0.05 * np.abs(gt[mask])),
+                   "thres1": err > 1.0, "thres2": err > 2.0, "thres3": err > 3.0}
+            for k, v in bad.items():
+                sums[k] += float(v.astype(np.float64).mean())
+            kept += 1
+        gt_model = np.pad(gt, [(pads[0], 0), (0, pads[1])])
+        counts = []
+        for lg in out.class_logits:
+            n, hp, wp = lg.shape[1:]
+            scale = gt_model.shape[1] // wp
+            gt_cls = np.floor(gt_model.astype(np.float64).reshape(hp, scale, wp, scale).mean(axis=(1, 3)) / 8.0)
+            pred = lg[0].float().argmax(dim=0).cpu().numpy()
+            ok = (gt_cls >= 0) & (gt_cls < n)
+            counts.append(np.bincount((gt_cls[ok] * n + pred[ok]).astype(np.int64), minlength=n * n).reshape(n, n))
+        confusions = counts if confusions is None else [a + c for a, c in zip(confusions, counts)]
+    return {k: v / max(kept, 1) for k, v in sums.items()}, kept, confusions
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for the duration. Its default f32
+    ConvTranspose3d algorithm adds with atomics, so two f32 forwards of one
+    pair may differ in the last bits; a check that holds one run against
+    another needs the same fixed order in both."""
+    import torch
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _eval_parts(model, ds, bf16: bool) -> dict:
+    """Where an eval pair's time goes: the host's decode and transform of a
+    pair (median over the pairs), and the forward alone on the first pair
+    (CUDA events, median of 5)."""
+    import torch
+
+    from dcanet_tpu_torch.data.eval_protocol import eval_transform
+
+    host = []
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        left, right, _, _ = eval_transform(ds[i], "kitti")
+        host.append(1e3 * (time.perf_counter() - t0))
+    tl, tr = (torch.from_numpy(np.ascontiguousarray(x[None])).cuda() for x in eval_transform(ds[0], "kitti")[:2])
+
+    def fwd():
+        with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=bf16):
+            return model(tl, tr)
+
+    return dict(host_ms=statistics.median(host), forward_ms=time_cuda(fwd, 5))
+
+
+def phase_eval(workdir: Path, train_logdir) -> dict:
+    """`cli eval --preset kitti --dataset kitti2015` with DCANet(num_cva=3,
+    maxdisp=192) on a synthetic KITTI 2015 tree at 375x1242, in f32 and in
+    bf16, with the weights of phase 6's newest checkpoint (`train_logdir`)
+    or, without it, the seed-0 reference init: one gwc launch per pair, the
+    metrics and the class scores against `_eval_reference`, readable image
+    panels; then `cli infer --list` over 3 names against single `infer
+    --submission` requests, and with a train run, `cli export` then `infer
+    --weights` against `infer --logdir`, bit for bit; each check that holds
+    one run against another under `cudnn_deterministic`, the timed run with
+    cuDNN's defaults."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.data.eval_protocol import KITTI_H, KITTI_W
+    from dcanet_tpu_torch.data.io import read_png
+    from dcanet_tpu_torch.data.synthetic import write_kitti2015_tree
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.models import DCANet
+    from dcanet_tpu_torch.nn.layers import reference_init_
+    from dcanet_tpu_torch.train.checkpoint import checkpoint_step, latest_checkpoint
+    from dcanet_tpu_torch.train.metrics import segmentation_scores
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    root = write_kitti2015_tree(workdir / "kitti", EVAL_PAIRS, KITTI_HW, seed=SEED, out_of_range_pair=EVAL_PAIRS - 1)
+    log(f"[eval] wrote {EVAL_PAIRS} synthetic KITTI 2015 pairs at {KITTI_HW} (sparse gt; the last one's mostly "
+        f"at maxdisp) in {time.perf_counter() - t0:.2f} s")
+    model = DCANet(maxdisp=192, num_cva=3)
+    if train_logdir is not None:
+        newest = latest_checkpoint(train_logdir / "ckpt")
+        step = checkpoint_step(newest)
+        ckpt_args, infer_args = ["--ckpt", str(train_logdir / "ckpt")], ["--logdir", str(train_logdir)]
+        model.load_state_dict(torch.load(newest, map_location="cpu", weights_only=True)["model"], strict=True)
+    else:
+        step, ckpt_args, infer_args = 0, [], []
+        reference_init_(model, torch.Generator().manual_seed(0))  # eval's and infer's default seed
+    model = model.cuda().eval()
+    ds = cli.build_dataset(preset("kitti", dataset="kitti2015", data_root=str(root)), training=False)
+
+    def run_eval(tag, dtype, logdir, images):
+        """One eval command; returns its results and its peak memory above
+        the memory held before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gwc.LAUNCHES = 0
+        got = cli.main(["eval", "--preset", "kitti", "--dataset", "kitti2015", "--data-root", str(root), "--logdir",
+                        str(logdir), "--dtype", dtype, "--log-images", str(images), "--device", "cuda", *ckpt_args])
+        n = gwc.LAUNCHES
+        launches[tag] = launches.get(tag, 0) + n
+        if n != EVAL_PAIRS:
+            raise AssertionError(f"[eval {tag}] gwc kernel launched {n} times for {EVAL_PAIRS} pairs")
+        return got, torch.cuda.max_memory_allocated() - base
+
+    out, launches = {}, {}
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        logdir = workdir / f"eval_{tag}"
+        with cudnn_deterministic():
+            got, _ = run_eval(tag, dtype, logdir, 2)
+            want, kept, confusions = _eval_reference(model, ds, dtype == "bfloat16")
+        if kept != EVAL_PAIRS - 1:
+            raise AssertionError(f"[eval {tag}] the skip rule kept {kept} of {EVAL_PAIRS} pairs")
+        rel = {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()}
+        log(f"[eval {tag}] metrics " + ", ".join(f"{k} {got[k]:.6f} (direct {want[k]:.6f}, rel {rel[k]:.1e})"
+                                                 for k in want) + " (tolerance rel 1e-5)")
+        if max(rel.values()) > 1e-5:
+            raise AssertionError(f"[eval {tag}] metrics disagree with the direct model calls: {rel}")
+        for vi, conf in enumerate(confusions):
+            scores = segmentation_scores(torch.from_numpy(conf).float().cuda())
+            wrong = {k: (got[f"vol{vi + 1}/{k}"], float(v)) for k, v in scores.items()
+                     if got[f"vol{vi + 1}/{k}"] != float(v)}
+            log(f"[eval {tag}] vol{vi + 1}: " + ", ".join(f"{k} {got[f'vol{vi + 1}/{k}']:.6f}" for k in scores)
+                + f" over {int(conf.sum())} counted pixels; {'equal to' if not wrong else 'NOT equal to'} the "
+                  "scores of a numpy count of the same logits")
+            if wrong:
+                raise AssertionError(f"[eval {tag}] vol{vi + 1} scores differ from the numpy count: {wrong}")
+        panels = sorted((logdir / "images").iterdir())
+        want_panels = [f"eval_sample{i}{s}_{step:08d}.png" for i in range(2)
+                       for s in ("", "_probmass_vol1", "_probmass_vol2", "_probmass_vol3")]
+        if [p.name for p in panels] != sorted(want_panels):
+            raise AssertionError(f"[eval {tag}] panels {[p.name for p in panels]}, expected {sorted(want_panels)}")
+        ch, cw = min(KITTI_H, KITTI_HW[0]), min(KITTI_W, KITTI_HW[1])  # the protocol's crop
+        for name, shape in {p.name: read_png(p).shape for p in panels}.items():
+            want_shape = (4 * ch, cw, 3) if "probmass" not in name else (ch // 8, cw // 8, 3)
+            if shape != want_shape:
+                raise AssertionError(f"[eval {tag}] panel {name}: {shape}, expected {want_shape}")
+        # the time of the command as a user runs it: cuDNN's default
+        # algorithms, no panels (with them, pair 2's panel PNGs fall inside
+        # the timed pairs); its metrics may move by a pixel's count in f32
+        timed, peak = run_eval(tag, dtype, workdir / f"eval_{tag}_timed", 0)
+        parts = _eval_parts(model, ds, dtype == "bfloat16")
+        moved = {k: abs(timed[k] - got[k]) / max(abs(got[k]), 1e-12) for k in want}
+        if max(moved.values()) > 1e-3:
+            raise AssertionError(f"[eval {tag}] the run with cuDNN's defaults moved the metrics: {moved}")
+        out[tag] = dict(ms_per_pair=timed["ms_per_pair"], pairs_per_s=timed["pairs_per_s"], peak_bytes=peak,
+                        ms_per_pair_with_panels=got["ms_per_pair"], metrics={k: got[k] for k in want},
+                        miou=got["miou"], mpa=got["mpa"], **parts)
+        log(f"[eval {tag}] cli eval, DCANet(num_cva=3, maxdisp=192), {EVAL_PAIRS} pairs at {ch}x{cw}: "
+            f"{timed['ms_per_pair']:.3f} ms/pair, {timed['pairs_per_s']:.3f} pairs/s (host clock, pairs "
+            f"2-{EVAL_PAIRS}: decode, transform, forward, metrics; {got['ms_per_pair']:.3f} ms/pair with "
+            f"--log-images 2 and cuDNN's deterministic algorithms), peak memory {peak / 2**30:.3f} GiB above the "
+            f"memory held before; metrics within rel {max(moved.values()):.1e} of the deterministic run's; "
+            f"{launches[tag]} gwc launches in the two; {len(panels)} readable PNG panels; {gpu_line()}")
+        log(f"[eval {tag}] parts: decode + transform of a pair {parts['host_ms']:.3f} ms (host, median), the "
+            f"forward alone {parts['forward_ms']:.3f} ms (CUDA events, median of 5)")
+
+    # the list and the single requests it is held against, bit for bit
+    with cudnn_deterministic():
+        lst = workdir / "test.txt"
+        lst.write_text("\n".join(EVAL_LIST) + "\n")
+        gwc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        cli.main(["infer", "--list", str(lst), "--data-root", str(root), "--save-path", str(workdir / "submission"),
+                  "--device", "cuda", *infer_args])
+        launches["infer_list"] = gwc.LAUNCHES
+        wall = time.perf_counter() - t0
+        if launches["infer_list"] != len(EVAL_LIST):
+            raise AssertionError(f"[eval] infer --list launched gwc {launches['infer_list']} times for "
+                                 f"{len(EVAL_LIST)} names")
+
+        def single(name, *weights):
+            png = workdir / "single.png"
+            cli.main(["infer", "--left", str(root / "image_2" / name), "--right", str(root / "image_3" / name),
+                      "--out", str(png), "--submission", "--device", "cuda", *weights])
+            return read_png(png)
+
+        for name in EVAL_LIST:
+            listed = read_png(workdir / "submission" / name)
+            same = np.array_equal(listed, single(name, *infer_args))
+            if listed.shape != KITTI_HW or listed.dtype != np.uint16 or not same:
+                raise AssertionError(f"[eval] infer --list's {name} differs from a single --submission request")
+        log(f"[eval] infer --list over {len(EVAL_LIST)} names: {wall:.3f} s wall, {launches['infer_list']} gwc "
+            "launches (cuDNN's deterministic algorithms); each PNG equal to a single infer --submission request, "
+            "bit for bit")
+        if train_logdir is not None:
+            export = workdir / "export.pt"
+            cli.main(["export", "--logdir", str(train_logdir), "--out", str(export)])
+            if not np.array_equal(single(EVAL_LIST[0], "--weights", str(export)), single(EVAL_LIST[0], *infer_args)):
+                raise AssertionError("[eval] infer --weights <export> differs from infer --logdir")
+            log(f"[eval] export of {train_logdir.name}'s step {step}: infer --weights on it equals infer --logdir, "
+                "bit for bit")
+    return dict(launches=launches, step=step, exported=train_logdir is not None, **out)
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
 
-PHASES = ("kernels", "model", "serving", "conv3d_path", "train")
+PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval")
 
 
 def main(argv=None) -> int:
@@ -950,22 +1199,30 @@ def main(argv=None) -> int:
         if "train" in phases:
             train = phase_train(Path(tmp))
             parity = phase_train_parity()
+        if "eval" in phases:
+            evaluation = phase_eval(Path(tmp), Path(tmp) / "run" if "train" in phases else None)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
         return 0
 
     gwc_t, bwd_t = timing["gwc"], timing["gwc_bwd"]
+    eval_launches = evaluation["launches"]["f32"] + evaluation["launches"]["bf16"]
     conv_t = timing["conv3d"]
     kernels = [
         kernel_entry(
-            "gwc_volume", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:51", train["fwd"],
-            {"train": train["fwd"], "serving": serving, "train_infer": train["infer"]}, errs["gwc"]["main f32"],
+            "gwc_volume", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:51", eval_launches,
+            {"eval": eval_launches, "infer_list": evaluation["launches"]["infer_list"], "train": train["fwd"],
+             "serving": serving, "train_infer": train["infer"]}, errs["gwc"]["main f32"],
             gwc_t["f32"],
             dtype="float32", shape={"features": list(MAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
             bfloat16={"max_abs_err": errs["gwc"]["main bf16"], **gwc_t["bf16"]},
             train_shape={"features": list(TRAIN_SHAPE), "float32": gwc_t["train f32"],
                          "bfloat16": gwc_t["train bf16"]},
+            kitti_eval_shape={"features": list(KITTI_EVAL_SHAPE),
+                              "float32": {"max_abs_err": errs["gwc"]["kitti eval f32"], **gwc_t["kitti eval f32"]},
+                              "bfloat16": {"max_abs_err": errs["gwc"]["kitti eval bf16"],
+                                           **gwc_t["kitti eval bf16"]}},
         ),
         kernel_entry(
             "gwc_volume_backward", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
@@ -996,6 +1253,7 @@ def main(argv=None) -> int:
     ]
     log("[train] summary: " + json.dumps({k: train[k] for k in ("ms", "pairs_per_s", "peak_bytes", "alone")}
                                          | {"parity": parity}))
+    log("[eval] summary: " + json.dumps(evaluation))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,14 +11,16 @@ nothing here imports it, JAX or flax.
             autograd Functions and launch counters; built with nvcc at first use
   nn/       building blocks with the reference's state_dict keys; train-mode
             BatchNorm with flax's statistics
-  models/   DCANet eval and train forwards
+  models/   DCANet eval and train forwards; the registry of model names
   losses.py smooth-L1 and stereo focal losses
   train/    loss presets, train/eval steps, LR schedules, train state,
-            checkpoints, metrics
+            checkpoints, metrics (per-image, disparity-class scores)
   config.py run presets (sceneflow, kitti, eth3d, middlebury)
   weights.py  flax-variables <-> state_dict bridge, reference checkpoint loader
   data/     PNG/PFM IO (numpy + zlib), the KITTI submission protocol,
-            datasets, augmentation, loader with CUDA prefetch, a synthetic
-            SceneFlow tree
-  cli.py    `python -m dcanet_tpu_torch.cli {train,infer} ...`
+            per-benchmark eval geometry, datasets, list files,
+            augmentation, loader with CUDA prefetch, synthetic SceneFlow
+            and KITTI 2015 trees
+  utils/    meters, metric logger (JSONL, CSV, PNG panels), error colormap
+  cli.py    `python -m dcanet_tpu_torch.cli {train,eval,infer,export} ...`
 """

@@ -1,7 +1,6 @@
 """Run configuration: one dataclass with per-dataset presets (the port's own
-copy of dcanet_tpu/config.py). The JAX package's fields for eval image
-dumps, tensorboard, NaN debugging and mesh sharding wait for the slices that
-port those paths.
+copy of dcanet_tpu/config.py). The JAX package's fields for NaN debugging
+and mesh sharding wait for the slices that port those paths.
 
 Replaces the reference's per-script argparse duplicates with divergent
 defaults (main_dca.py:20-34, train_kitti.py:22-46, train_eth3d.py:23-53,
@@ -49,6 +48,14 @@ class RunConfig:
     # + BN statistics loaded, optimizer/step fresh — reference
     # train_kitti.py --loadckpt
     loadckpt: str = ""
+    # eval image panels (input / estimate / gt / error map, and one
+    # probability-mass heatmap per CVA volume) for the first N pairs; 0 = off
+    log_images: int = 0
+    # full-resolution disparity band "lo:hi" of the probability-mass panels;
+    # "" = +-1 class around each pixel's argmax
+    vis_band: str = ""
+    # mirror MetricLogger's scalars and images to TensorBoard (if it imports)
+    use_tensorboard: bool = False
     # checkpoint each CVA block in the train backward (torch.utils.checkpoint):
     # trades recompute for device memory
     remat: bool = False

@@ -13,8 +13,7 @@ ONE parameterized class:
   middlebury    320x704   yes          yes    no      PFM (inf -> 0)
 
 Samples are left/right (3, H, W) and disparity (H, W), float32. Test-time
-padding is `data/submission.py::pad_to_multiple` (pad-to-16 top/right like
-main_dca.py:153-166).
+geometry is `data/eval_protocol.py::eval_transform` (per benchmark).
 """
 
 from __future__ import annotations
@@ -188,7 +187,8 @@ class StereoDataset:
 
     Training: photometric jitter (if preset) -> random crop -> right-image
     occlusion (if preset) -> ImageNet normalize -> channel-first.
-    Test: full images (use submission.pad_to_multiple for static shapes).
+    Test: full images (eval_protocol.eval_transform gives each benchmark's
+    geometry).
     `half_res=True` resizes images and gt by 0.5 (Middlebury additional,
     dataloader/datasets.py:547-688).
     """

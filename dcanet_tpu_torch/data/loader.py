@@ -8,9 +8,9 @@
     ahead, copied from pinned host memory on a side CUDA stream, so the copy
     overlaps the step that runs.
 
-Eval padding is `data/submission.py::pad_to_multiple` (zero rows on top,
-columns on the right); the replicate policy waits for `cli eval`, and
-per-host sharding for the multi-process slice of the port.
+Eval padding is `data/submission.py::pad_to_multiple` and the per-dataset
+eval geometry `data/eval_protocol.py::eval_transform`; per-host sharding
+waits for the multi-process slice of the port.
 """
 
 from __future__ import annotations

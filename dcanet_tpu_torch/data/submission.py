@@ -6,8 +6,11 @@ The port's own copy of dcanet_tpu/data/submission.py:
   * fixed-shape transform to (384, 1248): zero-pad anchored bottom-left (rows
     on top, columns on the right) when the image is smaller, else
     center-crop vertically / left-crop horizontally (my_img.py:71-87);
-  * inverse: strip the top pad / width pad from the disparity (my_img.py:105-108).
-Images are (H, W, C) numpy arrays.
+  * inverse: strip the top pad / width pad from the disparity (my_img.py:105-108);
+  * eval padding to a multiple (`pad_to_multiple`, zero or replicate, also
+    for channel-first images) and its inverse for the top-right zero mode
+    (`unpad`), the port's own copy of dcanet_tpu/data/loader.py:48-76.
+Images are (H, W, C) numpy arrays unless a function says otherwise.
 """
 
 from __future__ import annotations
@@ -51,14 +54,28 @@ def from_submission_shape(
     return disp
 
 
-def pad_to_multiple(img: np.ndarray, multiple: int = 16) -> Tuple[np.ndarray, Tuple[int, int]]:
-    """Zero-pad (H, W, ...) to multiples of `multiple`, rows on top and columns
-    on the right. Returns (padded, (top, right))."""
-    h, w = img.shape[:2]
+def pad_to_multiple(
+    img: np.ndarray, multiple: int = 16, mode: str = "top_right_zero", channels_first: bool = False
+) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """Pad an image to multiples of `multiple` in H and W: (H, W, ...), or
+    (..., H, W) with `channels_first`. Returns (padded, (top, right)), the
+    rows and columns added in all.
+
+    top_right_zero: zero rows on top, zero columns on the right (main_dca eval).
+    replicate:      edge rows and columns, split top/bottom and left/right
+                    (InputPadder, the Middlebury eval).
+    """
+    h, w = img.shape[-2:] if channels_first else img.shape[:2]
     top = (multiple - h % multiple) % multiple
     right = (multiple - w % multiple) % multiple
-    pads = [(top, 0), (0, right)] + [(0, 0)] * (img.ndim - 2)
-    return np.pad(img, pads), (top, right)
+    if mode == "top_right_zero":
+        hw_pads, np_mode = [(top, 0), (0, right)], "constant"
+    elif mode == "replicate":
+        hw_pads, np_mode = [(top // 2, top - top // 2), (right // 2, right - right // 2)], "edge"
+    else:
+        raise ValueError(f"unknown padding mode {mode!r}")
+    rest = [(0, 0)] * (img.ndim - 2)
+    return np.pad(img, rest + hw_pads if channels_first else hw_pads + rest, mode=np_mode), (top, right)
 
 
 def unpad(disp: np.ndarray, pads: Tuple[int, int]) -> np.ndarray:

@@ -33,6 +33,11 @@ def checkpoint_steps(directory: PathLike) -> List[int]:
     return sorted(int(m.group(1)) for p in directory.iterdir() if (m := _NAME.match(p.name)))
 
 
+def checkpoint_step(path: PathLike) -> int:
+    """The step in the name of a `ckpt_<step>.pt` file."""
+    return int(_NAME.match(Path(path).name).group(1))
+
+
 def latest_checkpoint(directory: PathLike) -> Optional[Path]:
     """Path of the newest `ckpt_<step>.pt` in `directory`, or None."""
     steps = checkpoint_steps(directory)
@@ -87,6 +92,13 @@ class CheckpointManager:
 def save_params_only(path: PathLike, model: nn.Module) -> None:
     """Weights only: parameters and BatchNorm statistics."""
     _save({"state_dict": model.state_dict()}, Path(path))
+
+
+def export_params_only(checkpoint: PathLike, path: PathLike) -> None:
+    """The weights of a full checkpoint (its "model") as `save_params_only`
+    writes them."""
+    payload = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    _save({"state_dict": payload["model"]}, Path(path))
 
 
 def load_params_only(path: PathLike, model: nn.Module) -> nn.Module:

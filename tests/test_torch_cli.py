@@ -28,7 +28,7 @@ from dcanet_tpu_torch.data import submission as tsub
 
 torch.set_num_threads(2)
 
-MAXDISP, NUM_CVA = 32, 1
+MAXDISP, NUM_CVA, MODEL = 32, 1, "dcanet-cva1"
 
 
 def _stereo_png_pair(tmp_path, rng, h, w):
@@ -51,12 +51,12 @@ def _kitti_png(disp):
 
 def test_infer_cpu_with_flax_weights(tmp_path, rng):
     lp, rp = _stereo_png_pair(tmp_path, rng, 40, 72)
-    seeded = cli.build_model(MAXDISP, NUM_CVA, device="cpu", seed=3)
+    seeded = cli.build_model(MODEL, MAXDISP, device="cpu", seed=3)
     npz = tmp_path / "weights.npz"
     np.savez(npz, **W.to_jax_variables(seeded.state_dict(), NUM_CVA))
     out = tmp_path / "disp.png"
     cli.main(["infer", "--left", str(lp), "--right", str(rp), "--out", str(out), "--weights", str(npz),
-              "--maxdisp", str(MAXDISP), "--num-cva", str(NUM_CVA), "--device", "cpu"])
+              "--maxdisp", str(MAXDISP), "--model", MODEL, "--device", "cpu"])
 
     left, pads = tsub.pad_to_multiple(tio.normalize_imagenet(tio.read_image(lp)), 16)
     right, _ = tsub.pad_to_multiple(tio.normalize_imagenet(tio.read_image(rp)), 16)
@@ -74,10 +74,10 @@ def test_infer_cpu_submission(tmp_path, rng, monkeypatch, capsys):
     lp, rp = _stereo_png_pair(tmp_path, rng, 50, 100)
     out = tmp_path / "disp.png"
     cli.main(["infer", "--left", str(lp), "--right", str(rp), "--out", str(out), "--submission",
-              "--maxdisp", str(MAXDISP), "--num-cva", str(NUM_CVA), "--device", "cpu"])
+              "--maxdisp", str(MAXDISP), "--model", MODEL, "--device", "cpu"])
     assert "full inference time = " in capsys.readouterr().out
 
-    model = cli.build_model(MAXDISP, NUM_CVA, device="cpu")  # the CLI's init seed, 0
+    model = cli.build_model(MODEL, MAXDISP, device="cpu")  # the CLI's init seed, 0
     left, hw = tsub.to_submission_shape(tsub.whiten_per_channel(tio.read_image(lp)), 64, 128)
     right, _ = tsub.to_submission_shape(tsub.whiten_per_channel(tio.read_image(rp)), 64, 128)
     want = _kitti_png(tsub.from_submission_shape(_direct(model, left, right), hw, 64, 128))
@@ -93,14 +93,14 @@ def test_infer_without_gpu_raises(tmp_path, rng, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["infer", "--left", str(lp), "--right", str(rp), "--out", str(out)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.build_model(MAXDISP, NUM_CVA)
+        cli.build_model(MODEL, MAXDISP)
     assert not out.exists()
 
 
 def test_reference_checkpoint_loader(tmp_path):
     """torch.save({'state_dict': ...}) with `module.` keys, num_batches_tracked
     and the stride-2 ResidualBlock's `norm3` alias loads strictly."""
-    model = cli.build_model(MAXDISP, NUM_CVA, device="cpu", seed=7)
+    model = cli.build_model(MODEL, MAXDISP, device="cpu", seed=7)
     sd = {f"module.{k}": v for k, v in model.state_dict().items()}
     for k in list(sd):
         if ".guidance.layer2.0.downsample.1." in k:
@@ -109,7 +109,7 @@ def test_reference_checkpoint_loader(tmp_path):
     torch.save({"epoch": 3, "state_dict": sd}, path)
     loaded = W.load_weights(path, NUM_CVA)
     assert not any("num_batches_tracked" in k or "norm3" in k for k in loaded)
-    fresh = cli.build_model(MAXDISP, NUM_CVA, weights=str(path), device="cpu")
+    fresh = cli.build_model(MODEL, MAXDISP, weights=str(path), device="cpu")
     for k, v in model.state_dict().items():
         if not k.endswith("num_batches_tracked"):
             torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
@@ -266,7 +266,7 @@ def test_train_loadckpt_starts_from_saved_weights(tmp_path, monkeypatch, capsys)
     from dcanet_tpu_torch.train.checkpoint import save_params_only
 
     root = _tiny_sceneflow(tmp_path, monkeypatch)
-    model = cli.build_model(32, 3, device="cpu", seed=5)
+    model = cli.build_model("dcanet", 32, device="cpu", seed=5)
     save_params_only(tmp_path / "w.pt", model)
     cli.main(["train", "--data-root", str(root), "--logdir", str(tmp_path / "run"), "--maxdisp", "32",
               "--epochs", "0", "--loadckpt", str(tmp_path / "w.pt"), "--device", "cpu"])
@@ -320,7 +320,7 @@ def test_load_weights_takes_train_checkpoint(tmp_path):
     from dcanet_tpu_torch.train.checkpoint import CheckpointManager
     from dcanet_tpu_torch.train.state import create_train_state
 
-    model = cli.build_model(MAXDISP, 3, device="cpu", seed=4)
+    model = cli.build_model("dcanet", MAXDISP, device="cpu", seed=4)
     state = create_train_state(model, lambda step: 1e-3)
     mgr = CheckpointManager(tmp_path / "ckpt")
     loaded = W.load_weights(mgr.directory / f"ckpt_{mgr.save(state):08d}.pt", 3)
@@ -341,8 +341,8 @@ def test_infer_logdir_missing_creates_nothing(tmp_path, rng, capsys):
     lp, rp = _stereo_png_pair(tmp_path, rng, 16, 32)
     missing = tmp_path / "no_run"
     out, init_out = tmp_path / "disp.png", tmp_path / "init.png"
-    cli.main(_infer_args(lp, rp, out, "--num-cva", "1", "--logdir", str(missing)))
+    cli.main(_infer_args(lp, rp, out, "--model", MODEL, "--logdir", str(missing)))
     assert "using the reference init from seed 0" in capsys.readouterr().out
     assert not missing.exists()
-    cli.main(_infer_args(lp, rp, init_out, "--num-cva", "1"))
+    cli.main(_infer_args(lp, rp, init_out, "--model", MODEL))
     np.testing.assert_array_equal(tio.read_png(out), tio.read_png(init_out))
