@@ -59,7 +59,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      export` of phase 6's run with `infer --weights` on it against `infer
      --logdir`, each bit for bit. The checks that compare two runs take
      cuDNN's deterministic algorithms in both (`cudnn_deterministic`).
-  8. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+  8. family: the rest of the model registry, each at full width (maxdisp
+     192) with weights from `weights.from_jax_variables` on seeded numpy
+     arrays: `dcanet-g`, `gwcnet-g`, `gwcnet-gc` and `ganet` eval on one
+     1x3x384x1248 pair in bf16 autocast and in f32 (shape, finiteness,
+     exactly one gwc launch per forward, ms/pair, pairs/s, peak memory, one
+     profile each: device busy share and kernel launches), each GPU model
+     against its CPU model on a small pair (disparity 5e-3 px, the final
+     head's logits 1e-4 scaled); `cli train --preset sceneflow --model
+     gwcnet-gc` and `--model ganet` for 4 steps at the 256x512 crop, f32
+     (finite loss, one gwc forward and one backward launch per step,
+     ms/step, peak memory), each with one GPU train step against the CPU
+     one; one `cli infer --submission --model gwcnet-gc` request and
+     `cli eval --model ganet` on two pairs of a KITTI 2015 tree (one gwc
+     launch per pair, no class scores).
+  9. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
 `--phases` runs a subset (for iterating on one part); the summary lines are
@@ -108,6 +122,13 @@ KITTI_HW = (375, 1242)  # a KITTI 2015 image, padded to 384x1248 by --submission
 # eval phase: a synthetic KITTI 2015 tree at KITTI_HW, the last pair's gt
 # almost all at maxdisp, so that the per-image skip rule drops it
 EVAL_PAIRS, EVAL_LIST = 6, ("000000_10.png", "000002_10.png", "000004_10.png")
+# family phase: the registry's other models; timed forwards per model and
+# dtype (GANet's SGA loop takes thousands of launches a forward), train
+# steps per model on FAMILY_TRAIN_PAIRS pairs, pairs of its `cli eval`
+FAMILY = ("dcanet-g", "gwcnet-g", "gwcnet-gc", "ganet")
+FAMILY_ITERS = {"dcanet-g": 10, "gwcnet-g": 10, "gwcnet-gc": 10, "ganet": 5}
+FAMILY_HEAD = {"dcanet-g": "classif3", "gwcnet-g": "classif3", "gwcnet-gc": "classif3", "ganet": "classif_final"}
+FAMILY_TRAIN, FAMILY_TRAIN_PAIRS, FAMILY_EVAL_PAIRS = ("gwcnet-gc", "ganet"), 4, 2
 
 
 def log(msg: str) -> None:
@@ -527,7 +548,7 @@ def seeded_flax_variables(model, seed: int):
 
     rng = np.random.default_rng(seed)
     flat = {}
-    for key, ref in weights.to_jax_variables(model.state_dict(), model.num_cva).items():
+    for key, ref in weights.to_jax_variables(model.state_dict(), model).items():
         shape = ref.shape
         if key.endswith("/mean"):
             arr = rng.normal(0.0, 0.2, shape)
@@ -559,9 +580,10 @@ def synthetic_pair(seed: int):
     return left.astype(np.uint8), right.astype(np.uint8)
 
 
-def profile_call(fn, tag: str, top: int = 6) -> None:
+def profile_call(fn, tag: str, top: int = 6):
     """One profiled call of `fn`: the sum of kernel time against the call's
-    wall time (the device's busy share), and the kernels that take most."""
+    wall time (the device's busy share), and the kernels that take most.
+    Returns {busy_ms, wall_ms, launches}, or None without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -576,12 +598,14 @@ def profile_call(fn, tag: str, top: int = 6) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         log(f"[profile {tag}] the profiler recorded no device time")
-        return
+        return None
+    launches = sum(e.count for e in kernels)
     log(f"[profile {tag}] kernels {busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled call "
-        f"(device busy {busy_ms / wall_ms:.1%}), {sum(e.count for e in kernels)} kernel launches")
+        f"(device busy {busy_ms / wall_ms:.1%}), {launches} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"[profile {tag}]   {ms:8.3f} ms {ms / busy_ms:6.1%} x{e.count:<4d} {e.key[:110]}")
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches)
 
 
 def phase_model(flat):
@@ -888,22 +912,23 @@ def profile_train_step(root: Path) -> dict:
     return results
 
 
-def phase_train_parity():
+def phase_train_parity(name: str = "dcanet"):
     """One GPU train step (CUDA kernels, cuDNN) against one CPU train step
-    (plain versions) from the same weights on a small input: loss, grad
-    norm and the updated BatchNorm statistics."""
+    (plain versions) of the registry's model `name` from the same weights on
+    a small input: loss terms, grad norm and the updated BatchNorm
+    statistics."""
     import copy
 
     import torch
 
-    from dcanet_tpu_torch.models import DCANet
+    from dcanet_tpu_torch.models.registry import make_model
     from dcanet_tpu_torch.nn.layers import reference_init_
     from dcanet_tpu_torch.train.loop import LossConfig, train_step
     from dcanet_tpu_torch.train.state import create_train_state
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = reference_init_(DCANet(maxdisp=192, num_cva=3), torch.Generator().manual_seed(SEED + 3))
+    model = reference_init_(make_model(name, maxdisp=192), torch.Generator().manual_seed(SEED + 3))
     rng = np.random.default_rng(SEED + 3)
     batch = {
         "left": rng.standard_normal((1, 3, 64, 128)).astype(np.float32),
@@ -920,13 +945,14 @@ def phase_train_parity():
         results[dev] = ({k: float(v) for k, v in metrics.items()}, stats)
     (mc, sc), (mg, sg) = results["cpu"], results["cuda"]
     stat_err = max(float((sc[k] - sg[k]).abs().max()) for k in sc)
-    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in ("total", "focal", "smooth_l1", "grad_norm")}
-    log(f"[train parity] GPU vs CPU train step, 1x3x64x128 f32: loss {mg['total']:.6f} vs {mc['total']:.6f}, "
+    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12)
+           for k in ("total", "focal", "smooth_l1", "grad_norm") if k in mc}
+    log(f"[train parity] {name}: GPU vs CPU train step, 1x3x64x128 f32: loss {mg['total']:.6f} vs {mc['total']:.6f}, "
         f"grad norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; relative differences "
         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
         + f"; BatchNorm statistics max|diff| {stat_err:.3e} (tolerances: loss terms 1e-4, grad norm 1e-3, "
         "statistics 1e-4)")
-    if max(rel["total"], rel["focal"], rel["smooth_l1"]) > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
+    if max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
         raise AssertionError("[train parity] the GPU train step disagrees with the CPU train step")
     return dict(rel=rel, stat_err=stat_err)
 
@@ -1154,13 +1180,203 @@ def phase_eval(workdir: Path, train_logdir) -> dict:
     return dict(launches=launches, step=step, exported=train_logdir is not None, **out)
 
 
+def family_eval(name: str, tl, tr) -> dict:
+    """One registry model at full width, eval at 1x3x384x1248 in bf16 and f32:
+    shape, finiteness, one gwc launch per forward, ms/pair, pairs/s, peak
+    memory, a profile; then the GPU model against the CPU model on a small
+    pair. Returns its numbers and its gwc launches."""
+    import torch
+
+    from dcanet_tpu_torch import weights
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.models.registry import make_model
+
+    model = make_model(name, maxdisp=192)
+    model.load_state_dict(weights.from_jax_variables(seeded_flax_variables(model, SEED), model), strict=True)
+    gpu = model.eval().cuda()
+    out, launches = {}, 0
+    for tag, bf16 in (("bf16", True), ("f32", False)):
+        def fwd():
+            with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=bf16):
+                return gpu(tl, tr)
+
+        gwc.LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = fwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        d = res.disparity
+        if gwc.LAUNCHES != 1:
+            raise AssertionError(f"[family {name} {tag}] gwc kernel launched {gwc.LAUNCHES} times in one forward")
+        if d.shape != (1, 384, 1248) or d.dtype != torch.float32 or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"[family {name} {tag}] disparity {tuple(d.shape)} {d.dtype}, "
+                                 f"finite={bool(torch.isfinite(d).all())}")
+        if name != "dcanet-g" and res.class_logits != ():
+            raise AssertionError(f"[family {name} {tag}] class logits from a model that has none")
+        iters = FAMILY_ITERS[name]
+        ms = time_cuda(fwd, iters)
+        if gwc.LAUNCHES != 3 + iters:
+            raise AssertionError(f"[family {name} {tag}] {gwc.LAUNCHES} gwc launches for {3 + iters} forwards")
+        prof = profile_call(fwd, f"family {name} {tag}")
+        if gwc.LAUNCHES != 4 + iters:
+            raise AssertionError(f"[family {name} {tag}] {gwc.LAUNCHES} gwc launches for {4 + iters} forwards")
+        launches += gwc.LAUNCHES
+        out[tag] = dict(ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, profile=prof)
+        log(f"[family] {name} eval {tag} 1x3x384x1248: {ms:.3f} ms/pair (median of {iters}), {1e3 / ms:.3f} "
+            f"pairs/s, peak memory {peak / 2**30:.3f} GiB above weights, disparity range "
+            f"[{float(d.min()):.3f}, {float(d.max()):.3f}], 1 gwc launch per forward")
+
+    # the disparity (5e-3 px) and, since random weights saturate the softmax
+    # and the disparity alone would not see a difference below it, the final
+    # head's cost logits (1e-4 after scaling by max(|x|, 1)), as the CPU tests
+    rng = np.random.default_rng(SEED + 4)
+    sl, sr = (torch.from_numpy(rng.standard_normal((1, 3, 64, 256)).astype(np.float32)) for _ in range(2))
+    head = getattr(model, FAMILY_HEAD[name])
+    logits = []
+    hook = head.register_forward_hook(lambda m, i, o: logits.append(o.detach().float().cpu()))
+    with torch.inference_mode():
+        want = model.cpu()(sl, sr).disparity
+        gwc.LAUNCHES = 0
+        got = model.cuda()(sl.cuda(), sr.cuda()).disparity.cpu()
+    hook.remove()
+    if gwc.LAUNCHES != 1:
+        raise AssertionError(f"[family {name}] gwc kernel launched {gwc.LAUNCHES} times in the small forward")
+    launches += 1
+    err = float((got - want).abs().max())
+    scale = max(float(logits[0].abs().max()), 1.0)
+    logit_err = float((logits[1] - logits[0]).abs().max()) / scale
+    log(f"[family] {name}: GPU vs CPU model, 1x3x64x256 f32: max |diff| {err:.3e} px (atol 5e-3); "
+        f"{FAMILY_HEAD[name]} logits max |diff| {logit_err:.3e} after scaling by {scale:.3g} (atol 1e-4)")
+    if not (err <= 5e-3 and logit_err <= 1e-4):
+        raise AssertionError(f"[family {name}] GPU model disagrees with the CPU model on the small pair")
+    out["small_err"], out["small_logit_err"] = err, logit_err
+    del model, gpu
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def family_train(name: str, root: Path, workdir: Path) -> dict:
+    """`cli train --preset sceneflow --model name`, one epoch at the preset's
+    256x512 crop, f32: finite losses, one gwc forward and one backward
+    launch per step, ms/step (median after the first step), peak memory;
+    then one GPU train step against the CPU one."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.kernels import gwc
+
+    gwc.LAUNCHES = gwc.BACKWARD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = cli.main(["train", "--preset", "sceneflow", "--model", name, "--data-root", str(root), "--logdir",
+                     str(workdir / f"family_{name}"), "--batch-size", "1", "--dtype", "float32", "--epochs", "1",
+                     "--seed", str(SEED), "--print-freq", "1", "--num-workers", "4", "--device", "cuda"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd, steps = gwc.LAUNCHES, gwc.BACKWARD_LAUNCHES, len(hist)
+    if steps != FAMILY_TRAIN_PAIRS or fwd != steps or bwd != steps:
+        raise AssertionError(f"[family train {name}] {steps} steps, gwc forward {fwd} / backward {bwd} launches")
+    for rec in hist:
+        if not all(math.isfinite(rec[k]) for k in ("total", "smooth_l1", "grad_norm", "epe")):
+            raise AssertionError(f"[family train {name}] step {rec['step']} is not finite: {rec}")
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])]
+    ms = statistics.median(step_ms)
+    log(f"[family] cli train --model {name} f32, 1x3x256x512 crops: {steps} steps, losses "
+        + ", ".join(f"{r['total']:.4f}" for r in hist)
+        + f"; {fwd} gwc forward and {bwd} gwc backward launches (1 each per step); median {ms:.3f} ms/step over "
+        f"steps 1-{steps - 1} (range {min(step_ms):.3f}-{max(step_ms):.3f}), {1e3 / ms:.3f} pairs/s, peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+    parity = phase_train_parity(name)
+    return dict(steps=steps, ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, fwd=fwd, bwd=bwd, parity=parity)
+
+
+def phase_family(workdir: Path) -> dict:
+    """The registry's other models on the card (see the module docstring,
+    phase 8). Returns their numbers and the gwc launches of each path."""
+    import torch
+
+    from dcanet_tpu_torch import cli, weights
+    from dcanet_tpu_torch.data.io import read_png, write_png
+    from dcanet_tpu_torch.data.submission import from_submission_shape, to_submission_shape, whiten_per_channel
+    from dcanet_tpu_torch.data.synthetic import write_kitti2015_tree, write_sceneflow_tree
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.models.registry import make_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    left, right = synthetic_pair(SEED)
+    tl, tr = (torch.from_numpy(to_submission_shape(whiten_per_channel(x))[0].transpose(2, 0, 1)[None].copy()).cuda()
+              for x in (left, right))
+    results, launches = {"eval": {}, "train": {}}, {}
+    for name in FAMILY:
+        results["eval"][name], n = family_eval(name, tl, tr)
+        launches[f"family_eval {name}"] = n
+
+    root = write_sceneflow_tree(workdir / "family_sceneflow", FAMILY_TRAIN_PAIRS, SCENEFLOW_HW, seed=SEED + 5)
+    for name in FAMILY_TRAIN:
+        results["train"][name] = r = family_train(name, root, workdir)
+        launches[f"family_train {name}"] = r["fwd"]
+        launches[f"family_train_backward {name}"] = r["bwd"]
+
+    # one request of cli infer --submission with gwcnet-gc, against the model
+    # run in-process on the same pair, both under cuDNN's deterministic
+    # algorithms (the f32 transposed conv adds with atomics otherwise)
+    model = make_model("gwcnet-gc", maxdisp=192)
+    flat = seeded_flax_variables(model, SEED)
+    wp, lp, rp, out = (workdir / n for n in ("gwcnet_gc.npz", "family_left.png", "family_right.png", "gwcnet.png"))
+    np.savez(wp, **flat)
+    write_png(lp, left)
+    write_png(rp, right)
+    model.load_state_dict(weights.from_jax_variables(flat, model), strict=True)
+    model = model.eval().cuda()
+    with cudnn_deterministic():
+        gwc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        cli.main(["infer", "--left", str(lp), "--right", str(rp), "--out", str(out), "--submission", "--model",
+                  "gwcnet-gc", "--weights", str(wp), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches["family_serving gwcnet-gc"] = gwc.LAUNCHES
+        with torch.inference_mode():
+            ref = from_submission_shape(model(tl, tr).disparity[0].float().cpu().numpy(), KITTI_HW)
+    if launches["family_serving gwcnet-gc"] != 1:
+        raise AssertionError(f"[family] infer gwcnet-gc launched gwc {launches['family_serving gwcnet-gc']} times")
+    png = read_png(out)
+    close = np.abs(png.astype(np.float32) / 256.0 - np.clip(ref, 0, 65535 / 256.0)) <= 1.0 / 128
+    log(f"[family] cli infer --submission --model gwcnet-gc: {wall:.3f} s wall incl. model build, {png.shape} "
+        f"{png.dtype}, {close.mean():.4%} of pixels within 1/128 px of the model run in-process, 1 gwc launch")
+    if png.shape != KITTI_HW or png.dtype != np.uint16 or close.mean() < 0.99:
+        raise AssertionError("[family] the gwcnet-gc request disagrees with the model run in-process")
+    del model
+    torch.cuda.empty_cache()
+
+    # cli eval with ganet on two KITTI 2015 pairs: one gwc launch per pair, no
+    # class scores
+    kitti = write_kitti2015_tree(workdir / "family_kitti", FAMILY_EVAL_PAIRS, KITTI_HW, seed=SEED + 6)
+    gwc.LAUNCHES = 0
+    res = cli.main(["eval", "--preset", "kitti", "--dataset", "kitti2015", "--data-root", str(kitti), "--model",
+                    "ganet", "--logdir", str(workdir / "family_eval_ganet"), "--device", "cuda"])
+    launches["family_cli_eval ganet"] = gwc.LAUNCHES
+    if gwc.LAUNCHES != FAMILY_EVAL_PAIRS or any(k.startswith("vol") or k == "miou" for k in res):
+        raise AssertionError(f"[family] cli eval --model ganet: {gwc.LAUNCHES} gwc launches, keys {sorted(res)}")
+    if not all(math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"[family] cli eval --model ganet: {res}")
+    log(f"[family] cli eval --model ganet, {FAMILY_EVAL_PAIRS} KITTI pairs: epe {res['epe']:.4f}, d1 {res['d1']:.4f}, "
+        f"{res['ms_per_pair']:.3f} ms/pair (host clock, pair 2), no class scores, {gwc.LAUNCHES} gwc launches")
+    results["cli_eval_ganet"] = res
+    results["launches"] = launches
+    return results
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
 
-PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval")
+PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family")
 
 
 def main(argv=None) -> int:
@@ -1201,6 +1417,8 @@ def main(argv=None) -> int:
             parity = phase_train_parity()
         if "eval" in phases:
             evaluation = phase_eval(Path(tmp), Path(tmp) / "run" if "train" in phases else None)
+        if "family" in phases:
+            family = phase_family(Path(tmp))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
@@ -1213,7 +1431,9 @@ def main(argv=None) -> int:
         kernel_entry(
             "gwc_volume", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:51", eval_launches,
             {"eval": eval_launches, "infer_list": evaluation["launches"]["infer_list"], "train": train["fwd"],
-             "serving": serving, "train_infer": train["infer"]}, errs["gwc"]["main f32"],
+             "serving": serving, "train_infer": train["infer"],
+             **{k: v for k, v in family["launches"].items() if not k.startswith("family_train_backward")}},
+            errs["gwc"]["main f32"],
             gwc_t["f32"],
             dtype="float32", shape={"features": list(MAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
             bfloat16={"max_abs_err": errs["gwc"]["main bf16"], **gwc_t["bf16"]},
@@ -1226,7 +1446,9 @@ def main(argv=None) -> int:
         ),
         kernel_entry(
             "gwc_volume_backward", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
-            train["bwd"], {"train": train["bwd"]}, errs["gwc_bwd"]["train f32"], bwd_t["f32"],
+            train["bwd"], {"train": train["bwd"], **{k.replace("_backward", ""): v for k, v in family["launches"].items()
+                                                      if k.startswith("family_train_backward")}},
+            errs["gwc_bwd"]["train f32"], bwd_t["f32"],
             dtype="float32", shape={"features": list(TRAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
             bfloat16={"max_abs_err": errs["gwc_bwd"]["train bf16"], **bwd_t["bf16"]},
             middlebury_shape={"features": list(MIDDLEBURY_SHAPE), "maxdisp": MIDDLEBURY_D,
@@ -1254,6 +1476,7 @@ def main(argv=None) -> int:
     log("[train] summary: " + json.dumps({k: train[k] for k in ("ms", "pairs_per_s", "peak_bytes", "alone")}
                                          | {"parity": parity}))
     log("[eval] summary: " + json.dumps(evaluation))
+    log("[family] summary: " + json.dumps(family))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

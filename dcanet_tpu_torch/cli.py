@@ -1,7 +1,7 @@
 """Command line of the port: `python -m dcanet_tpu_torch.cli {train,eval,infer,export} ...`.
 
   train  --preset sceneflow|kitti|eth3d|middlebury --data-root DIR
-         [--data-root2 DIR] [--logdir DIR] [--epochs N] [--batch-size N]
+         [--data-root2 DIR] [--model NAME] [--logdir DIR] [--epochs N] [--batch-size N]
          [--dtype float32|bfloat16] [--remat] [--resume] [--loadckpt PATH]
          [--seed N] [--maxdisp N] [--print-freq N] [--num-workers N]
          [--device cuda|cpu]
@@ -16,21 +16,25 @@
   export --logdir DIR --out PATH
 
 `train` (dcanet_tpu/cli.py:87-197): the registry's model (`dcanet`,
-DCANet(num_cva=3), unless the config names another) from a reference init
-drawn from --seed, Adam on the preset's LR schedule, the preset's dataset
-and loss, a full checkpoint (model, BatchNorm statistics, optimizer, step)
-under <logdir>/ckpt after each epoch; `--resume` continues from the newest,
+DCANet(num_cva=3), unless --model or the config names another; every
+name of `models/registry.py`, `--remat` for the DCANet family only) from
+a reference init drawn from --seed, Adam on the preset's LR schedule, the
+preset's dataset and loss, a full checkpoint (model, BatchNorm statistics,
+optimizer, step) under <logdir>/ckpt after each epoch; `--resume` continues from the newest,
 `--loadckpt` starts from weights saved by `train.checkpoint.save_params_only`
 (what `export` writes). It prints `epoch E step S/N loss L epe E (R
 pairs/s)` every --print-freq steps and appends the same numbers to
-<logdir>/train_log.jsonl.
+<logdir>/train_log.jsonl. `RunConfig.debug_nans` runs the steps under
+`torch.autograd.set_detect_anomaly`, which raises at the first backward
+that returns NaN.
 
 `eval` (dcanet_tpu/cli.py:228-358) scores the preset's test split the way
 the reference's test loops do: each benchmark's own test-time geometry
 (`data/eval_protocol.py`), EPE, D1 and >1/2/3 px per image with the
 under-10 %-valid skip, averaged over the images kept, on the mask
 0 < gt < maxdisp; and for every CVA volume the DCA module's disparity-class
-PA / mPA / mIoU / FWIoU (`vol<i>/...`; the bare keys are the last volume's).
+PA / mPA / mIoU / FWIoU (`vol<i>/...`; the bare keys are the last volume's;
+none for a model without class logits: `gwcnet-*`, `ganet`).
 The weights are the newest checkpoint under --ckpt (default <logdir>/ckpt),
 else a reference init drawn from --seed. `--log-images N` writes image
 panels of the first N pairs under <logdir>/images; the results, with the
@@ -79,7 +83,6 @@ from dcanet_tpu_torch.data.submission import (
     from_submission_shape, pad_to_multiple, to_submission_shape, unpad, whiten_per_channel,
 )
 from dcanet_tpu_torch.device import resolve_device
-from dcanet_tpu_torch.models import DCANet
 from dcanet_tpu_torch.models.registry import make_model
 from dcanet_tpu_torch.nn.layers import reference_init_
 from dcanet_tpu_torch.weights import load_weights
@@ -88,13 +91,13 @@ from dcanet_tpu_torch.weights import load_weights
 def build_model(
     name: str = "dcanet", maxdisp: int = 192, weights: Optional[Union[str, Path]] = None,
     device: Optional[Union[str, torch.device]] = None, seed: int = 0,
-) -> DCANet:
+) -> torch.nn.Module:
     """The registry's model `name` in eval mode on `device` (CUDA unless asked
     otherwise), with the given weights or a reference init drawn from `seed`."""
     dev = resolve_device(device)
     model = make_model(name, maxdisp=maxdisp)
     if weights:
-        model.load_state_dict(load_weights(weights, model.num_cva), strict=True)
+        model.load_state_dict(load_weights(weights, model), strict=True)
     else:
         reference_init_(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
@@ -130,7 +133,7 @@ def _newest_checkpoint(directory: str, seed: int) -> Optional[Path]:
     return path
 
 
-def _forward(model: DCANet, left: np.ndarray, right: np.ndarray, bf16: bool) -> Tuple[np.ndarray, float]:
+def _forward(model: torch.nn.Module, left: np.ndarray, right: np.ndarray, bf16: bool) -> Tuple[np.ndarray, float]:
     """(H, W, 3) images -> the (H, W) disparity on the host, and the seconds
     from the pair on the device to the disparity on the host."""
     dev = next(model.parameters()).device
@@ -143,7 +146,7 @@ def _forward(model: DCANet, left: np.ndarray, right: np.ndarray, bf16: bool) -> 
     return disp, time.perf_counter() - t0
 
 
-def _submission_disparity(model: DCANet, left_path, right_path, bf16: bool) -> Tuple[np.ndarray, float]:
+def _submission_disparity(model: torch.nn.Module, left_path, right_path, bf16: bool) -> Tuple[np.ndarray, float]:
     """One pair through the submission protocol: the disparity at the
     images' own size, and the forward's seconds (`_forward`)."""
     left, orig_hw = to_submission_shape(whiten_per_channel(read_image(left_path)))
@@ -175,7 +178,7 @@ def cmd_infer(args: argparse.Namespace) -> None:
     print(f"wrote {args.out}")
 
 
-def cmd_infer_list(model: DCANet, list_path: str, data_root: str, save_path: str, bf16: bool) -> None:
+def cmd_infer_list(model: torch.nn.Module, list_path: str, data_root: str, save_path: str, bf16: bool) -> None:
     """The submission protocol over a KITTI test list (my_img.py:113-131):
     each line names a file under <data_root>/image_2 and image_3; the
     disparities go to <save_path>/<name> as uint16 x256 PNGs."""
@@ -233,12 +236,13 @@ def build_dataset(cfg: RunConfig, training: bool):
 def build_train_state(cfg: RunConfig, steps_per_epoch: int, device: Optional[str] = None):
     """The registry's cfg.model with a reference init from cfg.seed on
     `device`, Adam on the preset's LR schedule, autocast bf16 for dtype
-    bfloat16."""
+    bfloat16. `remat` reaches the model only when set: the DCANet family
+    takes it, the others refuse it."""
     from dcanet_tpu_torch.train.schedule import epoch_decay_schedule, kitti_finetune_schedule
     from dcanet_tpu_torch.train.state import create_train_state
 
     dev = resolve_device(device)
-    model = make_model(cfg.model, maxdisp=cfg.maxdisp, remat=cfg.remat)
+    model = make_model(cfg.model, maxdisp=cfg.maxdisp, **({"remat": True} if cfg.remat else {}))
     reference_init_(model, torch.Generator().manual_seed(cfg.seed))
     model.to(dev)
     if cfg.lr_spec:
@@ -280,28 +284,29 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
     )
     history: List[Dict[str, float]] = []
     log_path = os.path.join(cfg.logdir, "train_log.jsonl")
-    for epoch in range(state.step // steps_per_epoch, cfg.epochs):
-        loader.set_epoch(epoch)
-        t0 = time.time()
-        pending, window = [], []  # metrics stay on the device until printed
-        for bi, batch in enumerate(device_prefetch(loader, dev)):
-            pending.append((state.step, train_step(state, batch, loss_cfg)))
-            if (bi + 1) % cfg.print_freq == 0 or bi + 1 == steps_per_epoch:
-                now = time.perf_counter()
-                for step, metrics in pending:
-                    rec = {"epoch": epoch, "step": step, **{k: float(v) for k, v in metrics.items()}, "time": now}
-                    history.append(rec)
-                    window.append(rec)
-                pending = []
-                mean = {k: sum(r[k] for r in window) / len(window) for k in ("total", "epe")}
-                rate = cfg.batch_size * (bi + 1) / (time.time() - t0)
-                print(f"epoch {epoch} step {bi + 1}/{steps_per_epoch} loss {mean['total']:.3f} "
-                      f"epe {mean['epe']:.3f} ({rate:.2f} pairs/s)", flush=True)
-                with open(log_path, "a") as f:
-                    f.write(json.dumps({"epoch": epoch, "step": state.step, **mean, "pairs_per_s": rate}) + "\n")
-                window = []
-        if epoch >= cfg.save_after_epoch and (epoch + 1) % cfg.save_every_epochs == 0:
-            ckpt.save(state)
+    with torch.autograd.set_detect_anomaly(cfg.debug_nans):
+        for epoch in range(state.step // steps_per_epoch, cfg.epochs):
+            loader.set_epoch(epoch)
+            t0 = time.time()
+            pending, window = [], []  # metrics stay on the device until printed
+            for bi, batch in enumerate(device_prefetch(loader, dev)):
+                pending.append((state.step, train_step(state, batch, loss_cfg)))
+                if (bi + 1) % cfg.print_freq == 0 or bi + 1 == steps_per_epoch:
+                    now = time.perf_counter()
+                    for step, metrics in pending:
+                        rec = {"epoch": epoch, "step": step, **{k: float(v) for k, v in metrics.items()}, "time": now}
+                        history.append(rec)
+                        window.append(rec)
+                    pending = []
+                    mean = {k: sum(r[k] for r in window) / len(window) for k in ("total", "epe")}
+                    rate = cfg.batch_size * (bi + 1) / (time.time() - t0)
+                    print(f"epoch {epoch} step {bi + 1}/{steps_per_epoch} loss {mean['total']:.3f} "
+                          f"epe {mean['epe']:.3f} ({rate:.2f} pairs/s)", flush=True)
+                    with open(log_path, "a") as f:
+                        f.write(json.dumps({"epoch": epoch, "step": state.step, **mean, "pairs_per_s": rate}) + "\n")
+                    window = []
+            if epoch >= cfg.save_after_epoch and (epoch + 1) % cfg.save_every_epochs == 0:
+                ckpt.save(state)
     print("training done")
     return history
 
@@ -435,10 +440,11 @@ def _log_panels(cfg: RunConfig, i: int, step: int, out, disp: np.ndarray, gt: np
 def main(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(prog="dcanet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    st = sub.add_parser("train", help="train DCANet(num_cva=3) with a dataset preset")
+    st = sub.add_parser("train", help="train a registry model (default dcanet) with a dataset preset")
     st.add_argument("--preset", default="sceneflow", choices=sorted(PRESETS))
     st.add_argument("--data-root", default=None)
     st.add_argument("--data-root2", default=None)
+    st.add_argument("--model", default=None, help="a name of models/registry.py (default: the preset's, dcanet)")
     st.add_argument("--logdir", default=None)
     st.add_argument("--epochs", type=int, default=None)
     st.add_argument("--batch-size", type=int, default=None)

@@ -1,6 +1,6 @@
 """Run configuration: one dataclass with per-dataset presets (the port's own
-copy of dcanet_tpu/config.py). The JAX package's fields for NaN debugging
-and mesh sharding wait for the slices that port those paths.
+copy of dcanet_tpu/config.py). The JAX package's mesh-sharding fields wait
+for the slice that ports that path.
 
 Replaces the reference's per-script argparse duplicates with divergent
 defaults (main_dca.py:20-34, train_kitti.py:22-46, train_eth3d.py:23-53,
@@ -56,8 +56,12 @@ class RunConfig:
     vis_band: str = ""
     # mirror MetricLogger's scalars and images to TensorBoard (if it imports)
     use_tensorboard: bool = False
+    # debug: `cli train` runs its steps under torch.autograd.set_detect_anomaly,
+    # which raises at the first backward that returns NaN (the JAX package's
+    # jax_debug_nans); set through `preset(..., debug_nans=True)`, no flag
+    debug_nans: bool = False
     # checkpoint each CVA block in the train backward (torch.utils.checkpoint):
-    # trades recompute for device memory
+    # trades recompute for device memory; the DCANet family only
     remat: bool = False
 
 

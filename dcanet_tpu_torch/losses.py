@@ -12,6 +12,9 @@ dcanet_tpu/losses.py:36-150; reference models/loss.py).
   * `focal_loss_ladder`: weights [0.5, 0.7, 1.0, 1.2, 1.5] over the ladder.
     The model's volumes are already softmaxed and go into log_softmax as
     they are, as in the reference.
+  * `ganet_loss`, `ganet_loss2`: GANet's robust losses with their
+    hand-written backwards (dcanet_tpu/losses.py:169-222); no preset calls
+    them.
 
 Disparity maps are (B, H, W); probability volumes (B, D, H, W).
 """
@@ -110,3 +113,67 @@ def focal_loss_ladder(
         w * stereo_focal_loss(vol, disp_gt, max_disp, focal_coefficient, sparse)
         for vol, w in zip(prob_volumes, weights)
     )
+
+
+# GANet's custom robust losses (reference models/libs/GANet/functions/
+# GANet.py:264-310). Their backward is not the forward's analytic gradient
+# and keeps the reference's quirks: MyLoss2's backward rewrites |d| in
+# sequence on the already rewritten values, and MyLoss's backward omits the
+# forward mean's 1/N.
+
+
+class _GANetLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pred, target, upper: float, lower: float):
+        diff = pred - target
+        ctx.save_for_backward(diff)
+        ctx.upper, ctx.lower = upper, lower
+        return diff.abs().mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        (diff,) = ctx.saved_tensors
+        upper, lower = ctx.upper, ctx.lower
+        s = diff.abs()
+        s = torch.where(s > upper, torch.ones_like(s), s)
+        tag = (s <= upper) & (s >= lower)
+        s = torch.where(tag, 2.0 - (s - (upper + lower) / 2.0).abs() / 2.0, s)
+        d = diff.sign() * s * g
+        return d, -d, None, None
+
+
+class _GANetLoss2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pred, target, thresh: float, alpha: float):
+        diff = pred - target
+        ctx.save_for_backward(diff)
+        ctx.thresh, ctx.alpha = thresh, alpha
+        t = diff.abs()
+        s = torch.where(t < thresh, t * t / thresh, t)
+        tag = (s <= thresh + alpha) & (s >= thresh)
+        s = torch.where(tag, s * 2.0 - (s - thresh) ** 2 / (2.0 * alpha) - thresh, s)
+        s = torch.where(s > thresh + alpha, s + alpha / 2.0, s)
+        return s.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        (diff,) = ctx.saved_tensors
+        thresh, alpha = ctx.thresh, ctx.alpha
+        s = diff.abs()
+        s = torch.where(s > thresh + alpha, torch.ones_like(s), s)
+        tag = (s <= thresh + alpha) & (s >= thresh)
+        s = torch.where(tag, 2.0 - (s - thresh) / alpha, s)
+        s = torch.where(s < thresh, 2.0 * s / thresh, s)
+        d = diff.sign() * s * g / diff.numel()
+        return d, -d, None, None
+
+
+def ganet_loss(pred: torch.Tensor, target: torch.Tensor, upper: float = 5.0, lower: float = 1.0) -> torch.Tensor:
+    """MyLossFunction: mean |pred - target|, with GANet's graduated backward."""
+    return _GANetLoss.apply(pred, target, upper, lower)
+
+
+def ganet_loss2(pred: torch.Tensor, target: torch.Tensor, thresh: float = 1.0, alpha: float = 2.0) -> torch.Tensor:
+    """MyLoss2Function: a piecewise quadratic / linear robust loss whose
+    three rewrites apply in sequence to the mutated values."""
+    return _GANetLoss2.apply(pred, target, thresh, alpha)

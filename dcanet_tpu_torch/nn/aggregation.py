@@ -1,7 +1,8 @@
 """3D cost aggregation (port of dcanet_tpu/nn/aggregation.py, plain branch).
 
 MultiAggregation: the CVA's shallow one-level 3D hourglass (reference
-models/augment/cva.py:13-31). Volumes are (B, C, D, H, W).
+models/augment/cva.py:13-31). Hourglass3D: plain GwcNet's two-level 3D
+hourglass (reference models/gwcnet.py:67-104). Volumes are (B, C, D, H, W).
 """
 
 from __future__ import annotations
@@ -30,3 +31,26 @@ class MultiAggregation(nn.Module):
         y = self.conv3(self.conv2(self.conv1(x)))
         out = torch.relu(y + self.redir(x))
         return out if post_residual is None else out + post_residual
+
+
+class Hourglass3D(nn.Module):
+    """conv1-conv4 (stride 2/1/2/1, 2c/2c/4c/4c), then two 2x deconvs with BN,
+    each added to a 1x1x1 redir skip and ReLU'd (dcanet_tpu/nn/aggregation.py:
+    164-190). Keys are the reference's: the deconv's BN is `conv5.1`."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        c = channels
+        self.conv1 = ConvBNAct(c, 2 * c, 3, 2, 1, dims=3)
+        self.conv2 = ConvBNAct(2 * c, 2 * c, 3, 1, 1, dims=3)
+        self.conv3 = ConvBNAct(2 * c, 4 * c, 3, 2, 1, dims=3)
+        self.conv4 = ConvBNAct(4 * c, 4 * c, 3, 1, 1, dims=3)
+        self.conv5 = nn.Sequential(torch_conv_transpose3d(4 * c, 2 * c), batch_norm(2 * c, 3))
+        self.conv6 = nn.Sequential(torch_conv_transpose3d(2 * c, c), batch_norm(c, 3))
+        self.redir1 = ConvBN(c, c, 1, 1, 0, dims=3)
+        self.redir2 = ConvBN(2 * c, 2 * c, 1, 1, 0, dims=3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv2 = self.conv2(self.conv1(x))
+        conv5 = torch.relu(self.conv5(self.conv4(self.conv3(conv2))) + self.redir2(conv2))
+        return torch.relu(self.conv6(conv5) + self.redir1(x))

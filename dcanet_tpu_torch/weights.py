@@ -1,8 +1,10 @@
-"""Weight bridge: flax variables of dcanet_tpu's DCANet <-> the port's state_dict.
+"""Weight bridge: flax variables of dcanet_tpu's models <-> the port's state_dicts.
 
-The port's own copy of the key table between the reference's state_dict
-keys (the port's module names) and the JAX package's flax paths, with the
-layout transforms:
+The port's own copy of the key tables between the reference's state_dict
+keys (the port's module names) and the JAX package's flax paths, one per
+model family (`model_table`: DCANet by `num_cva` and `use_concat_volume`,
+GwcNetBaseline, GANetStereo, whose module names are the port's own), with
+the layout transforms:
 
   conv2d    torch OIHW          <-> flax HWIO
   conv3d    torch OIDHW         <-> flax DHWIO
@@ -26,6 +28,7 @@ from typing import Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 Entry = Tuple[str, str, str]  # (torch key or prefix, flax path, kind)
 
@@ -58,7 +61,7 @@ def basic_block_table(tp: str, fp: str, downsample: bool) -> List[Entry]:
     return out
 
 
-def feature_extraction_table(tp: str, fp: str) -> List[Entry]:
+def feature_extraction_table(tp: str, fp: str, concat: bool = True) -> List[Entry]:
     out = []
     for i, seq in enumerate((0, 2, 4)):
         out += convbn_table(_t(tp, f"firstconv.{seq}"), _f(fp, f"ConvBNAct_{i}/ConvBN_0"), 2)
@@ -69,8 +72,9 @@ def feature_extraction_table(tp: str, fp: str) -> List[Entry]:
                 _t(tp, f"layer{layer}.{j}"), _f(fp, f"BasicBlock_{blk}"), downsample=j == 0 and ch_change
             )
             blk += 1
-    out += convbn_table(_t(tp, "lastconv.0"), _f(fp, "ConvBNAct_3/ConvBN_0"), 2)
-    out.append((_t(tp, "lastconv.2.weight"), _f(fp, "Conv_0/kernel"), "conv2d"))
+    if concat:
+        out += convbn_table(_t(tp, "lastconv.0"), _f(fp, "ConvBNAct_3/ConvBN_0"), 2)
+        out.append((_t(tp, "lastconv.2.weight"), _f(fp, "Conv_0/kernel"), "conv2d"))
     return out
 
 
@@ -159,20 +163,99 @@ def classifier_table(tp: str, fp: str) -> List[Entry]:
     return out
 
 
-def dcanet_table(num_cva: int = 3) -> List[Entry]:
-    """The whole DCANet(num_cva) with its concat volume."""
-    out = feature_extraction_table("feature_extraction", "feature_extraction")
-    out += guidance_table("guidance", "guidance")
-    out += convbn_table("dres0.0", "ConvBNAct_0/ConvBN_0", 3)
+def hourglass_table(tp: str, fp: str) -> List[Entry]:
+    """Plain GwcNet's Hourglass3D; the deconvs' BN is the reference's `conv5.1`."""
+    out = []
+    for conv in ("conv1", "conv2", "conv3", "conv4"):
+        out += convbn_table(_t(tp, f"{conv}.0"), _f(fp, f"{conv}/ConvBN_0"), 3)
+    for deconv in ("conv5", "conv6"):
+        out += [
+            (_t(tp, f"{deconv}.0.weight"), _f(fp, f"{deconv}/kernel"), "deconv3d"),
+            (_t(tp, f"{deconv}.1"), _f(fp, f"{deconv}_bn/BatchNorm_0"), "bn"),
+        ]
+    out += convbn_table(_t(tp, "redir1"), _f(fp, "redir1"), 3)
+    out += convbn_table(_t(tp, "redir2"), _f(fp, "redir2"), 3)
+    return out
+
+
+def _pre_aggregation_table() -> List[Entry]:
+    """dres0 = Sequential(convbn, ReLU, convbn, ReLU), dres1 = (convbn, ReLU,
+    convbn) <-> the models' first auto-named 3D ConvBNs."""
+    out = convbn_table("dres0.0", "ConvBNAct_0/ConvBN_0", 3)
     out += convbn_table("dres0.2", "ConvBNAct_1/ConvBN_0", 3)
     out += convbn_table("dres1.0", "ConvBNAct_2/ConvBN_0", 3)
     out += convbn_table("dres1.2", "ConvBN_0", 3)
+    return out
+
+
+def dcanet_table(num_cva: int = 3, use_concat: bool = True) -> List[Entry]:
+    """The whole DCANet(num_cva, use_concat_volume=use_concat)."""
+    out = feature_extraction_table("feature_extraction", "feature_extraction", concat=use_concat)
+    out += guidance_table("guidance", "guidance")
+    out += _pre_aggregation_table()
     for i in range(1, num_cva + 1):
         out += cva_table(f"cva{i}", f"cva{i}")
     for i in range(num_cva + 1):
         out += classifier_table(f"classif{i}", f"classif{i}")
     out += propagation_table("prop", "prop")
     return out
+
+
+def gwcnet_table(use_concat: bool = True) -> List[Entry]:
+    """GwcNetBaseline: features, dres0/1, Hourglass3D dres2-4, classif0-3 (no
+    guidance, no prop)."""
+    out = feature_extraction_table("feature_extraction", "feature_extraction", concat=use_concat)
+    out += _pre_aggregation_table()
+    for name in ("dres2", "dres3", "dres4"):
+        out += hourglass_table(name, name)
+    for i in range(4):
+        out += classifier_table(f"classif{i}", f"classif{i}")
+    return out
+
+
+def guided_block_table(tp: str, fp: str) -> List[Entry]:
+    """SGABlock / LGABlock: guide = Sequential(ConvBN, ReLU, Conv2d)."""
+    out = convbn_table(_t(tp, "guide.0"), _f(fp, "ConvBNAct_0/ConvBN_0"), 2)
+    out.append((_t(tp, "guide.2.weight"), _f(fp, "Conv_0/kernel"), "conv2d"))
+    return out
+
+
+def ganet_table(num_sga: int = 2, use_lga: bool = True) -> List[Entry]:
+    """GANetStereo: features, guidance, dres0/1, sga{i} with its head
+    classif_sga{i}, lga, classif_final, prop."""
+    out = feature_extraction_table("feature_extraction", "feature_extraction")
+    out += guidance_table("guidance", "guidance")
+    out += _pre_aggregation_table()
+    for i in range(num_sga):
+        out += guided_block_table(f"sga{i}", f"sga{i}")
+        out += classifier_table(f"classif_sga{i}", f"classif_sga{i}")
+    if use_lga:
+        out += guided_block_table("lga", "lga")
+    out += classifier_table("classif_final", "classif_final")
+    out += propagation_table("prop", "prop")
+    return out
+
+
+ModelRef = Union[int, str, nn.Module]
+
+
+def model_table(model: ModelRef = 3) -> List[Entry]:
+    """The key table of a port model: the model itself, its registry name, or
+    an int, read as the `num_cva` of DCANet with its concat volume."""
+    from dcanet_tpu_torch.models import DCANet, GANetStereo, GwcNetBaseline
+    from dcanet_tpu_torch.models.registry import make_model
+
+    if isinstance(model, int):
+        return dcanet_table(model)
+    if isinstance(model, str):
+        model = make_model(model)
+    if isinstance(model, DCANet):
+        return dcanet_table(model.num_cva, model.use_concat_volume)
+    if isinstance(model, GwcNetBaseline):
+        return gwcnet_table(model.use_concat_volume)
+    if isinstance(model, GANetStereo):
+        return ganet_table(model.num_sga, model.use_lga)
+    raise TypeError(f"no key table for {type(model).__name__}")
 
 
 # flax -> torch layouts, and their inverses
@@ -227,16 +310,17 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor], table: List[Entry]) -> 
     return out
 
 
-def from_jax_variables(flat: Mapping[str, np.ndarray], num_cva: int = 3) -> Dict[str, torch.Tensor]:
-    """Flat flax variables of dcanet_tpu's DCANet(num_cva) -> a state_dict that
-    the port's DCANet(num_cva) loads with strict=True. The flax model must own
-    classif0..classif{num_cva} (an init with train=True does)."""
-    return state_dict_from_flax(flat, dcanet_table(num_cva))
+def from_jax_variables(flat: Mapping[str, np.ndarray], model: ModelRef = 3) -> Dict[str, torch.Tensor]:
+    """Flat flax variables of a dcanet_tpu model -> a state_dict that the
+    port's counterpart loads with strict=True; `model` as `model_table` takes
+    it. A flax DCANet must own classif0..classif{num_cva} (an init with
+    train=True does)."""
+    return state_dict_from_flax(flat, model_table(model))
 
 
-def to_jax_variables(sd: Mapping[str, torch.Tensor], num_cva: int = 3) -> Dict[str, np.ndarray]:
-    """The port's DCANet(num_cva) state_dict -> flat flax variables."""
-    return flax_from_state_dict(sd, dcanet_table(num_cva))
+def to_jax_variables(sd: Mapping[str, torch.Tensor], model: ModelRef = 3) -> Dict[str, np.ndarray]:
+    """A port model's state_dict -> flat flax variables."""
+    return flax_from_state_dict(sd, model_table(model))
 
 
 # The reference's stride-2 ResidualBlock registers its downsample BN twice,
@@ -263,13 +347,14 @@ def _from_reference_payload(payload: Mapping[str, torch.Tensor]) -> Dict[str, to
     return out
 
 
-def load_weights(path: Union[str, Path], num_cva: int = 3) -> Dict[str, torch.Tensor]:
-    """`.npz` of flat flax variables; a checkpoint of the port's `cli train`
-    (`train.checkpoint.CheckpointManager`: the weights under `"model"`); or a
-    reference-keyed torch checkpoint (`"state_dict"`, `module.` prefixes)."""
+def load_weights(path: Union[str, Path], model: ModelRef = 3) -> Dict[str, torch.Tensor]:
+    """`.npz` of flat flax variables of `model` (as `model_table` takes it);
+    a checkpoint of the port's `cli train` (`train.checkpoint.
+    CheckpointManager`: the weights under `"model"`); or a reference-keyed
+    torch checkpoint (`"state_dict"`, `module.` prefixes)."""
     if str(path).endswith(".npz"):
         with np.load(path) as f:
-            return from_jax_variables({k: f[k] for k in f.files}, num_cva)
+            return from_jax_variables({k: f[k] for k in f.files}, model)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if "model" in payload:
         return dict(payload["model"])

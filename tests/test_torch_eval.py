@@ -520,24 +520,37 @@ def test_registry_builds_dcanet_family(name, num_cva, full_res):
 
 
 @pytest.mark.parametrize("name", ["dcanet-g", "gwcnet-g", "gwcnet-gc", "ganet"])
-def test_registry_names_not_ported_yet(name):
-    with pytest.raises(ValueError, match="ROADMAP Queue 1"):
-        tregistry.make_model(name)
+def test_registry_builds_the_other_families(name):
+    """The names the port added after the DCANet family: the same class and
+    options as the JAX registry's model of that name."""
+    from dcanet_tpu_torch.models import GANetStereo, GwcNetBaseline
+
+    model = tregistry.make_model(name, maxdisp=48)
+    jmodel = jregistry.make_model(name, maxdisp=48)
+    assert type(model).__name__ == type(jmodel).__name__ and model.maxdisp == 48
+    if isinstance(model, DCANet):
+        assert (model.num_cva, model.use_concat_volume) == (jmodel.num_cva, jmodel.use_concat_volume) == (3, False)
+    elif isinstance(model, GwcNetBaseline):
+        assert model.use_concat_volume == jmodel.use_concat_volume == (name == "gwcnet-gc")
+    else:
+        assert isinstance(model, GANetStereo)
+        assert (model.num_sga, model.lga is not None) == (jmodel.num_sga, jmodel.use_lga)
 
 
 def test_registry_covers_the_jax_names():
-    assert set(tregistry.MODELS) | set(tregistry.NOT_PORTED) == set(jregistry.MODELS)
+    assert set(tregistry.MODELS) == set(jregistry.MODELS)
     with pytest.raises(KeyError, match="unknown model"):
         tregistry.make_model("gwcnet")
 
 
 def test_train_state_takes_the_registry_model():
     from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.models import GwcNetBaseline
 
     state = cli.build_train_state(preset("kitti", model="dcanet-cva1", maxdisp=MAXDISP), 4, "cpu")
     assert isinstance(state.model, DCANet) and state.model.num_cva == 1
-    with pytest.raises(ValueError, match="not ported yet"):
-        cli.build_train_state(preset("kitti", model="gwcnet-gc"), 4, "cpu")
+    state = cli.build_train_state(preset("kitti", model="gwcnet-gc", maxdisp=MAXDISP), 4, "cpu")
+    assert isinstance(state.model, GwcNetBaseline) and state.model.use_concat_volume
 
 
 # ---- synthetic trees and list files ----
