@@ -73,7 +73,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      one; one `cli infer --submission --model gwcnet-gc` request and
      `cli eval --model ganet` on two pairs of a KITTI 2015 tree (one gwc
      launch per pair, no class scores).
-  9. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+  9. extras: the modules of `nn/extras.py` and `nn/context.py`, on no model
+     path, at realistic widths with weights from `weights.from_jax_variables`
+     on seeded numpy arrays, TF32 off: `UNetFeatureExtractor` on a stacked
+     2x3x384x1248 pair (160 + 12 channels at 96x312), `PyramidPooling` cat
+     and sum at (1, 128, 24, 78) (1/16 of 384x1248), `MobileV2Residual` and
+     `Hourglass2D` at (1, 32, 96, 312), `ImageLevelContext`,
+     `DisparityLevelContext`, `SELayerD` and `SemanticLevelContextLocal` at a
+     CVA-sized (1, 32, 24, 48, 156) volume, `NonLocalAttention` at (1, 32, 8,
+     16, 32) (4,096 tokens); each in eval and train mode against a CPU copy
+     with the same weights (outputs and train-mode BN statistics within 1e-4
+     scaled by max(|ref|, 1); `UNetFeatureExtractor` compared at 2x3x128x256),
+     its time by `utils.profiling.device_time` beside `time_cuda`;
+     `UNetFeatureExtractor`'s ms and peak memory in bf16 autocast and f32;
+     one `utils.profiling.trace` of its forward, whose file must hold CUDA
+     kernel events; `utils.summary.summarize` of DCANet at 384x1248.
+ 10. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
 `--phases` runs a subset (for iterating on one part); the summary lines are
@@ -129,6 +144,9 @@ FAMILY = ("dcanet-g", "gwcnet-g", "gwcnet-gc", "ganet")
 FAMILY_ITERS = {"dcanet-g": 10, "gwcnet-g": 10, "gwcnet-gc": 10, "ganet": 5}
 FAMILY_HEAD = {"dcanet-g": "classif3", "gwcnet-g": "classif3", "gwcnet-gc": "classif3", "ganet": "classif_final"}
 FAMILY_TRAIN, FAMILY_TRAIN_PAIRS, FAMILY_EVAL_PAIRS = ("gwcnet-gc", "ganet"), 4, 2
+# extras phase: a stacked left+right pair at the submission shape; a CVA-sized
+# volume (1/8 of 384x1248, D = 192 / 8); NonLocalAttention's 4,096 tokens
+EXTRAS_HW, EXTRAS_VOLUME, EXTRAS_NONLOCAL = (384, 1248), (1, 32, 24, 48, 156), (1, 32, 8, 16, 32)
 
 
 def log(msg: str) -> None:
@@ -1370,13 +1388,150 @@ def phase_family(workdir: Path) -> dict:
     return results
 
 
+def _scaled_err(got, want) -> float:
+    """max |got - want| / max(max |want|, 1), on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
+
+
+def _bn_statistics(module):
+    return {k: v for k, v in module.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+
+
+def phase_extras(workdir: Path) -> dict:
+    """The extras on the card (see the module docstring, phase 9)."""
+    import copy
+
+    import torch
+
+    from dcanet_tpu_torch import weights
+    from dcanet_tpu_torch.models.registry import make_model
+    from dcanet_tpu_torch.nn import context as C
+    from dcanet_tpu_torch.nn import extras as X
+    from dcanet_tpu_torch.utils import profiling, summary
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 11)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    vol = EXTRAS_VOLUME
+    small_pair = draw(2, 3, 128, 256)
+    cases = [  # name, module, inputs on the card, inputs of the GPU-vs-CPU comparison (None: the same)
+        ("UNetFeatureExtractor", X.UNetFeatureExtractor(), [draw(2, 3, *EXTRAS_HW)], [small_pair]),
+        ("PyramidPooling cat", X.PyramidPooling(128, (8, 4, 2, 1), "cat"), [draw(1, 128, 24, 78)], None),
+        ("PyramidPooling sum", X.PyramidPooling(128, (8, 4, 2, 1), "sum"), [draw(1, 128, 24, 78)], None),
+        ("MobileV2Residual", X.MobileV2Residual(32, 32), [draw(1, 32, 96, 312)], None),
+        ("Hourglass2D", X.Hourglass2D(32), [draw(1, 32, 96, 312)], None),
+        ("ImageLevelContext", C.ImageLevelContext(32, 32, 32), [draw(*vol)], None),
+        ("DisparityLevelContext", C.DisparityLevelContext(32, vol[2]), [draw(*vol)], None),
+        ("SELayerD", C.SELayerD(vol[2]), [draw(*vol)], None),
+        ("SemanticLevelContextLocal", C.SemanticLevelContextLocal(32, 32, 32),
+         [draw(*vol), draw(vol[0], *vol[2:])], None),
+        ("NonLocalAttention", C.NonLocalAttention(32, 32, 32), [draw(*EXTRAS_NONLOCAL), draw(*EXTRAS_NONLOCAL)], None),
+    ]
+    results = {}
+    for i, (name, module, inputs, compare) in enumerate(cases):
+        flat = seeded_flax_variables(module, SEED + 20 + i)
+        module.load_state_dict(weights.from_jax_variables(flat, module), strict=True)
+        compare = inputs if compare is None else compare
+        r = results[name] = {"shape": [list(t.shape) for t in inputs]}
+        for mode in ("eval", "train"):
+            cpu = copy.deepcopy(module).train(mode == "train")
+            gpu = copy.deepcopy(module).cuda().train(mode == "train")
+            with torch.no_grad():
+                want, got = cpu(*compare), gpu(*(t.cuda() for t in compare))
+                if isinstance(want, dict):
+                    err = max(_scaled_err(got[k], want[k]) for k in want)
+                else:
+                    err = _scaled_err(got, want)
+                stats_cpu, stats_gpu = _bn_statistics(cpu), _bn_statistics(gpu)
+                stats_err = max((_scaled_err(stats_gpu[k], stats_cpu[k]) for k in stats_cpu), default=0.0)
+                full = gpu(*(t.cuda() for t in inputs))
+                outs = full.values() if isinstance(full, dict) else [full]
+                finite = all(bool(torch.isfinite(o).all()) for o in outs)
+            log(f"[extras] {name} {mode}: GPU vs CPU {err:.3e} scaled (1e-4), BN statistics {stats_err:.3e} "
+                f"(1e-4), output at {r['shape']} {[list(o.shape) for o in outs]} finite={finite}")
+            if not (err <= 1e-4 and stats_err <= 1e-4 and finite):
+                raise AssertionError(f"[extras] {name} {mode} disagrees with its CPU copy or is not finite")
+            r[mode] = {"err": err, "bn_statistics_err": stats_err}
+        if name == "UNetFeatureExtractor":
+            quarter = (EXTRAS_HW[0] // 4, EXTRAS_HW[1] // 4)
+            want_shapes = {"gwc_feature": (2, 160, *quarter), "concat_feature": (2, 12, *quarter)}
+            if {k: tuple(v.shape) for k, v in full.items()} != want_shapes:
+                raise AssertionError(f"[extras] UNetFeatureExtractor shapes {[tuple(v.shape) for v in outs]}")
+        gpu = gpu.eval()
+        args = [t.cuda() for t in inputs]
+
+        def fwd(*a):
+            with torch.no_grad():
+                return gpu(*a)
+
+        dt = profiling.device_time(fwd, *args)
+        ms = time_cuda(lambda: fwd(*args), 10)
+        log(f"[extras] {name} eval {r['shape']}: device_time {1e3 * dt:.3f} ms, time_cuda {ms:.3f} ms")
+        if not (math.isfinite(dt) and dt > 0):
+            raise AssertionError(f"[extras] device_time of {name} is {dt}")
+        r.update(device_time_ms=1e3 * dt, time_cuda_ms=ms)
+        del cpu, gpu, args, full
+        torch.cuda.empty_cache()
+
+    # UNetFeatureExtractor at full width: ms and peak memory in bf16 and f32;
+    # one trace of its forward
+    unet = cases[0][1].cuda().eval()
+    pair = cases[0][2][0].cuda()
+    for tag, bf16 in (("bf16", True), ("f32", False)):
+        def unet_fwd():
+            with torch.no_grad(), torch.autocast("cuda", torch.bfloat16, enabled=bf16):
+                return unet(pair)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        unet_fwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_cuda(unet_fwd, 10)
+        log(f"[extras] UNetFeatureExtractor 2x3x{EXTRAS_HW[0]}x{EXTRAS_HW[1]} {tag}: {ms:.3f} ms, "
+            f"peak memory {peak / 2**30:.3f} GiB above weights and input")
+        results["UNetFeatureExtractor"][f"full_{tag}"] = {"ms": ms, "peak_bytes": peak}
+    tracedir = workdir / "extras_trace"
+    with profiling.trace(str(tracedir)):
+        unet(pair)
+        torch.cuda.synchronize()
+    files = sorted(tracedir.glob("*.pt.trace.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if files else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"[extras] utils.profiling.trace: {len(files)} file(s), {len(events)} events, {len(kernels)} CUDA kernel "
+        f"events, {sum(e.get('dur', 0) for e in kernels) / 1e3:.3f} ms of kernels")
+    if not kernels:
+        raise AssertionError("[extras] the trace of UNetFeatureExtractor holds no CUDA kernel event")
+    results["trace"] = {"events": len(events), "kernel_events": len(kernels)}
+    del unet, pair
+    torch.cuda.empty_cache()
+
+    model = make_model("dcanet")
+    text = summary.summarize(model, EXTRAS_HW, train=False)
+    lines = text.splitlines()
+    for line in lines[:8] + ["..."] + lines[-1:]:
+        log(f"[extras] summarize: {line}")
+    if summary.count_params(model) != sum(p.numel() for p in model.parameters()) or \
+            f"(1, {EXTRAS_HW[0]}, {EXTRAS_HW[1]})" not in text:
+        raise AssertionError("[extras] summarize of DCANet is wrong")
+    results["dcanet_params"] = summary.count_params(model)
+    log(f"[extras] card: {gpu_line()}")
+    return results
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
 
-PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family")
+PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras")
 
 
 def main(argv=None) -> int:
@@ -1419,6 +1574,8 @@ def main(argv=None) -> int:
             evaluation = phase_eval(Path(tmp), Path(tmp) / "run" if "train" in phases else None)
         if "family" in phases:
             family = phase_family(Path(tmp))
+        if "extras" in phases:
+            extras = phase_extras(Path(tmp))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
@@ -1477,6 +1634,7 @@ def main(argv=None) -> int:
                                          | {"parity": parity}))
     log("[eval] summary: " + json.dumps(evaluation))
     log("[family] summary: " + json.dumps(family))
+    log("[extras] summary: " + json.dumps(extras))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@
   infer  --left L.png --right R.png --out disp.png [--submission]
          | --list FILE --data-root DIR [--save-path DIR]
          [--weights PATH | --logdir DIR] [--model dcanet] [--maxdisp 192]
-         [--dtype bf16|f32] [--device cuda|cpu]
+         [--dtype float32|bfloat16] [--device cuda|cpu]
   export --logdir DIR --out PATH
 
 `train` (dcanet_tpu/cli.py:87-197): the registry's model (`dcanet`,
@@ -22,9 +22,13 @@ a reference init drawn from --seed, Adam on the preset's LR schedule, the
 preset's dataset and loss, a full checkpoint (model, BatchNorm statistics,
 optimizer, step) under <logdir>/ckpt after each epoch; `--resume` continues from the newest,
 `--loadckpt` starts from weights saved by `train.checkpoint.save_params_only`
-(what `export` writes). It prints `epoch E step S/N loss L epe E (R
-pairs/s)` every --print-freq steps and appends the same numbers to
-<logdir>/train_log.jsonl. `RunConfig.debug_nans` runs the steps under
+(what `export` writes). Every --print-freq steps it writes the means of
+every train metric since the last such row, prefixed `train/`, to
+<logdir>/metrics.jsonl and .csv (and to TensorBoard under
+`RunConfig.use_tensorboard`), as the JAX CLI does: the steps at the end of
+an epoch carry over into the next row. It prints `epoch E step S/N loss L
+epe E (R pairs/s)` every --print-freq steps and at the end of an epoch, and
+appends the same numbers to <logdir>/train_log.jsonl. `RunConfig.debug_nans` runs the steps under
 `torch.autograd.set_detect_anomaly`, which raises at the first backward
 that returns NaN.
 
@@ -44,7 +48,9 @@ host ms/pair after the first pair, go to <logdir>/metrics.jsonl and .csv.
 the reference's benchmark-submission protocol (my_img.py:47-111): per-channel
 whitening, a fixed 384x1248 pad/crop and a per-image time print. Without it
 the images take the training normalisation (ImageNet statistics) and are
-padded to multiples of 16. `--list FILE` runs the submission protocol over
+padded to multiples of 16. `--dtype bfloat16` (alias `bf16`) runs the
+forward under bf16 autocast; `float32` (alias `f32`, the default) with TF32
+off. `--list FILE` runs the submission protocol over
 the names in FILE (one per line), read from <data-root>/image_{2,3}/<name>
 and written to <save-path>/<name> (my_img.py:113-131), with each image's
 time and the total. `--weights` takes an `.npz` of flat flax variables, a
@@ -160,7 +166,7 @@ def cmd_infer(args: argparse.Namespace) -> None:
     if args.logdir is not None:
         weights = _newest_checkpoint(os.path.join(args.logdir, "ckpt"), 0)
     model = build_model(args.model, args.maxdisp, weights, args.device)
-    bf16 = args.dtype == "bf16"
+    bf16 = args.dtype == "bfloat16"
     if not bf16:
         _no_tf32(next(model.parameters()).device)
     if args.list:
@@ -259,6 +265,8 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
     from dcanet_tpu_torch.data.loader import Loader, device_prefetch
     from dcanet_tpu_torch.train.checkpoint import CheckpointManager, load_params_only
     from dcanet_tpu_torch.train.loop import LossConfig, train_step
+    from dcanet_tpu_torch.utils.experiment import AverageMeterDict, MetricLogger
+    from dcanet_tpu_torch.utils.profiling import StepTimer
 
     dev = resolve_device(device)
     if cfg.dtype == "float32":
@@ -284,27 +292,37 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
     )
     history: List[Dict[str, float]] = []
     log_path = os.path.join(cfg.logdir, "train_log.jsonl")
-    with torch.autograd.set_detect_anomaly(cfg.debug_nans):
+    timer = StepTimer(cfg.batch_size)
+    meters = AverageMeterDict()  # the rows of metrics.jsonl; carried over an epoch's end, as in the JAX CLI
+    with contextlib.closing(MetricLogger(cfg.logdir, cfg.use_tensorboard)) as logger, \
+            torch.autograd.set_detect_anomaly(cfg.debug_nans):
         for epoch in range(state.step // steps_per_epoch, cfg.epochs):
             loader.set_epoch(epoch)
-            t0 = time.time()
+            timer.reset()
             pending, window = [], []  # metrics stay on the device until printed
             for bi, batch in enumerate(device_prefetch(loader, dev)):
                 pending.append((state.step, train_step(state, batch, loss_cfg)))
-                if (bi + 1) % cfg.print_freq == 0 or bi + 1 == steps_per_epoch:
+                timer.tick()
+                at_print = (bi + 1) % cfg.print_freq == 0
+                if at_print or bi + 1 == steps_per_epoch:
                     now = time.perf_counter()
                     for step, metrics in pending:
-                        rec = {"epoch": epoch, "step": step, **{k: float(v) for k, v in metrics.items()}, "time": now}
+                        values = {k: float(v) for k, v in metrics.items()}
+                        meters.update(values)
+                        rec = {"epoch": epoch, "step": step, **values, "time": now}
                         history.append(rec)
                         window.append(rec)
                     pending = []
                     mean = {k: sum(r[k] for r in window) / len(window) for k in ("total", "epe")}
-                    rate = cfg.batch_size * (bi + 1) / (time.time() - t0)
+                    rate = timer.pairs_per_sec
                     print(f"epoch {epoch} step {bi + 1}/{steps_per_epoch} loss {mean['total']:.3f} "
                           f"epe {mean['epe']:.3f} ({rate:.2f} pairs/s)", flush=True)
                     with open(log_path, "a") as f:
                         f.write(json.dumps({"epoch": epoch, "step": state.step, **mean, "pairs_per_s": rate}) + "\n")
                     window = []
+                    if at_print:
+                        logger.log(state.step, meters.mean(), prefix="train/")
+                        meters.reset()
             if epoch >= cfg.save_after_epoch and (epoch + 1) % cfg.save_every_epochs == 0:
                 ckpt.save(state)
     print("training done")
@@ -437,6 +455,9 @@ def _log_panels(cfg: RunConfig, i: int, step: int, out, disp: np.ndarray, gt: np
         logger.log_image(step, f"eval/sample{i}_probmass_vol{vi + 1}", np.repeat(mass[..., None], 3, -1))
 
 
+_DTYPE_ALIASES = {"f32": "float32", "bf16": "bfloat16"}  # infer's earlier names
+
+
 def main(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(prog="dcanet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -490,7 +511,8 @@ def main(argv: Optional[Sequence[str]] = None):
     src.add_argument("--logdir", default=None, help="restore the newest DIR/ckpt/ckpt_<step>.pt of `train`")
     sp.add_argument("--model", default="dcanet", help="a name of models/registry.py")
     sp.add_argument("--maxdisp", type=int, default=192)
-    sp.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    sp.add_argument("--dtype", type=lambda v: _DTYPE_ALIASES.get(v, v), choices=("float32", "bfloat16"),
+                    default="float32", help="float32 (alias f32) or bfloat16 autocast (alias bf16)")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sx = sub.add_parser("export", help="weights only (for infer --weights, train --loadckpt)")
     sx.add_argument("--logdir", required=True, help="export the newest DIR/ckpt/ckpt_<step>.pt")

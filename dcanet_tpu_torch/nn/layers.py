@@ -51,10 +51,17 @@ class _FlaxStatistics:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        dims = [0] + list(range(2, x.dim()))
+        if x.numel() == x.shape[1]:
+            # one value per channel, which F.batch_norm refuses: flax's
+            # variance is 0 and the output the bias (a 1x1 pooled map, batch 1)
+            var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+            shape = [1, -1] + [1] * (x.dim() - 2)
+            y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight.view(shape) + self.bias.view(shape)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if getattr(_FROZEN, "depth", 0) == 0:
             with torch.no_grad():
-                dims = [0] + list(range(2, x.dim()))
                 var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
@@ -97,8 +104,9 @@ def reference_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     for every conv kernel, zero conv biases, identity BatchNorm (weight 1,
     bias 0, running mean 0, running var 1)."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
-            reference_conv_init_(m.weight, generator, transposed=isinstance(m, nn.ConvTranspose3d))
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)):
+            transposed = isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d))
+            reference_conv_init_(m.weight, generator, transposed=transposed)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
@@ -117,12 +125,13 @@ class ConvBN(nn.Sequential):
 
 
 class ConvBNAct(nn.Sequential):
-    """ConvBN + ReLU."""
+    """ConvBN + an activation module without parameters (ReLU unless `act`
+    is given)."""
 
-    def __init__(self, in_channels, features, kernel, stride=1, padding=0, dilation=1, dims=2):
+    def __init__(self, in_channels, features, kernel, stride=1, padding=0, dilation=1, dims=2, act=None):
         super().__init__(
             ConvBN(in_channels, features, kernel, stride, padding, dilation, dims),
-            nn.ReLU(inplace=True),
+            nn.ReLU(inplace=True) if act is None else act,
         )
 
 
@@ -188,6 +197,12 @@ def torch_conv_transpose3d(in_channels: int, features: int) -> nn.ConvTranspose3
     """Exact 2x upsampling transposed conv (kernel 3, stride 2, padding 1,
     output_padding 1): the JAX package's TorchConvTranspose."""
     return nn.ConvTranspose3d(in_channels, features, 3, 2, 1, output_padding=1, bias=False)
+
+
+def torch_conv_transpose2d(in_channels: int, features: int) -> nn.ConvTranspose2d:
+    """The 2D form of `torch_conv_transpose3d`: the JAX package's
+    TorchConvTranspose(dims=2)."""
+    return nn.ConvTranspose2d(in_channels, features, 3, 2, 1, output_padding=1, bias=False)
 
 
 def avg_pool3d_torch() -> nn.AvgPool3d:

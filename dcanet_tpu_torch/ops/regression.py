@@ -15,3 +15,9 @@ def disparity_regression(prob: torch.Tensor, maxdisp: int) -> torch.Tensor:
         raise ValueError(f"expected (B, {maxdisp}, H, W), got {tuple(prob.shape)}")
     disp_values = torch.arange(maxdisp, dtype=prob.dtype, device=prob.device).view(1, maxdisp, 1, 1)
     return (prob * disp_values).sum(dim=1)
+
+
+def softargmin_disparity(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """Softmax over D of (B, D, H, W) cost logits, then the expected
+    disparity: `disparity_regression(cost.softmax(1), maxdisp)`."""
+    return disparity_regression(cost.softmax(dim=1), maxdisp)

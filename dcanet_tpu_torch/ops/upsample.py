@@ -1,9 +1,10 @@
-"""Trilinear resizing and convex (RAFT-style) upsampling.
+"""Trilinear / bilinear resizing and convex (RAFT-style) upsampling.
 
 Port of dcanet_tpu/ops/upsample.py. Resizes use half-pixel-center sampling
 (`align_corners=False`), which is what jax.image.resize does when it
-upsamples. Layouts are channel-first: volumes (B, D, H, W) or
-(B, C, D, H, W); convex-upsample masks (B, 9*s*s, H, W).
+upsamples (it antialiases only when it shrinks). Layouts are
+channel-first: volumes (B, D, H, W) or (B, C, D, H, W), maps (B, H, W) or
+(B, C, H, W); convex-upsample masks (B, 9*s*s, H, W).
 """
 
 from __future__ import annotations
@@ -23,6 +24,19 @@ def resize_trilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
         raise ValueError(f"expected rank 4/5, got {tuple(x.shape)}")
     size = tuple(s * scale for s in x.shape[2:])
     return F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+
+
+def resize_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bilinear upsampling of the (H, W) axes by `scale`.
+
+    x: (B, H, W) or (B, C, H, W).
+    """
+    if x.dim() == 3:
+        return resize_bilinear(x[:, None], scale)[:, 0]
+    if x.dim() != 4:
+        raise ValueError(f"expected rank 3/4, got {tuple(x.shape)}")
+    size = (x.shape[2] * scale, x.shape[3] * scale)
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
 
 
 def unfold3x3(x: torch.Tensor) -> torch.Tensor:

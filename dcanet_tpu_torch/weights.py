@@ -3,13 +3,17 @@
 The port's own copy of the key tables between the reference's state_dict
 keys (the port's module names) and the JAX package's flax paths, one per
 model family (`model_table`: DCANet by `num_cva` and `use_concat_volume`,
-GwcNetBaseline, GANetStereo, whose module names are the port's own), with
-the layout transforms:
+GwcNetBaseline, GANetStereo, whose module names are the port's own) and one
+per module of `nn/extras.py` and `nn/context.py` (`model_table` takes those
+modules too), with the layout transforms:
 
-  conv2d    torch OIHW          <-> flax HWIO
+  conv2d    torch OIHW          <-> flax HWIO (a depthwise conv's
+            (hidden, 1, kh, kw) <-> (kh, kw, 1, hidden) too)
   conv3d    torch OIDHW         <-> flax DHWIO
   deconv3d  torch ConvTranspose3d IODHW <-> flax DHW(I,O), spatially flipped
             (the JAX package runs it as an lhs-dilated correlation)
+  deconv2d  the same for ConvTranspose2d IOHW <-> flax HW(I,O)
+  dense     torch Linear (out, in) <-> flax Dense (in, out)
   bias      copied as is
   bn        weight/bias <-> params scale/bias,
             running_mean/running_var <-> batch_stats mean/var
@@ -236,12 +240,119 @@ def ganet_table(num_sga: int = 2, use_lga: bool = True) -> List[Entry]:
     return out
 
 
+# ---- nn/extras.py and nn/context.py (no reference layout: the port's names)
+
+def conv2d_bn_relu_table(tp: str, fp: str, use_bias: bool = True, with_bn: bool = True) -> List[Entry]:
+    out = [(_t(tp, "conv.weight"), _f(fp, "Conv_0/kernel"), "conv2d")]
+    if use_bias:
+        out.append((_t(tp, "conv.bias"), _f(fp, "Conv_0/bias"), "bias"))
+    if with_bn:
+        out.append((_t(tp, "bn"), _f(fp, "BatchNorm_0/BatchNorm_0"), "bn"))
+    return out
+
+
+def pyramid_pooling_table(tp: str, fp: str, n_paths: int, with_bn: bool = True) -> List[Entry]:
+    out = []
+    for i in range(n_paths):
+        out += conv2d_bn_relu_table(_t(tp, f"paths.{i}"), _f(fp, f"Conv2DBatchNormRelu_{i}"), not with_bn, with_bn)
+    return out
+
+
+def mobile_v2_table(tp: str, fp: str, expand: bool) -> List[Entry]:
+    """MobileV2Residual's `conv` Sequential: [expand conv, BN, ReLU6,]
+    depthwise conv, BN, ReLU6, project conv, BN."""
+    convs = (0, 3, 6) if expand else (0, 3)
+    out = []
+    for i, seq in enumerate(convs):
+        out += [
+            (_t(tp, f"conv.{seq}.weight"), _f(fp, f"Conv_{i}/kernel"), "conv2d"),
+            (_t(tp, f"conv.{seq + 1}"), _f(fp, f"BatchNorm_{i}/BatchNorm_0"), "bn"),
+        ]
+    return out
+
+
+def hourglass2d_table(tp: str, fp: str) -> List[Entry]:
+    out = []
+    for i, name in enumerate(("conv1", "conv2", "conv3", "conv4", "redir2", "redir1")):
+        out += mobile_v2_table(_t(tp, name), _f(fp, f"MobileV2Residual_{i}"), expand=True)
+    for i, name in enumerate(("conv5", "conv6")):
+        out += [
+            (_t(tp, f"{name}.0.weight"), _f(fp, f"TorchConvTranspose_{i}/kernel"), "deconv2d"),
+            (_t(tp, f"{name}.1"), _f(fp, f"BatchNorm_{i}/BatchNorm_0"), "bn"),
+        ]
+    return out
+
+
+def unet_feature_table(tp: str, fp: str) -> List[Entry]:
+    names = ("stem.0", "stem.1", "stem.2", "down4", "down8", "down16", "psp_fuse", "dec8", "dec4")
+    out = []
+    for i, name in enumerate(names):
+        out += conv2d_bn_relu_table(_t(tp, name), _f(fp, f"Conv2DBatchNormRelu_{i}"))
+    out += pyramid_pooling_table(_t(tp, "psp"), _f(fp, "PyramidPooling_0"), 4)
+    out.append((_t(tp, "lastconv.weight"), _f(fp, "Conv_0/kernel"), "conv2d"))
+    return out
+
+
+def image_level_context_table(tp: str, fp: str, concat_input: bool = True) -> List[Entry]:
+    out = attention_table(_t(tp, "cross_attention"), _f(fp, "cross_attention"))
+    if concat_input:
+        out += convbn_table(_t(tp, "bottleneck.0"), _f(fp, "bottleneck/ConvBN_0"), 3)
+    return out
+
+
+def fc_table(tp: str, fp: str, bias: bool) -> List[Entry]:
+    """Linears fc1, fc2 <-> flax Dense_0, Dense_1 (DisparityLevelContext
+    with biases, SELayerD without)."""
+    out = []
+    for i, name in enumerate(("fc1", "fc2")):
+        out.append((_t(tp, f"{name}.weight"), _f(fp, f"Dense_{i}/kernel"), "dense"))
+        if bias:
+            out.append((_t(tp, f"{name}.bias"), _f(fp, f"Dense_{i}/bias"), "bias"))
+    return out
+
+
+def semantic_level_context_local_table(tp: str, fp: str) -> List[Entry]:
+    out = convbn_table(_t(tp, "agg.0"), _f(fp, "agg/ConvBN_0"), 3)
+    out += attention_table(_t(tp, "cross_attention"), _f(fp, "cross_attention"))
+    return out
+
+
+def _extras_table(module: nn.Module) -> List[Entry]:
+    """The table of an `nn/extras.py` or `nn/context.py` module, read off its
+    structure; raises TypeError for any other module."""
+    from dcanet_tpu_torch.nn import context as C
+    from dcanet_tpu_torch.nn import extras as X
+
+    if isinstance(module, X.Conv2DBatchNormRelu):
+        return conv2d_bn_relu_table("", "", module.conv.bias is not None, module.bn is not None)
+    if isinstance(module, X.PyramidPooling):
+        return pyramid_pooling_table("", "", len(module.paths), module.paths[0].bn is not None)
+    if isinstance(module, X.MobileV2Residual):
+        return mobile_v2_table("", "", expand=len(module.conv) == 8)
+    if isinstance(module, X.Hourglass2D):
+        return hourglass2d_table("", "")
+    if isinstance(module, X.UNetFeatureExtractor):
+        return unet_feature_table("", "")
+    if isinstance(module, C.NonLocalAttention):
+        return attention_table("", "")
+    if isinstance(module, C.ImageLevelContext):
+        return image_level_context_table("", "", module.bottleneck is not None)
+    if isinstance(module, C.DisparityLevelContext):
+        return fc_table("", "", bias=True)
+    if isinstance(module, C.SELayerD):
+        return fc_table("", "", bias=False)
+    if isinstance(module, C.SemanticLevelContextLocal):
+        return semantic_level_context_local_table("", "")
+    raise TypeError(f"no key table for {type(module).__name__}")
+
+
 ModelRef = Union[int, str, nn.Module]
 
 
 def model_table(model: ModelRef = 3) -> List[Entry]:
     """The key table of a port model: the model itself, its registry name, or
-    an int, read as the `num_cva` of DCANet with its concat volume."""
+    an int, read as the `num_cva` of DCANet with its concat volume; or a
+    module of `nn/extras.py` / `nn/context.py`."""
     from dcanet_tpu_torch.models import DCANet, GANetStereo, GwcNetBaseline
     from dcanet_tpu_torch.models.registry import make_model
 
@@ -255,7 +366,7 @@ def model_table(model: ModelRef = 3) -> List[Entry]:
         return gwcnet_table(model.use_concat_volume)
     if isinstance(model, GANetStereo):
         return ganet_table(model.num_sga, model.use_lga)
-    raise TypeError(f"no key table for {type(model).__name__}")
+    return _extras_table(model)
 
 
 # flax -> torch layouts, and their inverses
@@ -263,12 +374,16 @@ _TO_TORCH = {
     "conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
     "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),
     "deconv3d": lambda w: np.transpose(w, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1],
+    "deconv2d": lambda w: np.transpose(w, (2, 3, 0, 1))[:, :, ::-1, ::-1],
+    "dense": lambda w: np.transpose(w, (1, 0)),
     "bias": lambda w: w,
 }
 _TO_FLAX = {
     "conv2d": lambda w: np.transpose(w, (2, 3, 1, 0)),
     "conv3d": lambda w: np.transpose(w, (2, 3, 4, 1, 0)),
     "deconv3d": lambda w: np.transpose(w[:, :, ::-1, ::-1, ::-1], (2, 3, 4, 0, 1)),
+    "deconv2d": lambda w: np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1)),
+    "dense": lambda w: np.transpose(w, (1, 0)),
     "bias": lambda w: w,
 }
 _BN = (("weight", "params", "scale"), ("bias", "params", "bias"),

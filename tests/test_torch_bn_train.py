@@ -26,6 +26,7 @@ CASES = {  # name: NC... shape
     "2d": (2, 5, 3, 4),
     "3d": (1, 4, 2, 3, 5),
     "2d_two_per_channel": (2, 3, 1, 1),
+    "2d_one_per_channel": (1, 3, 1, 1),  # torch's F.batch_norm refuses it; flax gives the bias
 }
 
 

@@ -6,10 +6,13 @@
 - the numpy/zlib PNG reader and writer against PIL, for every filter type;
 - the submission and padding protocol against dcanet_tpu.data;
 - the reference-checkpoint loader, and `infer --logdir` / `load_weights`
-  on the checkpoints of the port's own `cli train`.
+  on the checkpoints of the port's own `cli train`;
+- `cli train`'s `metrics.jsonl` against the JAX `cmd_train`'s (key set and
+  steps), TensorBoard when asked; `infer --dtype` and its aliases.
 """
 
 import functools
+import json
 import struct
 import zlib
 
@@ -346,3 +349,82 @@ def test_infer_logdir_missing_creates_nothing(tmp_path, rng, capsys):
     assert not missing.exists()
     cli.main(_infer_args(lp, rp, init_out, "--model", MODEL))
     np.testing.assert_array_equal(tio.read_png(out), tio.read_png(init_out))
+
+
+# ---- cli train's metrics, infer's dtype: against the JAX CLI ----
+
+def _metric_rows(logdir):
+    return [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+
+
+def test_train_metrics_match_jax_cmd_train(tmp_path, monkeypatch, capsys):
+    """`cli train` and the JAX `cmd_train` on the same tree (4 pairs, batch
+    1, 2 epochs, print every 3 steps): the same `train/` keys at the same
+    steps, 3 and 7, the row at step 7 carrying step 4 over the epoch's end;
+    the CSV has the rows; train_log.jsonl still gets its rows."""
+    from dcanet_tpu import cli as jcli
+    from dcanet_tpu.config import preset as jpreset
+    from dcanet_tpu.data import datasets as jdatasets
+
+    root = _tiny_sceneflow(tmp_path, monkeypatch)
+    monkeypatch.setitem(jdatasets.PRESETS, "sceneflow", dict(jdatasets.PRESETS["sceneflow"], crop=(32, 64)))
+    common = dict(data_root=str(root), maxdisp=32, batch_size=1, epochs=2, print_freq=3, num_workers=1,
+                  model="dcanet-cva0", seed=3)
+    jcli.cmd_train(jpreset("sceneflow", logdir=str(tmp_path / "jax"), **common))
+    port_logdir = tmp_path / "port"
+    cli.main(["train", "--preset", "sceneflow", "--data-root", str(root), "--logdir", str(port_logdir),
+              "--maxdisp", "32", "--batch-size", "1", "--epochs", "2", "--print-freq", "3", "--num-workers", "1",
+              "--model", "dcanet-cva0", "--seed", "3", "--device", "cpu"])
+    jax_rows, port_rows = _metric_rows(tmp_path / "jax"), _metric_rows(port_logdir)
+    assert [r["step"] for r in port_rows] == [r["step"] for r in jax_rows] == [3, 7]
+    assert [sorted(r) for r in port_rows] == [sorted(r) for r in jax_rows]
+    assert {"train/total", "train/epe", "train/grad_norm"} <= set(port_rows[0])
+    assert all(np.isfinite(v) for r in port_rows for v in r.values())
+    csv_lines = (port_logdir / "metrics.csv").read_text().splitlines()
+    assert csv_lines[0].split(",") == list(port_rows[0]) and len(csv_lines) == 3
+    # printed at steps 3 and 4 of each epoch, as before
+    assert len((port_logdir / "train_log.jsonl").read_text().splitlines()) == 4
+
+
+def test_train_metrics_to_tensorboard(tmp_path, monkeypatch):
+    pytest.importorskip("torch.utils.tensorboard")
+    from dcanet_tpu_torch.config import preset
+
+    root = _tiny_sceneflow(tmp_path, monkeypatch)
+    logdir = tmp_path / "run"
+    cfg = preset("sceneflow", data_root=str(root), logdir=str(logdir), maxdisp=32, batch_size=2, epochs=1,
+                 print_freq=1, num_workers=1, model="dcanet-cva0", use_tensorboard=True)
+    cli.cmd_train(cfg, "cpu")
+    assert [r["step"] for r in _metric_rows(logdir)] == [1, 2]
+    assert list(logdir.glob("events.out.tfevents.*"))
+
+
+@pytest.mark.parametrize("dtype,want", [("float32", "float32"), ("f32", "float32"), ("bfloat16", "bfloat16"),
+                                        ("bf16", "bfloat16")])
+def test_infer_dtype_takes_the_jax_names_and_aliases(monkeypatch, dtype, want):
+    got = []
+    monkeypatch.setattr(cli, "cmd_infer", lambda args: got.append(args.dtype))
+    cli.main(_infer_args("l.png", "r.png", "d.png", "--dtype", dtype))
+    assert got == [want]
+
+
+def test_infer_bfloat16_and_bf16_run_the_same_autocast(tmp_path, rng):
+    """`--dtype bfloat16` and `--dtype bf16` write the same PNG: the model
+    run directly under bf16 autocast."""
+    lp, rp = _stereo_png_pair(tmp_path, rng, 16, 32)
+    outs = [tmp_path / "bfloat16.png", tmp_path / "bf16.png"]
+    for out, dtype in zip(outs, ("bfloat16", "bf16")):
+        cli.main(_infer_args(lp, rp, out, "--model", MODEL, "--dtype", dtype))
+    model = cli.build_model(MODEL, MAXDISP, device="cpu")
+    left, pads = tsub.pad_to_multiple(tio.normalize_imagenet(tio.read_image(lp)), 16)
+    right, _ = tsub.pad_to_multiple(tio.normalize_imagenet(tio.read_image(rp)), 16)
+    with torch.autocast("cpu", torch.bfloat16):
+        want = _kitti_png(tsub.unpad(_direct(model, left, right).astype(np.float32), pads))
+    np.testing.assert_array_equal(tio.read_png(outs[0]), want)
+    np.testing.assert_array_equal(tio.read_png(outs[1]), want)
+
+
+def test_infer_dtype_rejects_other_names(capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_infer_args("l.png", "r.png", "d.png", "--dtype", "float16"))
+    assert exc.value.code == 2 and "invalid choice" in capsys.readouterr().err
