@@ -88,8 +88,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      `UNetFeatureExtractor`'s ms and peak memory in bf16 autocast and f32;
      one `utils.profiling.trace` of its forward, whose file must hold CUDA
      kernel events; `utils.summary.summarize` of DCANet at 384x1248.
- 10. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+ 10. parallel: data-parallel `cli train` over two worker processes that share
+     the card under gloo (NCCL refuses two ranks on one device), each
+     forming the group itself: DCANet(num_cva=3, maxdisp=192), the SceneFlow
+     preset's 256x512 crop, f32 with TF32 off, `--batch-size 2` (1 per rank)
+     on a synthetic tree of 4 pairs at 540x960, 2 epochs and a resumed one:
+     finite losses, one gwc forward and one backward launch per rank per
+     step (the counts of this phase, `parallel_train`), the ranks' metrics
+     equal, parameters, BatchNorm buffers and Adam state bit-equal at the
+     end, rank 1 writing nothing, ms/step and each rank's peak memory; then
+     one step from the seeded weights on a global batch of 2 whose ranks
+     have different valid-pixel counts, 2 ranks against one process at
+     batch 2, both with cuDNN's deterministic algorithms: in f32 (loss terms
+     rtol 1e-4, grad norm 1e-3, BatchNorm statistics 1e-4 scaled; the whole
+     gradient's and each parameter's distance recorded) and in float64, the
+     gwc volume by its plain version (loss terms 1e-7, grad norm 1e-6,
+     statistics 1e-10 scaled, each parameter's gradient 1e-7 relative in
+     L2); each f32 step's distance to the float64 gradient and the BatchNorm
+     inputs' channel |mean| / std recorded; and the step alone, one process
+     against 2 ranks time-sharing the card.
+ 11. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
+
+`--phases cards`, a manual measurement outside the smoke's phases (never run
+by default; needs two or more cards): `cli train` started as a user starts
+it, one process per card with the DCANET_* variables (NCCL), on 1, 2, 4,
+... cards at one 256x512 pair per card: ms/step, pairs/s and the scaling
+against one card, and the 2-card first step's loss terms against one card
+at batch 2.
 
 `--phases` runs a subset (for iterating on one part); the summary lines are
 printed only for the full run.
@@ -102,8 +128,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -147,6 +176,17 @@ FAMILY_TRAIN, FAMILY_TRAIN_PAIRS, FAMILY_EVAL_PAIRS = ("gwcnet-gc", "ganet"), 4,
 # extras phase: a stacked left+right pair at the submission shape; a CVA-sized
 # volume (1/8 of 384x1248, D = 192 / 8); NonLocalAttention's 4,096 tokens
 EXTRAS_HW, EXTRAS_VOLUME, EXTRAS_NONLOCAL = (384, 1248), (1, 32, 24, 48, 156), (1, 32, 8, 16, 32)
+# parallel phase: 2 ranks under gloo on the one card, a global batch of 2
+# (1 per rank) at the preset's 256x512 crop, PARALLEL_PAIRS synthetic pairs
+# (2 steps an epoch), PARALLEL_EPOCHS epochs and a resumed one; the parity
+# step's global batch; timed steps after warm-ups
+PARALLEL_WORLD, PARALLEL_PAIRS, PARALLEL_EPOCHS = 2, 4, 2
+PARALLEL_CROP, PARALLEL_WARMUP, PARALLEL_TIMED = (256, 512), 2, 5
+PARALLEL_TIMEOUT_S = 300
+# cards phase (opt-in, two or more cards): `cli train` on 1, 2, 4, ... cards,
+# one process each, CARDS_STEPS steps at 1 pair per card; the first
+# CARDS_WARMUP intervals between steps are not timed
+CARDS_STEPS, CARDS_WARMUP, CARDS_TIMEOUT_S = 8, 2, 600
 
 
 def log(msg: str) -> None:
@@ -1525,24 +1565,462 @@ def phase_extras(workdir: Path) -> dict:
     return results
 
 
+def _parallel_batch(seed: int) -> dict:
+    """The parity step's global batch of 2 at the crop: pair 0's gt all inside
+    (0, 192), about a third of pair 1's at or above 192, so that the two
+    ranks' valid-pixel counts differ."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h, w = PARALLEL_CROP
+    disp = np.stack([rng.uniform(1.0, 190.0, (h, w)), rng.uniform(1.0, 288.0, (h, w))]).astype(np.float32)
+    return {"left": torch.from_numpy(rng.standard_normal((2, 3, h, w)).astype(np.float32)),
+            "right": torch.from_numpy(rng.standard_normal((2, 3, h, w)).astype(np.float32)),
+            "disparity": torch.from_numpy(disp)}
+
+
+def state_digest(state) -> str:
+    """sha256 of the model's state_dict and the optimizer's state tensors."""
+    import torch
+
+    h = hashlib.sha256()
+    tensors = list(state.model.state_dict().values())
+    for st in state.optimizer.state_dict()["state"].values():
+        tensors += [v for v in st.values() if torch.is_tensor(v)]
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _step_record(state, batch: dict, cfg) -> dict:
+    """One train step under cuDNN's deterministic algorithms: its metrics,
+    the parameters' gradients and the BatchNorm statistics, on the CPU."""
+    from dcanet_tpu_torch.train.loop import train_step
+
+    with cudnn_deterministic():
+        metrics = {k: float(v) for k, v in train_step(state, batch, cfg).items()}
+    return {"metrics": metrics,
+            "grads": {n: p.grad.to("cpu", copy=True) for n, p in state.model.named_parameters() if p.grad is not None},
+            "stats": {k: v.to("cpu", copy=True) for k, v in state.model.state_dict().items() if "running" in k}}
+
+
+def _bn_input_ratios(model) -> tuple:
+    """Forward pre-hooks on every BatchNorm of `model` that record, per call,
+    each channel's |mean| / std of its input; returns the list they fill
+    and the hooks' handles."""
+    import torch
+
+    from dcanet_tpu_torch.nn.layers import _FlaxStatistics
+
+    ratios = []
+
+    def hook(_, inp):
+        x = inp[0].detach().float()
+        var, mean = torch.var_mean(x, dim=[0] + list(range(2, x.dim())), correction=0)
+        ratios.append((mean.abs() / var.sqrt().clamp(min=1e-30)).cpu())
+
+    return ratios, [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, _FlaxStatistics)]
+
+
+def _parity_step(batch: dict, bn_ratios: bool = False) -> dict:
+    """One f32 train step of the seeded DCANet(num_cva=3, maxdisp=192) on
+    `batch` (this process's share), cuDNN's deterministic algorithms (with
+    `bn_ratios`, its BatchNorm inputs' channel |mean| / std too); then
+    PARALLEL_WARMUP + PARALLEL_TIMED more steps with cuDNN's defaults, each
+    timed on the host clock between synchronisations."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.train.loop import LossConfig, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = cli.build_train_state(preset("sceneflow", seed=SEED), PARALLEL_PAIRS // PARALLEL_WORLD, "cuda")
+    batch = {k: v.cuda() for k, v in batch.items()}
+    cfg = LossConfig(max_disp=192)
+    ratios, hooks = _bn_input_ratios(state.model) if bn_ratios else ([], [])
+    out = _step_record(state, batch, cfg)
+    for h in hooks:
+        h.remove()
+    if ratios:
+        out["bn_ratios"] = torch.cat(ratios).numpy()
+    times = []
+    for i in range(PARALLEL_WARMUP + PARALLEL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, cfg)
+        torch.cuda.synchronize()
+        if i >= PARALLEL_WARMUP:
+            times.append(1e3 * (time.perf_counter() - t0))
+    out["step_ms"] = times
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parity_step_f64(batch: dict) -> dict:
+    """One float64 train step of the seeded DCANet(num_cva=3, maxdisp=192)
+    on `batch` (this process's share), cuDNN's deterministic algorithms, the
+    gwc volume by its plain version (the kernels take f32 and bf16; the
+    plain version computes float64 input in float64): float64 leaves the
+    rounding of a 2-rank step against one process far below a fault in the
+    global BatchNorm's backward or the gradient all-reduce."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.kernels.gwc import gwc_volume_reference
+    from dcanet_tpu_torch.models import dcanet
+    from dcanet_tpu_torch.train.loop import LossConfig
+
+    state = cli.build_train_state(preset("sceneflow", seed=SEED), PARALLEL_PAIRS // PARALLEL_WORLD, "cuda")
+    state.model.double()
+    batch = {k: v.to("cuda", torch.float64) for k, v in batch.items()}
+    kernel_gwc, dcanet.gwc_volume = dcanet.gwc_volume, gwc_volume_reference
+    try:
+        out = _step_record(state, batch, LossConfig(max_disp=192))
+    finally:
+        dcanet.gwc_volume = kernel_gwc
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grads_digest(grads: dict) -> str:
+    return hashlib.sha256(b"".join(g.numpy().tobytes() for g in grads.values())).hexdigest()
+
+
+@contextlib.contextmanager
+def writes_under(root: str, written: list):
+    """Record into `written` each path under `root` that this process opens
+    for writing, creates, replaces or deletes, for the duration."""
+    import builtins
+
+    saved = builtins.open, os.replace, os.makedirs, Path.mkdir, Path.unlink
+
+    def spy(fn, writes=lambda *a, **k: True):
+        def wrapper(*a, **k):
+            if writes(*a, **k):
+                written.extend(str(x) for x in a[:2] if str(x).startswith(root))
+            return fn(*a, **k)
+        return wrapper
+
+    builtins.open = spy(builtins.open, lambda f, mode="r", *a, **k: any(c in mode for c in "wax+"))
+    os.replace, os.makedirs = spy(os.replace), spy(os.makedirs)
+    Path.mkdir, Path.unlink = spy(Path.mkdir), spy(Path.unlink)
+    try:
+        yield written
+    finally:
+        builtins.open, os.replace, os.makedirs, Path.mkdir, Path.unlink = saved
+
+
+def _parallel_worker(rank: int, port: int, root: str, logdir: str, batch_path: str, out_path: str) -> None:
+    """One rank of phase 10: gloo on cuda:0 (the ranks share the card);
+    `cli train` for PARALLEL_EPOCHS epochs and a resumed one at the global
+    --batch-size 2, counting its gwc launches and recording its writes; then
+    the parity step on this rank's share of the global batch."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=PARALLEL_WORLD)
+    torch.cuda.set_device(0)
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.parallel import make_mesh, shard_batch, shutdown
+    from dcanet_tpu_torch.train import loop
+
+    states = []
+    real_step = loop.train_step
+
+    def step_spy(state, batch, cfg):
+        states[:] = [state]
+        return real_step(state, batch, cfg)
+
+    args = ["train", "--preset", "sceneflow", "--data-root", root, "--logdir", logdir,
+            "--batch-size", str(PARALLEL_WORLD), "--dtype", "float32", "--seed", str(SEED), "--print-freq", "1",
+            "--num-workers", "4", "--device", "cuda"]
+    loop.train_step = step_spy
+    gwc.LAUNCHES = gwc.BACKWARD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with writes_under(logdir, []) as written:
+            hist = cli.main(args + ["--epochs", str(PARALLEL_EPOCHS)])
+            resumed = cli.main(args + ["--epochs", str(PARALLEL_EPOCHS + 1), "--resume"])
+    finally:
+        loop.train_step = real_step
+    torch.cuda.synchronize()
+    result = {"hist": hist, "resumed": resumed, "fwd": gwc.LAUNCHES, "bwd": gwc.BACKWARD_LAUNCHES,
+              "peak_bytes": torch.cuda.max_memory_allocated(), "written": written,
+              "digest": state_digest(states[0])}
+    del states
+    torch.cuda.empty_cache()
+    batch = shard_batch(torch.load(batch_path, weights_only=True), make_mesh())
+    result["parity"] = _parity_step(batch)
+    result["parity64"] = _parity_step_f64(batch)
+    for key in ("parity", "parity64"):  # rank 0's gradients stand for both; rank 1 sends their digest
+        if rank != 0:
+            result[key]["grads_digest"] = _grads_digest(result[key].pop("grads"))
+    torch.save(result, out_path)
+    shutdown()
+
+
+def phase_parallel(workdir: Path) -> dict:
+    """Data-parallel `cli train` over PARALLEL_WORLD processes on the one
+    card (see the module docstring, phase 10). Returns its numbers."""
+    import multiprocessing
+
+    import torch
+
+    from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
+
+    t0 = time.perf_counter()
+    root = write_sceneflow_tree(workdir / "parallel_sceneflow", PARALLEL_PAIRS, SCENEFLOW_HW, seed=SEED + 1)
+    batch = _parallel_batch(SEED + 4)
+    batch_path = workdir / "parallel_batch.pt"
+    torch.save(batch, batch_path)
+    valid = ((batch["disparity"] > 0) & (batch["disparity"] < 192)).flatten(1).sum(1).tolist()
+    log(f"[parallel] wrote {PARALLEL_PAIRS} synthetic SceneFlow pairs at {SCENEFLOW_HW} and a global batch of 2 "
+        f"at {PARALLEL_CROP} (valid pixels per rank {valid}) in {time.perf_counter() - t0:.2f} s")
+
+    one = _parity_step(batch, bn_ratios=True)  # one process, the whole global batch
+    one64 = _parity_step_f64(batch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logdir = workdir / "parallel_run"
+    ctx = multiprocessing.get_context("spawn")
+    outs = [workdir / f"parallel_rank{r}.pt" for r in range(PARALLEL_WORLD)]
+    procs = [ctx.Process(target=_parallel_worker, args=(r, port, str(root), str(logdir), str(batch_path), str(outs[r])))
+             for r in range(PARALLEL_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * PARALLEL_WORLD:
+        raise AssertionError(f"[parallel] worker exit codes {codes} (their tracebacks are above)")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    steps = PARALLEL_PAIRS // PARALLEL_WORLD * (PARALLEL_EPOCHS + 1)
+    keys = ("total", "focal", "smooth_l1", "grad_norm", "epe")
+    for r, res in enumerate(ranks):
+        hist = res["hist"] + res["resumed"]
+        if [h["step"] for h in hist] != list(range(steps)):
+            raise AssertionError(f"[parallel] rank {r} took steps {[h['step'] for h in hist]}")
+        if not all(math.isfinite(h[k]) for h in hist for k in keys):
+            raise AssertionError(f"[parallel] rank {r}: a metric is not finite")
+        if res["fwd"] != steps or res["bwd"] != steps:
+            raise AssertionError(f"[parallel] rank {r}: gwc forward {res['fwd']} / backward {res['bwd']} launches "
+                                 f"in {steps} steps")
+    h0 = ranks[0]["hist"] + ranks[0]["resumed"]
+    for h in h0:
+        log(f"[parallel] step {h['step']}: loss {h['total']:.4f} (focal {h['focal']:.4f}, smooth-L1 "
+            f"{h['smooth_l1']:.4f}), grad norm {h['grad_norm']:.4f}, epe {h['epe']:.4f}")
+    h1 = ranks[1]["hist"] + ranks[1]["resumed"]
+    if [{k: h[k] for k in keys} for h in h0] != [{k: h[k] for k in keys} for h in h1]:
+        raise AssertionError("[parallel] the ranks report different metrics")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("[parallel] the replicas' parameters, BatchNorm buffers or Adam state differ at the end")
+    if ranks[1]["written"]:
+        raise AssertionError(f"[parallel] rank 1 wrote {ranks[1]['written']}")
+    ckpts = sorted(p.name for p in (logdir / "ckpt").iterdir())
+    want = [f"ckpt_{PARALLEL_PAIRS // PARALLEL_WORLD * (e + 1):08d}.pt" for e in range(PARALLEL_EPOCHS + 1)]
+    lines = len((logdir / "train_log.jsonl").read_text().splitlines())
+    rows = len((logdir / "metrics.jsonl").read_text().splitlines())
+    if ckpts != want or lines != steps or rows != steps:
+        raise AssertionError(f"[parallel] checkpoints {ckpts} (expected {want}), {lines} train_log and {rows} "
+                             f"metrics rows for {steps} steps")
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(ranks[0]["hist"], ranks[0]["hist"][1:])]
+    cli_ms = statistics.median(step_ms)
+    log(f"[parallel] cli train over {PARALLEL_WORLD} ranks (gloo, one card), DCANet(num_cva=3, maxdisp=192) f32, "
+        f"global batch {PARALLEL_WORLD}x3x{PARALLEL_CROP[0]}x{PARALLEL_CROP[1]}: {steps} steps per rank, gwc "
+        f"forward / backward launches per rank {[(r['fwd'], r['bwd']) for r in ranks]} (1 each per step); "
+        f"rank 0 median {cli_ms:.3f} ms/step over steps 1-{len(step_ms)} of the first run (host clock between metric "
+        f"reads, range {min(step_ms):.3f}-{max(step_ms):.3f}); peak memory per rank "
+        f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB; replicas bit-equal at the end "
+        f"({ranks[0]['digest'][:12]}); rank 0 alone wrote {len(ranks[0]['written'])} paths, checkpoints {ckpts}; "
+        f"the workers' wall time {wall:.1f} s")
+
+    # parity: the 2-rank step against one process on the same global batch
+    two, two64 = ranks[0]["parity"], ranks[0]["parity64"]
+    for key in ("parity", "parity64"):
+        if ranks[1][key]["grads_digest"] != _grads_digest(ranks[0][key]["grads"]):
+            raise AssertionError(f"[parallel] {key}: the ranks hold different summed gradients")
+        if ranks[0][key]["metrics"] != ranks[1][key]["metrics"]:
+            raise AssertionError(f"[parallel] {key}: the ranks report different metrics")
+
+    def rel_metrics(got, want):
+        return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                for k in ("total", "focal", "smooth_l1", "grad_norm")}
+
+    def norm(t):
+        return float(t.double().norm())
+
+    def grad_rel(grads, ref):
+        """The whole gradient's distance to `ref`'s and each parameter's,
+        relative in L2 (a parameter's to max(its norm, 1e-6 of the whole):
+        a conv bias before a BatchNorm has an exact gradient of 0)."""
+        total = math.sqrt(sum(norm(g) ** 2 for g in ref.values()))
+        whole = math.sqrt(sum(norm(grads[n] - g) ** 2 for n, g in ref.items())) / total
+        each = {n: norm(grads[n] - g) / max(norm(g), 1e-6 * total) for n, g in ref.items()}
+        return whole, each
+
+    def worst(each, k=3):
+        return ", ".join(f"{n} {v:.2e}" for n, v in sorted(each.items(), key=lambda kv: -kv[1])[:k])
+
+    rel, rel64 = rel_metrics(two["metrics"], one["metrics"]), rel_metrics(two64["metrics"], one64["metrics"])
+    stat_err = max(_scaled_err(two["stats"][k], one["stats"][k]) for k in one["stats"])
+    stat_err64 = max(_scaled_err(two64["stats"][k], one64["stats"][k]) for k in one64["stats"])
+    whole, each = grad_rel(two["grads"], one["grads"])
+    whole64, each64 = grad_rel(two64["grads"], one64["grads"])
+    # each f32 step's own distance to the float64 gradient of the same step
+    one_vs64, one_each64 = grad_rel(one["grads"], one64["grads"])
+    two_vs64, two_each64 = grad_rel(two["grads"], one64["grads"])
+    m1, m2 = one["metrics"], two["metrics"]
+    ratios = one["bn_ratios"]
+    ms1, ms2 = statistics.median(one["step_ms"]), statistics.median(two["step_ms"])
+    log(f"[parallel] parity, one f32 step from the seeded weights (cuDNN deterministic): 2 ranks vs one process "
+        f"on the global batch of 2: loss {m2['total']:.6f} vs {m1['total']:.6f}, grad norm {m2['grad_norm']:.6f} vs "
+        f"{m1['grad_norm']:.6f}; relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; BatchNorm statistics {stat_err:.3e} scaled (bounds: loss terms 1e-4, grad norm 1e-3, statistics "
+        f"1e-4). Recorded: the whole gradient {whole:.2e} relative in L2; each parameter's, worst {worst(each)}")
+    log(f"[parallel] parity in float64 (the gwc volume by its plain version): 2 ranks vs one process: "
+        f"relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel64.items()) + f"; BatchNorm statistics "
+        f"{stat_err64:.3e} scaled; the whole gradient {whole64:.2e}, each parameter's worst {worst(each64)} "
+        f"(bounds: loss terms 1e-7, grad norm 1e-6 (summed in f32), statistics 1e-10, each parameter 1e-7)")
+    log(f"[parallel] the f32 steps against the float64 step's gradient: one process {one_vs64:.2e} (worst "
+        f"{worst(one_each64)}), 2 ranks {two_vs64:.2e} (worst {worst(two_each64)}); the BatchNorm inputs' channel "
+        f"|mean| / std over the step's {len(ratios)} channels: max {ratios.max():.3f}, 99th percentile "
+        f"{np.percentile(ratios, 99):.3f}, median {np.median(ratios):.3f}")
+    log(f"[parallel] the step alone (batch on the card, cuDNN defaults, median of {PARALLEL_TIMED} after "
+        f"{PARALLEL_WARMUP} warm-ups): one process at batch 2 {ms1:.3f} ms (range {min(one['step_ms']):.3f}-"
+        f"{max(one['step_ms']):.3f}); 2 ranks sharing the card over gloo, rank 0 {ms2:.3f} ms (range "
+        f"{min(two['step_ms']):.3f}-{max(two['step_ms']):.3f}); one card time-shared, not a multi-card number")
+    if max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
+        raise AssertionError("[parallel] the 2-rank step disagrees with the one-process step")
+    if (max(v for k, v in rel64.items() if k != "grad_norm") > 1e-7 or rel64["grad_norm"] > 1e-6
+            or stat_err64 > 1e-10 or max(each64.values()) > 1e-7):
+        raise AssertionError("[parallel] the float64 2-rank step disagrees with the one-process step")
+    log(f"[parallel] card: {gpu_line()}")
+    return dict(steps=steps, launches=[(r["fwd"], r["bwd"]) for r in ranks], cli_ms=cli_ms,
+                peak_bytes=[r["peak_bytes"] for r in ranks],
+                parity=dict(rel=rel, stat_err=stat_err, whole_grad=whole, rel64=rel64, stat_err64=stat_err64,
+                            whole_grad64=whole64, worst_grad64=max(each64.values()), one_vs64=one_vs64,
+                            two_vs64=two_vs64),
+                bn_ratio_max=float(ratios.max()), step_ms={"one_process_batch2": ms1, "two_ranks": ms2},
+                workers_s=wall)
+
+
+def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pairs: int) -> list:
+    """`cli train` as a user starts it on `world` cards: one process per card
+    with the DCANET_* variables (NCCL), the same arguments; rank 0's
+    metrics.jsonl rows (one per step)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "dcanet_tpu_torch.cli", "train", "--preset", "sceneflow", "--data-root", str(root),
+           "--logdir", str(logdir), "--batch-size", str(batch), "--dtype", "float32", "--seed", str(SEED),
+           "--print-freq", "1", "--num-workers", "4", "--epochs", "1", "--device", "cuda"]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ)
+        if world > 1:
+            env.update(DCANET_COORDINATOR=f"127.0.0.1:{port}", DCANET_NUM_PROCESSES=str(world),
+                       DCANET_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(cmd, env=env, cwd=str(Path(__file__).resolve().parent),
+                                      stdout=subprocess.DEVNULL))
+    deadline = time.monotonic() + CARDS_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"[cards] {world} card(s), batch {batch}: exit codes {codes}")
+    rows = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != epochs_pairs // batch or not all(math.isfinite(r["train/total"]) for r in rows):
+        raise AssertionError(f"[cards] {world} card(s): {len(rows)} rows for {epochs_pairs // batch} steps, or a "
+                             "loss that is not finite")
+    return rows
+
+
+def phase_cards(workdir: Path) -> dict:
+    """Data-parallel `cli train` across the host's cards (opt-in: `--phases
+    cards`; needs two or more): DCANet(num_cva=3, maxdisp=192), the
+    SceneFlow preset's 256x512 crop, f32 with TF32 off, 1 pair per card, on
+    1, 2, 4, ... cards, CARDS_STEPS steps each (host clock between rank 0's
+    metric rows, median after CARDS_WARMUP intervals): ms/step, pairs/s and
+    pairs/s per card; the first step's loss terms on 2 cards against one
+    card at --batch-size 2 (the same weights and global batch; rtol 1e-4)."""
+    import torch
+
+    from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"[cards] needs two or more cards, found {cards}")
+    worlds = [w for w in (1, 2, 4, 8) if w <= cards]
+    pairs = CARDS_STEPS * worlds[-1]
+    root = write_sceneflow_tree(workdir / "cards_sceneflow", pairs, SCENEFLOW_HW, seed=SEED + 2)
+    results = {}
+    for world in worlds:
+        rows = _train_on_cards(world, world, root, workdir / f"cards_{world}", pairs)
+        gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])][CARDS_WARMUP:]
+        ms = statistics.median(gaps)
+        results[world] = dict(ms=ms, pairs_per_s=1e3 * world / ms, first=rows[0])
+        log(f"[cards] {world} card(s), 1 pair each: {len(rows)} steps, median {ms:.3f} ms/step over steps "
+            f"{CARDS_WARMUP + 1}-{len(rows) - 1} (range {min(gaps):.3f}-{max(gaps):.3f}), "
+            f"{1e3 * world / ms:.3f} pairs/s, {1e3 / ms:.3f} pairs/s per card")
+    one = _train_on_cards(1, 2, root, workdir / "cards_1_batch2", pairs)[0]
+    two = results[2]["first"]
+    rel = {k: abs(two[k] - one[k]) / abs(one[k]) for k in ("train/total", "train/focal", "train/smooth_l1")}
+    base = results[1]["pairs_per_s"]
+    log("[cards] scaling, pairs/s against one card: " + ", ".join(
+        f"{w} cards {r['pairs_per_s'] / base:.3f}x ({r['pairs_per_s'] / (w * base):.1%} per card)"
+        for w, r in results.items() if w > 1)
+        + "; the first step on 2 cards against one card at batch 2, relative: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + " (bound 1e-4)")
+    if max(rel.values()) > 1e-4:
+        raise AssertionError("[cards] the 2-card step disagrees with one card at batch 2")
+    log(f"[cards] card: {gpu_line()} x {cards}")
+    return {"cards": cards, "runs": {w: {k: r[k] for k in ("ms", "pairs_per_s")} for w, r in results.items()},
+            "first_step_rel": rel}
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
 
-PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras")
+PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of %(default)s to run after the build; the summary lines "
-                         "are printed only when all run")
+                    help="comma-separated subset of %(default)s to run after the build, or `cards` (two or more "
+                         "cards: `cli train` across them); the summary lines are printed only when all of "
+                         "the default run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    if not phases <= set(PHASES):
-        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
+    if not phases <= set(PHASES) | {"cards"}:
+        ap.error(f"unknown phases {sorted(phases - set(PHASES) - {'cards'})}")
 
     import torch
 
@@ -1576,6 +2054,10 @@ def main(argv=None) -> int:
             family = phase_family(Path(tmp))
         if "extras" in phases:
             extras = phase_extras(Path(tmp))
+        if "parallel" in phases:
+            parallel = phase_parallel(Path(tmp))
+        if "cards" in phases:
+            phase_cards(Path(tmp))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
@@ -1589,6 +2071,7 @@ def main(argv=None) -> int:
             "gwc_volume", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:51", eval_launches,
             {"eval": eval_launches, "infer_list": evaluation["launches"]["infer_list"], "train": train["fwd"],
              "serving": serving, "train_infer": train["infer"],
+             "parallel_train": sum(f for f, _ in parallel["launches"]),
              **{k: v for k, v in family["launches"].items() if not k.startswith("family_train_backward")}},
             errs["gwc"]["main f32"],
             gwc_t["f32"],
@@ -1603,8 +2086,9 @@ def main(argv=None) -> int:
         ),
         kernel_entry(
             "gwc_volume_backward", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
-            train["bwd"], {"train": train["bwd"], **{k.replace("_backward", ""): v for k, v in family["launches"].items()
-                                                      if k.startswith("family_train_backward")}},
+            train["bwd"], {"train": train["bwd"], "parallel_train": sum(b for _, b in parallel["launches"]),
+                           **{k.replace("_backward", ""): v for k, v in family["launches"].items()
+                              if k.startswith("family_train_backward")}},
             errs["gwc_bwd"]["train f32"], bwd_t["f32"],
             dtype="float32", shape={"features": list(TRAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
             bfloat16={"max_abs_err": errs["gwc_bwd"]["train bf16"], **bwd_t["bf16"]},
@@ -1635,6 +2119,7 @@ def main(argv=None) -> int:
     log("[eval] summary: " + json.dumps(evaluation))
     log("[family] summary: " + json.dumps(family))
     log("[extras] summary: " + json.dumps(extras))
+    log("[parallel] summary: " + json.dumps(parallel))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

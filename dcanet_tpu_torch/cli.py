@@ -4,11 +4,11 @@
          [--data-root2 DIR] [--model NAME] [--logdir DIR] [--epochs N] [--batch-size N]
          [--dtype float32|bfloat16] [--remat] [--resume] [--loadckpt PATH]
          [--seed N] [--maxdisp N] [--print-freq N] [--num-workers N]
-         [--device cuda|cpu]
+         [--n-data-shards N] [--n-disp-shards 1] [--device cuda|cpu]
   eval   --preset P [--dataset D] --data-root DIR [--data-root2 DIR]
          [--model NAME] [--maxdisp N] [--dtype float32|bfloat16] [--logdir DIR]
          [--ckpt DIR] [--log-images N] [--vis-band lo:hi] [--seed N]
-         [--device cuda|cpu]
+         [--n-disp-shards 1] [--device cuda|cpu]
   infer  --left L.png --right R.png --out disp.png [--submission]
          | --list FILE --data-root DIR [--save-path DIR]
          [--weights PATH | --logdir DIR] [--model dcanet] [--maxdisp 192]
@@ -31,6 +31,18 @@ epe E (R pairs/s)` every --print-freq steps and at the end of an epoch, and
 appends the same numbers to <logdir>/train_log.jsonl. `RunConfig.debug_nans` runs the steps under
 `torch.autograd.set_detect_anomaly`, which raises at the first backward
 that returns NaN.
+
+`train` is data-parallel over processes, one per card, started with the
+JAX package's variables (`DCANET_COORDINATOR=host:port`,
+`DCANET_NUM_PROCESSES`, `DCANET_PROCESS_ID`; NCCL on CUDA, gloo on the
+CPU), or inside a process group the caller formed. `--batch-size` is the
+global batch and must divide by the number of processes (each rank loads
+its share, `data/loader.py::shard_for_host`); BatchNorm statistics, loss
+means and gradients are those of the global batch, so W ranks take the
+steps of one process at the same `--batch-size`. `--n-data-shards`, when
+given, must equal the number of processes, and `--n-disp-shards` must be 1
+(`parallel/mesh.py`). Rank 0 alone prints, logs and writes checkpoints.
+`eval`, `infer` and `export` run in one process.
 
 `eval` (dcanet_tpu/cli.py:228-358) scores the preset's test split the way
 the reference's test loops do: each benchmark's own test-time geometry
@@ -261,31 +273,46 @@ def build_train_state(cfg: RunConfig, steps_per_epoch: int, device: Optional[str
 
 def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, float]]:
     """Train per `cfg`; returns one record per step (epoch, step, the step's
-    metrics and the host time at which they were read)."""
+    metrics and the host time at which they were read). Under data
+    parallelism (`parallel.initialize`: one process per card) cfg.batch_size
+    is the global batch, each rank loads its share, and only rank 0 prints
+    and writes logs and checkpoints; every rank returns the same records."""
     from dcanet_tpu_torch.data.loader import Loader, device_prefetch
+    from dcanet_tpu_torch.parallel import initialize, make_mesh, replicate
     from dcanet_tpu_torch.train.checkpoint import CheckpointManager, load_params_only
     from dcanet_tpu_torch.train.loop import LossConfig, train_step
     from dcanet_tpu_torch.utils.experiment import AverageMeterDict, MetricLogger
     from dcanet_tpu_torch.utils.profiling import StepTimer
 
-    dev = resolve_device(device)
+    dev = initialize(device=resolve_device(device))
+    mesh = make_mesh(cfg.n_data_shards, cfg.n_disp_shards)
+    if cfg.batch_size % mesh.n_data != 0:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by n_data_shards {mesh.n_data}")
+    lead = mesh.rank == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     if cfg.dtype == "float32":
         _no_tf32(dev)
     train_ds = build_dataset(cfg, training=True)
-    print(f"train samples: {len(train_ds)}")
-    loader = Loader(train_ds, cfg.batch_size, seed=cfg.seed, num_workers=cfg.num_workers)
+    say(f"train samples: {len(train_ds)}")
+    loader = Loader(train_ds, cfg.batch_size // mesh.n_data, seed=cfg.seed, num_workers=cfg.num_workers)
     steps_per_epoch = max(len(loader), 1)
     state = build_train_state(cfg, steps_per_epoch, str(dev))
-    print(f"model params: {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f}M")
-    print(f"device: {dev}, dtype {cfg.dtype}")
+    say(f"model params: {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f}M")
+    say(f"device: {dev}, dtype {cfg.dtype}")
+    say(f"mesh: data={mesh.n_data} disp={mesh.n_disp}")
 
     ckpt = CheckpointManager(os.path.join(cfg.logdir, "ckpt"))
     if cfg.resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
-        print(f"resumed from step {state.step}")
+        say(f"resumed from step {state.step}")
     elif cfg.loadckpt:
         load_params_only(cfg.loadckpt, state.model)
-        print(f"loaded pretrained weights from {cfg.loadckpt}")
+        say(f"loaded pretrained weights from {cfg.loadckpt}")
+    replicate(state.model, mesh)
 
     loss_cfg = LossConfig(
         max_disp=cfg.maxdisp, focal_coefficient=cfg.focal_coefficient, sparse=cfg.sparse_gt, preset=cfg.loss_preset
@@ -294,7 +321,8 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
     log_path = os.path.join(cfg.logdir, "train_log.jsonl")
     timer = StepTimer(cfg.batch_size)
     meters = AverageMeterDict()  # the rows of metrics.jsonl; carried over an epoch's end, as in the JAX CLI
-    with contextlib.closing(MetricLogger(cfg.logdir, cfg.use_tensorboard)) as logger, \
+    logger = MetricLogger(cfg.logdir, cfg.use_tensorboard) if lead else None
+    with contextlib.closing(logger) if lead else contextlib.nullcontext(), \
             torch.autograd.set_detect_anomaly(cfg.debug_nans):
         for epoch in range(state.step // steps_per_epoch, cfg.epochs):
             loader.set_epoch(epoch)
@@ -315,17 +343,20 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
                     pending = []
                     mean = {k: sum(r[k] for r in window) / len(window) for k in ("total", "epe")}
                     rate = timer.pairs_per_sec
-                    print(f"epoch {epoch} step {bi + 1}/{steps_per_epoch} loss {mean['total']:.3f} "
-                          f"epe {mean['epe']:.3f} ({rate:.2f} pairs/s)", flush=True)
-                    with open(log_path, "a") as f:
-                        f.write(json.dumps({"epoch": epoch, "step": state.step, **mean, "pairs_per_s": rate}) + "\n")
+                    say(f"epoch {epoch} step {bi + 1}/{steps_per_epoch} loss {mean['total']:.3f} "
+                        f"epe {mean['epe']:.3f} ({rate:.2f} pairs/s)")
+                    if lead:
+                        with open(log_path, "a") as f:
+                            row = {"epoch": epoch, "step": state.step, **mean, "pairs_per_s": rate}
+                            f.write(json.dumps(row) + "\n")
                     window = []
                     if at_print:
-                        logger.log(state.step, meters.mean(), prefix="train/")
+                        if lead:
+                            logger.log(state.step, meters.mean(), prefix="train/")
                         meters.reset()
             if epoch >= cfg.save_after_epoch and (epoch + 1) % cfg.save_every_epochs == 0:
                 ckpt.save(state)
-    print("training done")
+    say("training done")
     return history
 
 
@@ -360,10 +391,12 @@ def cmd_eval(cfg: RunConfig, ckpt: Optional[str] = None, device: Optional[str] =
     docstring); prints and returns the results."""
     from dcanet_tpu_torch.data.eval_protocol import eval_transform
     from dcanet_tpu_torch.train.checkpoint import checkpoint_step
+    from dcanet_tpu_torch.parallel import make_mesh
     from dcanet_tpu_torch.train.metrics import disparity_class_confusion, segmentation_scores
     from dcanet_tpu_torch.utils.experiment import AverageMeterDict, MetricLogger
 
     dev = resolve_device(device)
+    make_mesh(1, cfg.n_disp_shards)  # one process; raises for disparity-axis sharding
     vis_band = _parse_vis_band(cfg.vis_band) if cfg.vis_band else None
     ds = build_dataset(cfg, training=False)
     print(f"eval samples: {len(ds)}")
@@ -477,6 +510,9 @@ def main(argv: Optional[Sequence[str]] = None):
     st.add_argument("--maxdisp", type=int, default=None)
     st.add_argument("--print-freq", type=int, default=None)
     st.add_argument("--num-workers", type=int, default=None)
+    st.add_argument("--n-data-shards", type=int, default=None,
+                    help="data-parallel processes; must equal their number (default: their number)")
+    st.add_argument("--n-disp-shards", type=int, default=None, help="only 1 (disparity-axis sharding is not ported)")
     st.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     se = sub.add_parser("eval", help="EPE / D1 / >1,2,3 px and DCA class scores on a preset's test split")
     se.add_argument("--preset", default="sceneflow", choices=sorted(PRESETS))
@@ -493,6 +529,7 @@ def main(argv: Optional[Sequence[str]] = None):
     se.add_argument("--vis-band", default=None,
                     help="full-resolution disparity band 'lo:hi' of the probability-mass panels")
     se.add_argument("--seed", type=int, default=None, help="the reference init's seed, when there is no checkpoint")
+    se.add_argument("--n-disp-shards", type=int, default=None, help="only 1 (disparity-axis sharding is not ported)")
     se.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp = sub.add_parser("infer", help="inference -> uint16 x256 PNG, one pair or a KITTI test list")
     sp.add_argument("--left")
@@ -535,4 +572,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
 
 if __name__ == "__main__":
+    from dcanet_tpu_torch.parallel import shutdown
+
     main()
+    shutdown()

@@ -1,6 +1,5 @@
 """Run configuration: one dataclass with per-dataset presets (the port's own
-copy of dcanet_tpu/config.py). The JAX package's mesh-sharding fields wait
-for the slice that ports that path.
+copy of dcanet_tpu/config.py).
 
 Replaces the reference's per-script argparse duplicates with divergent
 defaults (main_dca.py:20-34, train_kitti.py:22-46, train_eth3d.py:23-53,
@@ -10,6 +9,7 @@ my_img.py:16-29) and inline magic constants.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass
@@ -23,7 +23,7 @@ class RunConfig:
     dataset: str = "sceneflow"  # sceneflow | kitti2012 | kitti2015 | kitti_mix | eth3d | middlebury
     data_root: str = ""
     data_root2: str = ""  # second root for kitti_mix
-    batch_size: int = 1
+    batch_size: int = 1  # the global batch, split over the data-parallel processes
     num_workers: int = 8
     half_res: bool = False
 
@@ -63,6 +63,14 @@ class RunConfig:
     # checkpoint each CVA block in the train backward (torch.utils.checkpoint):
     # trades recompute for device memory; the DCANet family only
     remat: bool = False
+
+    # parallel
+    # disparity-axis shards; only 1 is ported (ROADMAP Queue 1 item 3)
+    n_disp_shards: int = 1
+    # data-axis size: must equal the number of processes, one per card (the
+    # JAX package's None picks the largest divisor of batch_size that fits
+    # its devices); None = the number of processes
+    n_data_shards: Optional[int] = None
 
 
 # Reference-equivalent presets (BASELINE.md "run configurations")

@@ -1,26 +1,57 @@
-"""Host-side batching and device prefetch (port of dcanet_tpu/data/loader.py).
+"""Host-side batching, per-process sharding and device prefetch (port of
+dcanet_tpu/data/loader.py).
 
+  * `shard_for_host`: the epoch-seeded permutation strided by rank
+    (DistributedSampler semantics), so that each process feeds only its
+    share of the global batch.
   * `Loader`: epoch-seeded shuffling, thread-pool decode, fixed-shape
     batches of numpy arrays, the next batch assembled while the current one
-    is consumed.
+    is consumed; each process iterates its `shard_for_host` share.
   * `device_prefetch`: the torch twin of the JAX package's device_prefetch
     (loader.py:157-194): batches become tensors on the device `depth` steps
     ahead, copied from pinned host memory on a side CUDA stream, so the copy
     overlaps the step that runs.
 
 Eval padding is `data/submission.py::pad_to_multiple` and the per-dataset
-eval geometry `data/eval_protocol.py::eval_transform`; per-host sharding
-waits for the multi-process slice of the port.
+eval geometry `data/eval_protocol.py::eval_transform`.
+
+With W processes and a per-process batch b, rank r's batch k holds the
+permutation's entries r, r + W, ... of [k W b, (k + 1) W b): together the
+ranks' batch k is the one-process batch k of W b samples, as a set.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from dcanet_tpu_torch.parallel import distributed
+
+
+def shard_for_host(
+    num_samples: int,
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+    seed: int = 0,
+    shuffle: bool = True,
+) -> np.ndarray:
+    """Rank-sharded, epoch-seeded permutation (DistributedSampler semantics):
+    padded with its own head to a multiple of the process count, so that
+    every rank takes as many steps; the rank and count default to this
+    process's."""
+    pi = distributed.process_index() if process_index is None else process_index
+    pc = distributed.process_count() if process_count is None else process_count
+    idx = np.arange(num_samples)
+    if shuffle:
+        idx = np.random.default_rng(seed).permutation(idx)
+    pad = (-len(idx)) % pc
+    if pad:
+        idx = np.concatenate([idx, idx[:pad]])
+    return idx[pi::pc]
 
 
 class Loader:
@@ -28,7 +59,9 @@ class Loader:
 
     dataset: StereoDataset-like (len + __getitem__ -> dict of arrays). All
     samples of a batch must share shapes (training crops do; for eval use
-    batch_size=1 or pre-padded datasets).
+    batch_size=1 or pre-padded datasets). Batches of `batch_size` are cut
+    from this process's `shard_for_host` share (with one process: the whole
+    epoch permutation).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
@@ -47,13 +80,15 @@ class Loader:
             self.dataset.reseed(self.seed + epoch)
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n, pc = len(self.dataset), distributed.process_count()
+        n = n // pc if self.drop_last else -(-n // pc)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        indices = np.arange(len(self.dataset))
-        if self.shuffle:
-            indices = np.random.default_rng(self.seed + self.epoch).permutation(indices)
+        indices = shard_for_host(len(self.dataset), seed=self.seed + self.epoch, shuffle=self.shuffle)
+        # len(self) batches: with drop_last the padded tail of a share that
+        # the JAX package would yield as one more batch is dropped, so every
+        # global batch is a one-process batch
         nb = len(self)
         # two pools: `batch_pool` assembles the next batch while the caller
         # consumes the current one; `decode_pool` decodes its samples (one

@@ -17,6 +17,11 @@ dcanet_tpu/losses.py:36-150; reference models/loss.py).
     them.
 
 Disparity maps are (B, H, W); probability volumes (B, D, H, W).
+
+Under data parallelism (a process group of W ranks, equal shards) each
+rank returns its share of the global batch's loss, so that the shares sum
+to it: a masked mean divides by the global valid count (an all-reduce of
+the rank's count), a plain mean by W.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Optional, Sequence
 import torch
 
 from dcanet_tpu_torch.ops.disp2prob import laplace_disp2prob
+from dcanet_tpu_torch.parallel import distributed
 
 SMOOTH_L1_WEIGHTS = (1.8, 2.1)
 FOCAL_WEIGHTS = (0.5, 0.7, 1.0, 1.2, 1.5)
@@ -39,9 +45,9 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> to
 
 
 def masked_smooth_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean smooth-L1 over masked pixels."""
+    """Mean smooth-L1 over the masked pixels of the global batch."""
     m = mask.to(pred.dtype)
-    return (smooth_l1(pred, target) * m).sum() / m.sum().clamp(min=1.0)
+    return (smooth_l1(pred, target) * m).sum() / distributed.all_reduce_sum(m.sum()).clamp(min=1.0)
 
 
 def model_loss(
@@ -97,7 +103,7 @@ def stereo_focal_loss(
     est_logp = est_volume.log_softmax(dim=1)
     weight = (1.0 - gt_prob) ** (-focal_coefficient)
     per_pixel = -(gt_prob * est_logp * weight).sum(dim=1) * maskf
-    return per_pixel.mean()
+    return per_pixel.mean() / distributed.process_count()
 
 
 def focal_loss_ladder(

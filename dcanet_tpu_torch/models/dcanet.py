@@ -59,6 +59,7 @@ from dcanet_tpu_torch.nn.guidance import Guidance
 from dcanet_tpu_torch.nn.layers import ConvBN, frozen_bn_statistics
 from dcanet_tpu_torch.nn.propagation import PropagationNet
 from dcanet_tpu_torch.ops.cost_volume import build_concat_volume
+from dcanet_tpu_torch.ops.precision import at_least_f32
 from dcanet_tpu_torch.ops.regression import disparity_regression
 from dcanet_tpu_torch.ops.upsample import resize_trilinear
 
@@ -85,14 +86,14 @@ def _remat_contexts():
 
 
 def _softmax_f32(logits: torch.Tensor) -> torch.Tensor:
-    return logits.float().softmax(dim=1)
+    return at_least_f32(logits).softmax(dim=1)
 
 
 def _upsampled_disparity(logits: torch.Tensor, scale: int, maxdisp: int) -> torch.Tensor:
     """Soft-argmin of the softmax over D of `logits` upsampled `scale`x
     trilinearly, in float32 also under autocast: (B, D, h, w) -> (B, H, W)."""
     with torch.autocast(device_type=logits.device.type, enabled=False):
-        return disparity_regression(_softmax_f32(resize_trilinear(logits.float(), scale)), maxdisp)
+        return disparity_regression(_softmax_f32(resize_trilinear(at_least_f32(logits), scale)), maxdisp)
 
 
 def _pre_aggregation(in_channels: int, c: int) -> Tuple[nn.Sequential, nn.Sequential]:
@@ -192,7 +193,8 @@ class DCANet(nn.Module):
             if self.num_cva == 0:
                 return DCANetTrainOutput(prob_volumes=(final_prob,), disparities=(disparity,), class_logits=())
             prob_volumes = [_softmax_f32(heads[0])]
-            prob_volumes += [_softmax_f32(resize_trilinear(lg.float(), 2)) for lg in cva_logits[: self.num_cva - 1]]
+            prob_volumes += [_softmax_f32(resize_trilinear(at_least_f32(lg), 2))
+                             for lg in cva_logits[: self.num_cva - 1]]
             prob_volumes += [_softmax_f32(heads[i]) for i in range(1, self.num_cva)]
             disparities = (_upsampled_disparity(cva_logits[-1], 8, self.maxdisp), disparity)
         return DCANetTrainOutput(

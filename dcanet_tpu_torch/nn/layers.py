@@ -23,6 +23,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from dcanet_tpu_torch.ops.precision import at_least_f32
+from dcanet_tpu_torch.parallel import distributed
+
 _FROZEN = threading.local()
 
 
@@ -45,13 +48,19 @@ class _FlaxStatistics:
     with the batch mean and the BIASED batch variance (as F.batch_norm does),
     and update the running variance with that same biased variance, where
     torch's BatchNorm would use the unbiased one (x N/(N-1)). Eval mode is
-    torch's, on the running statistics."""
+    torch's, on the running statistics.
+
+    With a process group of more than one rank the statistics are those of
+    the global batch (`_global_batch_forward`), as the JAX package's are
+    under its data-parallel mesh."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
         dims = [0] + list(range(2, x.dim()))
+        if distributed.process_count() > 1:
+            return self._global_batch_forward(x)
         if x.numel() == x.shape[1]:
             # one value per channel, which F.batch_norm refuses: flax's
             # variance is 0 and the output the bias (a 1x1 pooled map, batch 1)
@@ -62,11 +71,63 @@ class _FlaxStatistics:
             y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if getattr(_FROZEN, "depth", 0) == 0:
             with torch.no_grad():
-                var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
+                var, mean = torch.var_mean(at_least_f32(x.detach()), dim=dims, correction=0)
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
                 self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the ranks' global batch (`_GlobalBatchNorm`), in
+        f32 under bf16 autocast; the running statistics take the global mean
+        and biased variance, equal on every rank."""
+        y, mean, var = _GlobalBatchNorm.apply(at_least_f32(x), self.weight, self.bias, self.eps)
+        if getattr(_FROZEN, "depth", 0) == 0:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the ranks' global batch, in the input's
+    dtype (f32 under bf16 autocast, f64 for f64 input).
+
+    Forward, in two passes: the per-channel sums and the count, then the
+    centred sum of squares, each summed over the ranks (two all-reduces; no
+    E[x^2] - E[x]^2). One value per channel on a rank needs no special
+    case. Backward, in the closed form of F.batch_norm's: the per-channel
+    sums of dy and dy * xhat summed over the ranks (one all-reduce), so that
+    the input gradient holds the other ranks' terms as one process's on the
+    whole batch would; the weight and bias gradients are this rank's shares
+    (train_step sums them)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        sums = distributed.all_reduce_sum(torch.cat([x.sum(dims), x.new_full((1,), x.numel() // x.shape[1])]))
+        count = sums[-1]
+        mean = sums[:-1] / count
+        xc = x - mean.view(shape)
+        var = distributed.all_reduce_sum((xc * xc).sum(dims)) / count
+        rstd = torch.rsqrt(var + eps)
+        xhat = xc * rstd.view(shape)
+        ctx.save_for_backward(xhat, weight, rstd, count)
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * weight.view(shape) + bias.view(shape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, rstd, count = ctx.saved_tensors
+        dims = [0] + list(range(2, xhat.dim()))
+        shape = [1, -1] + [1] * (xhat.dim() - 2)
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        total = distributed.all_reduce_sum(local) / count
+        c = weight.numel()
+        dx = (dy - total[:c].view(shape) - xhat * total[c:].view(shape)) * (weight * rstd).view(shape)
+        return dx, local[c:], local[:c], None
 
 
 class BatchNorm2d(_FlaxStatistics, nn.BatchNorm2d):

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from dcanet_tpu_torch.nn.layers import ConvBN
+from dcanet_tpu_torch.ops.precision import at_least_f32
 from dcanet_tpu_torch.ops.upsample import convex_upsample
 
 
@@ -28,4 +29,4 @@ class PropagationNet(nn.Module):
         Returns (B, H*scale, W*scale). The blend runs in float32, also under
         bf16 autocast: a bf16 disparity above 128 would round to whole pixels."""
         mask_logits = self.conv(guidance)
-        return convex_upsample(disp.float(), mask_logits.float(), self.scale)
+        return convex_upsample(at_least_f32(disp), at_least_f32(mask_logits), self.scale)

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from dcanet_tpu_torch.ops.precision import at_least_f32
+
 
 def groupwise_correlation(fea1: torch.Tensor, fea2: torch.Tensor, num_groups: int) -> torch.Tensor:
     """Per-group mean of the elementwise product: (B, C, ...) -> (B, G, ...)."""
@@ -33,11 +35,12 @@ def build_gwc_volume(
 ) -> torch.Tensor:
     """Grouped-correlation cost volume, (B, C, H, W) x2 -> (B, G, D, H, W).
 
-    Computes in float32 and returns the input dtype, as the CUDA kernel does.
+    Computes in float32 and returns the input dtype, as the CUDA kernel does
+    (float64 input, which the kernel refuses, in float64).
     """
     b, c, h, w = left.shape
-    lf, rf = left.float(), right.float()
-    out = torch.zeros((b, num_groups, maxdisp, h, w), dtype=torch.float32, device=left.device)
+    lf, rf = at_least_f32(left), at_least_f32(right)
+    out = torch.zeros((b, num_groups, maxdisp, h, w), dtype=lf.dtype, device=left.device)
     for d in range(min(maxdisp, w)):
         out[:, :, d, :, d:] = groupwise_correlation(lf[..., d:], rf[..., : w - d], num_groups)
     return out.to(left.dtype)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dcanet_tpu_torch.ops.precision import at_least_f32
+
 
 def slc_pool(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """x: (B, C, D, H, W) cost-volume features; logits: (B, D, H, W) raw
@@ -29,10 +31,10 @@ def slc_pool(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     if logits.shape != (b, d, h, w):
         raise ValueError(f"logits {tuple(logits.shape)} do not fit volume {tuple(x.shape)}")
 
-    p = logits.float().softmax(dim=1)
+    p = at_least_f32(logits).softmax(dim=1)
     a = p.argmax(dim=1)  # (B, H, W), first maximum on ties, as jnp.argmax
     s = p.amax(dim=1)  # (B, H, W)
-    onehot = F.one_hot(a, d).float()  # (B, H, W, D)
+    onehot = F.one_hot(a, d).to(p.dtype)  # (B, H, W, D)
 
     # Sentinel for empty classes is 0.0: s is a softmax maximum, so s >= 1/D > 0
     # for every pixel, and the masked max over a NON-empty class is unaffected;
@@ -50,5 +52,5 @@ def slc_pool(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
     mask = onehot.permute(0, 3, 1, 2)[:, None]  # (B, 1, D, H, W)
     f = (x * mask.to(x.dtype)).sum(dim=2)  # (B, C, H, W): feature at the argmax plane
-    scaled = (f.float() * weight[:, None]).to(x.dtype)
+    scaled = (f.to(weight.dtype) * weight[:, None]).to(x.dtype)
     return mask.to(x.dtype) * scaled[:, :, None]

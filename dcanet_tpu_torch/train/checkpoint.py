@@ -6,6 +6,10 @@ statistics), the optimizer's state and the step, so a resumed run continues
 where it stopped (the reference restored weights only, main_dca.py:249).
 `save_params_only` / `load_params_only` carry the weights alone, for
 `--loadckpt` fine-tuning (optimizer and step start fresh).
+
+Under data parallelism only rank 0 writes, and every rank waits at a
+barrier until it has; every rank restores the same file (the directory is
+shared), so the replicas start equal.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import List, Optional, Union
 import torch
 from torch import nn
 
+from dcanet_tpu_torch.parallel.distributed import process_index, sync_hosts
 from dcanet_tpu_torch.train.state import TrainState
 
 PathLike = Union[str, Path]
@@ -51,11 +56,13 @@ def _save(payload: dict, path: Path) -> None:
 
 
 class CheckpointManager:
-    """`directory/ckpt_<step>.pt`, the newest `max_to_keep` kept."""
+    """`directory/ckpt_<step>.pt`, the newest `max_to_keep` kept; rank 0
+    creates and writes it."""
 
     def __init__(self, directory: PathLike, max_to_keep: int = 5):
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        if process_index() == 0:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
 
     def steps(self) -> List[int]:
@@ -66,15 +73,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, state: TrainState, metrics: Optional[dict] = None) -> int:
-        payload = {
-            "step": state.step,
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "metrics": metrics or {},
-        }
-        _save(payload, self.directory / f"ckpt_{state.step:08d}.pt")
-        for old in self.steps()[: -self.max_to_keep]:
-            (self.directory / f"ckpt_{old:08d}.pt").unlink()
+        """Write `state` (rank 0), then wait for every rank."""
+        if process_index() == 0:
+            payload = {
+                "step": state.step,
+                "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "metrics": metrics or {},
+            }
+            _save(payload, self.directory / f"ckpt_{state.step:08d}.pt")
+            for old in self.steps()[: -self.max_to_keep]:
+                (self.directory / f"ckpt_{old:08d}.pt").unlink()
+        sync_hosts()
         return state.step
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:

@@ -10,6 +10,15 @@ Loss presets, as the reference's trainers combine their ladders:
 `train_step` runs forward, loss, backward and one Adam update in place and
 returns the step's metrics as detached device tensors (read them when they
 are printed, so that the host does not wait on every step).
+
+Data parallelism (a process group of W ranks, one shard of the global batch
+each): BatchNorm takes the global batch's statistics and the loss terms are
+each rank's share of the global loss (losses.py), so after the backward the
+gradients are summed over the ranks, in one flat all-reduce in the order of
+`model.parameters()`, and every rank takes the same Adam step; the metrics
+are the sums of the ranks' shares. One all-reduce after the backward keeps
+the collectives in one order on every rank (a DistributedDataParallel
+wrapper would interleave its buckets with BatchNorm's backward ones).
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from dcanet_tpu_torch import losses
+from dcanet_tpu_torch.parallel import distributed
 from dcanet_tpu_torch.train.metrics import epe_metric, eval_metrics
 from dcanet_tpu_torch.train.state import TrainState
 
@@ -73,6 +83,14 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
+@torch.no_grad()
+def _sum_over_ranks_(tensors) -> None:
+    """Sum each tensor over the ranks in place, in one flat all-reduce."""
+    flat = distributed.all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]))
+    for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(v.view_as(t))
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: LossConfig) -> Dict[str, torch.Tensor]:
     """One optimisation step. batch: left/right (B, 3, H, W), disparity
     (B, H, W), on the model's device. Returns total, focal (when the preset
@@ -86,11 +104,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: LossConfi
         out = model(batch["left"], batch["right"])
     loss, comps = compute_loss(out, disp_gt, mask, cfg)
     loss.backward()
-    grad_norm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if distributed.process_count() > 1:
+        _sum_over_ranks_(grads)
+    grad_norm = global_norm(grads)
     state.apply_gradients()
     metrics = {k: v.detach() for k, v in comps.items()}
     metrics["grad_norm"] = grad_norm.detach()
     metrics["epe"] = epe_metric(out.disparities[-1].detach(), disp_gt, mask)
+    if distributed.process_count() > 1:  # the ranks' shares; grad_norm is already global
+        shares = [k for k in metrics if k != "grad_norm"]
+        metrics.update(zip(shares, distributed.all_reduce_sum(torch.stack([metrics[k] for k in shares]))))
     return metrics
 
 

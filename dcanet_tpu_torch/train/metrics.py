@@ -17,10 +17,14 @@ from typing import Dict
 
 import torch
 
+from dcanet_tpu_torch.parallel import distributed
+
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The masked mean over the global batch: under data parallelism, this
+    rank's share of it (the valid count summed over the ranks)."""
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+    return (x * m).sum() / distributed.all_reduce_sum(m.sum()).clamp(min=1.0)
 
 
 def epe_metric(disp_est: torch.Tensor, disp_gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
