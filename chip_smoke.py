@@ -12,7 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at edge cases (for the gwc forward and
      backward: odd W, D = 60, D > W, 1 and 32 channels per group; for the
-     forward also the KITTI eval protocol's features, W = 308; for the
+     forward also the KITTI eval protocol's features, W = 308, and plane
+     ranges against the plain version's slices of the whole volume: the
+     two ranks' [0, 24) and [24, 48) at ETH3D's 768x1024, [0, 8) and
+     [54, 60) of D = 60 at a half-resolution Middlebury pair, a range past
+     W, each timed beside its bound and the whole ETH3D volume; for the
      backward also D = 140, 2 and 16 channels per group, 32 on a full tile,
      the Middlebury shape and a batch of 12), TF32
      off: the gwc volume, its backward (against autograd through the plain
@@ -107,7 +111,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      L2); each f32 step's distance to the float64 gradient and the BatchNorm
      inputs' channel |mean| / std recorded; and the step alone, one process
      against 2 ranks time-sharing the card.
- 11. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+ 11. disp: disparity-sharded `cli eval --preset eth3d --dataset eth3d` (the
+     768x1024 canvas) with DCANet(num_cva=3, maxdisp=192), seeded weights
+     whose BatchNorm statistics are those of one train-mode forward of the
+     first pair (`calibrate_batch_norm`), on a synthetic ETH3D tree of 4
+     scenes: `--n-disp-shards 2` over two worker processes that share the
+     card under gloo (as phase 10), in f32 and in bf16, against one process
+     on the same tree, cuDNN's deterministic algorithms on both sides: EPE,
+     D1 and >1/2/3 px within 5e-3 px / 1e-3, each pair's and volume's
+     confusion within 1 % of its total in L1, the ranks' results equal and
+     their disparities bit-equal, rank 1 writing nothing, one gwc launch
+     per rank per pair of 24 planes (the counts of this phase,
+     `disp_eval`), each rank's peak memory and ms/pair beside one
+     process's (time-shared); then one float64 forward at 256x512, the gwc
+     volume by its plain version, 2 ranks against one process: disparity
+     1e-9 px, class logits 1e-10 scaled.
+ 12. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
 `--phases cards`, a manual measurement outside the smoke's phases (never run
@@ -115,7 +134,9 @@ by default; needs two or more cards): `cli train` started as a user starts
 it, one process per card with the DCANET_* variables (NCCL), on 1, 2, 4,
 ... cards at one 256x512 pair per card: ms/step, pairs/s and the scaling
 against one card, and the 2-card first step's loss terms against one card
-at batch 2.
+at batch 2; then `cli eval --dataset eth3d --n-disp-shards N` on N = 1, 2,
+4, ... cards the same way, f32 and bf16: ms/pair and the metrics against
+one card.
 
 `--phases` runs a subset (for iterating on one part); the summary lines are
 printed only for the full run.
@@ -155,6 +176,19 @@ TRAIN_SHAPE = (1, 320, 64, 128)  # gwc features of a 256x512 SceneFlow crop
 MAIN_GROUPS, MAIN_D = 40, 48
 # the gwc backward at the Middlebury preset's 320x704 crop, maxdisp 240
 MIDDLEBURY_SHAPE, MIDDLEBURY_D = (1, 320, 80, 176), 60
+# the gwc forward's plane ranges, the shares of the disparity-sharded eval's
+# ranks: ETH3D's 768x1024 canvas (D = 48 on 2 ranks), a half-resolution
+# Middlebury pair padded to 512x768 (maxdisp 240: D = 60, 8 ranks take
+# 4,4,4,4,4,4,3,3 pairs of planes), a range past W; None: the whole volume
+ETH3D_FEATURES, MIDDLEBURY_EVAL_SHAPE = (1, 320, 192, 256), (1, 320, 128, 192)
+GWC_RANGES = (  # name, features, groups, D, planes
+    ("eth3d whole", ETH3D_FEATURES, MAIN_GROUPS, MAIN_D, None),
+    ("eth3d [0,24)", ETH3D_FEATURES, MAIN_GROUPS, MAIN_D, (0, 24)),
+    ("eth3d [24,48)", ETH3D_FEATURES, MAIN_GROUPS, MAIN_D, (24, 48)),
+    ("middlebury [0,8)", MIDDLEBURY_EVAL_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (0, 8)),
+    ("middlebury [54,60)", MIDDLEBURY_EVAL_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (54, 60)),
+    ("past W [8,12)", (2, 16, 5, 7), 4, 12, (8, 12)),
+)
 # the conv3d kernel's own path: tools/bench_conv3d.py::run_pallas's shapes, NCDHW
 CONV_SHAPE = (1, 32, 48, 96, 312)
 CONV_SHAPE_64 = (1, 64, 48, 96, 312)
@@ -187,6 +221,13 @@ PARALLEL_TIMEOUT_S = 300
 # one process each, CARDS_STEPS steps at 1 pair per card; the first
 # CARDS_WARMUP intervals between steps are not timed
 CARDS_STEPS, CARDS_WARMUP, CARDS_TIMEOUT_S = 8, 2, 600
+CARDS_EVAL_PAIRS = 8
+# disp phase: `cli eval --dataset eth3d` (the 768x1024 canvas) over
+# DISP_WORLD ranks under gloo on the one card against one process, on
+# DISP_PAIRS synthetic scenes at an ETH3D image's size; one float64 forward
+# at DISP_F64_HW
+DISP_WORLD, DISP_PAIRS, ETH3D_HW, DISP_F64_HW = 2, 4, (490, 941), (256, 512)
+DISP_TIMEOUT_S = 420
 
 
 def log(msg: str) -> None:
@@ -221,12 +262,14 @@ def time_cuda(fn, iters: int, warmup: int = 2, flush=None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def gwc_bound_ms(shape, groups: int, maxdisp: int, elem_bytes: int):
-    """Least time for the gwc volume on an H100: each input read once, the
-    volume written once; the products this input needs (w >= d only)."""
+def gwc_bound_ms(shape, groups: int, maxdisp: int, elem_bytes: int, planes=None):
+    """Least time for the gwc volume on an H100, or for its planes [d_lo,
+    d_hi): each input read once, the planes written once; the products this
+    input needs (w >= d only)."""
     b, c, h, w = shape
-    bytes_moved = (2 * b * c * h * w + b * groups * maxdisp * h * w) * elem_bytes
-    pairs = sum(w - d for d in range(min(maxdisp, w)))
+    d_lo, d_hi = planes or (0, maxdisp)
+    bytes_moved = (2 * b * c * h * w + b * groups * (d_hi - d_lo) * h * w) * elem_bytes
+    pairs = sum(w - d for d in range(d_lo, min(d_hi, w)))
     ops = 2 * b * c * h * pairs  # a multiply and an add per channel product
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -402,6 +445,18 @@ def phase_kernels():
         want = gwc.gwc_volume_reference(left, right, d, groups)
         torch.cuda.synchronize()
         errs[name] = check_close(f"gwc {name} {tuple(shape)} G={groups} D={d}", got, want, *tol[dtype])
+    # plane ranges against the plain version's slices of the whole volume
+    for name, shape, groups, d, planes in GWC_RANGES:
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            left, right = randn(shape, dtype), randn(shape, dtype)
+            got = gwc.gwc_volume_cuda(left, right, d, groups, planes)
+            want = gwc.gwc_volume_reference(left, right, d, groups)
+            lo, hi = planes or (0, d)
+            torch.cuda.synchronize()
+            errs[f"{name} {tag}"] = check_close(f"gwc range {name} {tag} {tuple(shape)} D={d}", got,
+                                                want[:, :, lo:hi].contiguous(), *tol[dtype])
+            del left, right, got, want
+    torch.cuda.empty_cache()
 
     # gwc backward against autograd through the plain version, grad at unit
     # scale. f32: sums of up to D products (no mean over the channels where
@@ -577,6 +632,19 @@ def phase_kernels():
             if dtype == torch.float32:
                 entry["library_tf32"] = library_tf32(x, w, flush)
             del x, w
+    # the plane ranges' times beside their bounds (the disparity-sharded eval's
+    # launches), the whole ETH3D volume beside them
+    for name, shape, groups, d, planes in GWC_RANGES[:5]:
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            left, right = randn(shape, dtype), randn(shape, dtype)
+            ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, d, groups, planes), 20, flush=flush)
+            plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, d, groups, planes), 5, flush=flush)
+            bound_ms, bound_by = gwc_bound_ms(shape, groups, d, left.element_size(), planes)
+            timing["gwc"][f"{name} {tag}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                                   library_ms=None)
+            log(f"[kernels] gwc range {name} {tag} x{tuple(shape)} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
+            del left, right
     # the gwc forward at the main shape once more, after everything else: the
     # first f32 timing above has read up to ~15 % above later ones in the
     # same process (not the clock, fresh memory or the host: PERF.md §7)
@@ -1922,6 +1990,248 @@ def phase_parallel(workdir: Path) -> dict:
                 workers_s=wall)
 
 
+def calibrate_batch_norm(model, left, right):
+    """Every BatchNorm's running statistics set to those of one train-mode
+    forward of (left, right), in place; the model returned in eval mode.
+    Seeded statistics leave a full-width DCANet's activations unnormalised
+    (class logits near 1e13, a one-hot softmax and whole-number
+    disparities), where a comparison of two forwards sees little."""
+    import torch
+    from torch import nn
+
+    norms = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    momenta = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(left, right)
+    for m, momentum in zip(norms, momenta):
+        m.momentum = momentum
+    return model.eval()
+
+
+def _disp_eval_run(args: list, logdir: str) -> dict:
+    """`cli eval` with `args` under cuDNN's deterministic algorithms: its
+    results, the gwc launches (the count set to 0 before, read after) and
+    each launch's planes, each pair's disparity and class confusions, the
+    peak memory above what the process held before, the paths written
+    under `logdir`."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.train import metrics
+
+    planes, disps, confusions = [], [], []
+    kernel, eval_one, confusion = gwc.gwc_volume_cuda, cli._eval_one, metrics.disparity_class_confusion
+
+    def kernel_spy(*a, **k):
+        out = kernel(*a, **k)
+        planes.append(out.shape[2])
+        return out
+
+    def eval_one_spy(cfg, i, step, out, *rest):
+        disps.append(out.disparity[0].float().to("cpu", copy=True))
+        return eval_one(cfg, i, step, out, *rest)
+
+    def confusion_spy(*a, **k):
+        out = confusion(*a, **k)
+        confusions.append(out.to("cpu", copy=True).numpy())
+        return out
+
+    gwc.gwc_volume_cuda, cli._eval_one, metrics.disparity_class_confusion = kernel_spy, eval_one_spy, confusion_spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gwc.LAUNCHES = 0
+    try:
+        with cudnn_deterministic(), writes_under(logdir, []) as written:
+            results = cli.main(args + ["--logdir", logdir])
+        launches = gwc.LAUNCHES
+    finally:
+        gwc.gwc_volume_cuda, cli._eval_one, metrics.disparity_class_confusion = kernel, eval_one, confusion
+    torch.cuda.synchronize()
+    return dict(results=results, launches=launches, planes=planes, disps=disps, confusions=confusions,
+                peak_bytes=torch.cuda.max_memory_allocated() - held, written=written)
+
+
+def _disp_f64_forward(state_dict: dict, plan=None) -> dict:
+    """One float64 eval forward of DCANet(num_cva=3, maxdisp=192) with
+    `state_dict` on a seeded DISP_F64_HW pair, cuDNN's deterministic
+    algorithms, the gwc volume by its plain version (the kernels take f32
+    and bf16); with `plan`, this rank's share. Disparity and logits on the
+    CPU."""
+    import torch
+
+    from dcanet_tpu_torch.kernels.gwc import gwc_volume_reference
+    from dcanet_tpu_torch.models import DCANet, dcanet
+
+    model = DCANet(maxdisp=192, num_cva=3, constrain_volume=plan)
+    model.load_state_dict(state_dict, strict=True)
+    model = model.to("cuda", torch.float64).eval()
+    rng = np.random.default_rng(SEED + 7)
+    left, right = (torch.from_numpy(rng.standard_normal((1, 3) + DISP_F64_HW)).cuda() for _ in range(2))
+    kernel_gwc, dcanet.gwc_volume = dcanet.gwc_volume, gwc_volume_reference
+    try:
+        with cudnn_deterministic(), torch.inference_mode():
+            out = model(left, right)
+    finally:
+        dcanet.gwc_volume = kernel_gwc
+    return {"disparity": out.disparity.to("cpu", copy=True),
+            "logits": [lg.to("cpu", copy=True) for lg in out.class_logits]}
+
+
+def _disp_args(root: str, ckpt: str, dtype: str, n_disp: int) -> list:
+    return ["eval", "--preset", "eth3d", "--dataset", "eth3d", "--data-root", root, "--ckpt", ckpt,
+            "--dtype", dtype, "--n-disp-shards", str(n_disp), "--log-images", "1", "--device", "cuda"]
+
+
+def _disp_worker(rank: int, port: int, root: str, ckpt: str, logdir: str, out_path: str) -> None:
+    """One rank of phase 11: gloo on cuda:0 (the ranks share the card);
+    `cli eval --n-disp-shards DISP_WORLD` in f32 and in bf16, then this
+    rank's share of the float64 forward."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=DISP_WORLD)
+    torch.cuda.set_device(0)
+    from dcanet_tpu_torch.parallel import make_disp_constraint, make_mesh, shutdown
+    from dcanet_tpu_torch.train.checkpoint import latest_checkpoint
+
+    result = {tag: _disp_eval_run(_disp_args(root, ckpt, dtype, DISP_WORLD), f"{logdir}_{tag}")
+              for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
+    state = torch.load(latest_checkpoint(ckpt), weights_only=False)["model"]
+    result["f64"] = _disp_f64_forward(state, make_disp_constraint(make_mesh(1, DISP_WORLD)))
+    torch.save(result, out_path)
+    shutdown()
+
+
+def _eth3d_tree_and_checkpoint(workdir: Path, flat, pairs: int, tag: str):
+    """A synthetic ETH3D tree of `pairs` scenes at ETH3D_HW and a checkpoint
+    directory holding DCANet(num_cva=3, maxdisp=192) from the seeded `flat`
+    with the BatchNorm statistics of one train-mode forward of pair 0 at
+    the eval canvas (f32, TF32 off): (root, checkpoint directory, state_dict)."""
+    import torch
+
+    from dcanet_tpu_torch.data.datasets import StereoDataset, scan_eth3d
+    from dcanet_tpu_torch.data.eval_protocol import eval_transform
+    from dcanet_tpu_torch.data.synthetic import write_eth3d_tree
+    from dcanet_tpu_torch.models import DCANet
+    from dcanet_tpu_torch.weights import from_jax_variables
+
+    t0 = time.perf_counter()
+    root = write_eth3d_tree(workdir / f"{tag}_eth3d", pairs, ETH3D_HW, seed=SEED + 5, max_disp=120)
+    left, right, _, _ = eval_transform(StereoDataset(scan_eth3d(str(root)), False, "eth3d")[0], "eth3d")
+    model = DCANet(maxdisp=192, num_cva=3)
+    model.load_state_dict(from_jax_variables(flat, model), strict=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    calibrate_batch_norm(model.cuda(), *(torch.from_numpy(x[None]).cuda() for x in (left, right)))
+    ckpt = workdir / f"{tag}_ckpt"
+    ckpt.mkdir()
+    state = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+    torch.save({"step": 0, "model": state}, ckpt / "ckpt_00000000.pt")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[{tag}] wrote {pairs} synthetic ETH3D scenes at {ETH3D_HW} (768x1024 canvas) and the seeded weights "
+        f"with the BatchNorm statistics of one train-mode forward of pair 0 in {time.perf_counter() - t0:.2f} s")
+    return root, ckpt, state
+
+
+def phase_disp(workdir: Path, flat) -> dict:
+    """Disparity-sharded `cli eval` over DISP_WORLD processes on the one card
+    (see the module docstring, phase 11). Returns its numbers."""
+    import multiprocessing
+
+    import torch
+
+    t_phase = time.perf_counter()
+    root, ckpt, state = _eth3d_tree_and_checkpoint(workdir, flat, DISP_PAIRS, "disp")
+
+    one = {tag: _disp_eval_run(_disp_args(str(root), str(ckpt), dtype, 1), str(workdir / f"disp_one_{tag}"))
+           for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
+    one["f64"] = _disp_f64_forward(state)
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logdir = workdir / "disp_ranks"
+    ctx = multiprocessing.get_context("spawn")
+    outs = [workdir / f"disp_rank{r}.pt" for r in range(DISP_WORLD)]
+    procs = [ctx.Process(target=_disp_worker, args=(r, port, str(root), str(ckpt), str(logdir), str(outs[r])))
+             for r in range(DISP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DISP_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * DISP_WORLD:
+        raise AssertionError(f"[disp] worker exit codes {codes} (their tracebacks are above)")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    out = {"workers_s": wall}
+    half = MAIN_D // DISP_WORLD
+    for tag in ("f32", "bf16"):
+        ref, runs = one[tag], [r[tag] for r in ranks]
+        res = [r["results"] for r in runs]
+        if res[0] != res[1]:
+            raise AssertionError(f"[disp] {tag}: the ranks return different results")
+        for r, run in enumerate(runs):
+            if run["launches"] != DISP_PAIRS or run["planes"] != [half] * DISP_PAIRS:
+                raise AssertionError(f"[disp] {tag} rank {r}: {run['launches']} gwc launches of {run['planes']} "
+                                     f"planes for {DISP_PAIRS} pairs")
+        if ref["launches"] != DISP_PAIRS or ref["planes"] != [MAIN_D] * DISP_PAIRS:
+            raise AssertionError(f"[disp] {tag} one process: {ref['launches']} gwc launches of {ref['planes']} planes")
+        if not all(torch.equal(a, b) for a, b in zip(runs[0]["disps"], runs[1]["disps"])):
+            raise AssertionError(f"[disp] {tag}: the ranks' disparities differ")
+        if runs[1]["written"]:
+            raise AssertionError(f"[disp] {tag}: rank 1 wrote {runs[1]['written']}")
+        if not all(math.isfinite(v) for v in res[0].values()):
+            raise AssertionError(f"[disp] {tag}: a result is not finite: {res[0]}")
+        metric_err = {k: abs(res[0][k] - ref["results"][k]) for k in ("epe", "d1", "thres1", "thres2", "thres3")}
+        conf_err = float(max(np.abs(g - w).sum() / w.sum() for g, w in zip(runs[0]["confusions"], ref["confusions"])))
+        disp_err = max(float((a - b).abs().max()) for a, b in zip(runs[0]["disps"], ref["disps"]))
+        n_conf = len(ref["confusions"])
+        log(f"[disp] cli eval --dtype {tag} over {DISP_WORLD} ranks (gloo, one card) against one process, "
+            f"DCANet(num_cva=3, maxdisp=192), {DISP_PAIRS} pairs at 768x1024: EPE {res[0]['epe']:.6f} vs "
+            f"{ref['results']['epe']:.6f}, differences " + ", ".join(f"{k} {v:.2e}" for k, v in metric_err.items())
+            + f" (bounds 5e-3 px, 1e-3); confusions ({n_conf} = pairs x volumes) worst {conf_err:.2e} of the total "
+            f"in L1 (bound 1e-2); disparity max |diff| {disp_err:.3e} px (recorded); gwc launches per rank "
+            f"{[r['launches'] for r in runs]} of {half} planes (one process {ref['launches']} of {MAIN_D}); the "
+            f"ranks' disparities bit-equal; rank 1 wrote nothing")
+        if (metric_err["epe"] > 5e-3 or max(v for k, v in metric_err.items() if k != "epe") > 1e-3
+                or len(runs[0]["confusions"]) != n_conf or conf_err > 1e-2):
+            raise AssertionError(f"[disp] {tag}: the sharded eval disagrees with one process")
+        peaks = [r["peak_bytes"] for r in runs]
+        log(f"[disp] {tag}: peak memory per rank {[round(p / 2**30, 3) for p in peaks]} GiB against one process "
+            f"{ref['peak_bytes'] / 2**30:.3f} GiB ({max(peaks) / ref['peak_bytes']:.1%}); ms/pair (host clock "
+            f"after the first pair, cuDNN deterministic) {res[0].get('ms_per_pair', float('nan')):.3f} on "
+            f"{DISP_WORLD} ranks time-sharing the card, one process {ref['results'].get('ms_per_pair', float('nan')):.3f}")
+        out[tag] = dict(metric_err=metric_err, confusion_err=conf_err, disparity_err=disp_err,
+                        launches=[r["launches"] for r in runs], one_launches=ref["launches"], peak_bytes=peaks,
+                        one_peak_bytes=ref["peak_bytes"], ms_per_pair=res[0].get("ms_per_pair"),
+                        one_ms_per_pair=ref["results"].get("ms_per_pair"), epe=res[0]["epe"])
+
+    want = one["f64"]
+    disp64 = max(float((r["f64"]["disparity"] - want["disparity"]).abs().max()) for r in ranks)
+    logit64 = max(_scaled_err(g, w) for r in ranks for g, w in zip(r["f64"]["logits"], want["logits"]))
+    log(f"[disp] float64 forward at {DISP_F64_HW} (plain gwc volume), {DISP_WORLD} ranks against one process: "
+        f"disparity max |diff| {disp64:.3e} px (bound 1e-9), class logits {logit64:.3e} scaled (bound 1e-10)")
+    if disp64 > 1e-9 or logit64 > 1e-10 or any(len(r["f64"]["logits"]) != 3 for r in ranks):
+        raise AssertionError("[disp] the float64 sharded forward disagrees with one process")
+    log(f"[disp] card: {gpu_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    out.update(f64_disparity_err=disp64, f64_logits_err=logit64)
+    return out
+
+
 def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pairs: int) -> list:
     """`cli train` as a user starts it on `world` cards: one process per card
     with the DCANET_* variables (NCCL), the same arguments; rank 0's
@@ -1959,14 +2269,52 @@ def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pai
     return rows
 
 
-def phase_cards(workdir: Path) -> dict:
+def _eval_on_cards(world: int, root: Path, ckpt: Path, logdir: Path, dtype: str) -> dict:
+    """`cli eval --dataset eth3d --n-disp-shards world` as a user starts it:
+    one process per card with the DCANET_* variables (NCCL); rank 0's
+    results (its metrics.jsonl row)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "dcanet_tpu_torch.cli", "eval", "--preset", "eth3d", "--dataset", "eth3d",
+           "--data-root", str(root), "--ckpt", str(ckpt), "--logdir", str(logdir), "--dtype", dtype,
+           "--n-disp-shards", str(world), "--device", "cuda"]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ)
+        if world > 1:
+            env.update(DCANET_COORDINATOR=f"127.0.0.1:{port}", DCANET_NUM_PROCESSES=str(world),
+                       DCANET_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(cmd, env=env, cwd=str(Path(__file__).resolve().parent),
+                                      stdout=subprocess.DEVNULL))
+    deadline = time.monotonic() + CARDS_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"[cards] eval on {world} card(s), {dtype}: exit codes {codes}")
+    row = json.loads((logdir / "metrics.jsonl").read_text().splitlines()[-1])
+    return {k.split("/", 1)[1]: v for k, v in row.items() if k.startswith("eval/")}
+
+
+def phase_cards(workdir: Path, flat) -> dict:
     """Data-parallel `cli train` across the host's cards (opt-in: `--phases
     cards`; needs two or more): DCANet(num_cva=3, maxdisp=192), the
     SceneFlow preset's 256x512 crop, f32 with TF32 off, 1 pair per card, on
     1, 2, 4, ... cards, CARDS_STEPS steps each (host clock between rank 0's
     metric rows, median after CARDS_WARMUP intervals): ms/step, pairs/s and
     pairs/s per card; the first step's loss terms on 2 cards against one
-    card at --batch-size 2 (the same weights and global batch; rtol 1e-4)."""
+    card at --batch-size 2 (the same weights and global batch; rtol 1e-4).
+    Then the disparity-sharded `cli eval --dataset eth3d` on 1, 2, 4, ...
+    cards (NCCL, cuDNN's defaults, as a user runs it), f32 and bf16, on
+    CARDS_EVAL_PAIRS scenes: ms/pair (rank 0's host clock after the first
+    pair) and EPE, D1, >1/2/3 px against one card (5e-3 px, 1e-3)."""
     import torch
 
     from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
@@ -1997,9 +2345,25 @@ def phase_cards(workdir: Path) -> dict:
         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + " (bound 1e-4)")
     if max(rel.values()) > 1e-4:
         raise AssertionError("[cards] the 2-card step disagrees with one card at batch 2")
+
+    root, ckpt, _ = _eth3d_tree_and_checkpoint(workdir, flat, CARDS_EVAL_PAIRS, "cards_eval")
+    evals = {}
+    for dtype in ("float32", "bfloat16"):
+        for world in worlds:
+            res = evals[dtype, world] = _eval_on_cards(world, root, ckpt, workdir / f"cards_eval_{dtype}_{world}",
+                                                       dtype)
+            one = evals[dtype, 1]
+            err = {k: abs(res[k] - one[k]) for k in ("epe", "d1", "thres1", "thres2", "thres3")}
+            log(f"[cards] cli eval --n-disp-shards {world} on {world} card(s), {dtype}, {CARDS_EVAL_PAIRS} pairs at "
+                f"768x1024: {res['ms_per_pair']:.3f} ms/pair (one card {one['ms_per_pair']:.3f}), EPE "
+                f"{res['epe']:.6f}; against one card " + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+                + " (bounds 5e-3 px, 1e-3)")
+            if err["epe"] > 5e-3 or max(v for k, v in err.items() if k != "epe") > 1e-3:
+                raise AssertionError(f"[cards] the sharded eval on {world} cards disagrees with one card")
     log(f"[cards] card: {gpu_line()} x {cards}")
     return {"cards": cards, "runs": {w: {k: r[k] for k in ("ms", "pairs_per_s")} for w, r in results.items()},
-            "first_step_rel": rel}
+            "first_step_rel": rel,
+            "eval_ms_per_pair": {f"{d} {w}": r["ms_per_pair"] for (d, w), r in evals.items()}}
 
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
@@ -2008,7 +2372,7 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
 
-PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel")
+PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp")
 
 
 def main(argv=None) -> int:
@@ -2056,8 +2420,10 @@ def main(argv=None) -> int:
             extras = phase_extras(Path(tmp))
         if "parallel" in phases:
             parallel = phase_parallel(Path(tmp))
+        if "disp" in phases:
+            disp = phase_disp(Path(tmp), flat)
         if "cards" in phases:
-            phase_cards(Path(tmp))
+            phase_cards(Path(tmp), flat)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
@@ -2072,6 +2438,8 @@ def main(argv=None) -> int:
             {"eval": eval_launches, "infer_list": evaluation["launches"]["infer_list"], "train": train["fwd"],
              "serving": serving, "train_infer": train["infer"],
              "parallel_train": sum(f for f, _ in parallel["launches"]),
+             "disp_eval": sum(disp["f32"]["launches"]) + sum(disp["bf16"]["launches"]),
+             "disp_eval_one_process": disp["f32"]["one_launches"] + disp["bf16"]["one_launches"],
              **{k: v for k, v in family["launches"].items() if not k.startswith("family_train_backward")}},
             errs["gwc"]["main f32"],
             gwc_t["f32"],
@@ -2083,6 +2451,11 @@ def main(argv=None) -> int:
                               "float32": {"max_abs_err": errs["gwc"]["kitti eval f32"], **gwc_t["kitti eval f32"]},
                               "bfloat16": {"max_abs_err": errs["gwc"]["kitti eval bf16"],
                                            **gwc_t["kitti eval bf16"]}},
+            # the disparity-sharded eval's launches (disp_eval) take the planes
+            # [0, 24) on rank 0 and [24, 48) on rank 1 of D = 48
+            plane_ranges={f"{name} {tag}": {"features": list(shape), "maxdisp": d, "planes": planes,
+                                            "max_abs_err": errs["gwc"][f"{name} {tag}"], **gwc_t[f"{name} {tag}"]}
+                          for name, shape, _, d, planes in GWC_RANGES[:5] for tag in ("f32", "bf16")},
         ),
         kernel_entry(
             "gwc_volume_backward", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
@@ -2120,6 +2493,7 @@ def main(argv=None) -> int:
     log("[family] summary: " + json.dumps(family))
     log("[extras] summary: " + json.dumps(extras))
     log("[parallel] summary: " + json.dumps(parallel))
+    log("[disp] summary: " + json.dumps(disp))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,11 @@
          [--data-root2 DIR] [--model NAME] [--logdir DIR] [--epochs N] [--batch-size N]
          [--dtype float32|bfloat16] [--remat] [--resume] [--loadckpt PATH]
          [--seed N] [--maxdisp N] [--print-freq N] [--num-workers N]
-         [--n-data-shards N] [--n-disp-shards 1] [--device cuda|cpu]
+         [--n-data-shards N] [--device cuda|cpu]
   eval   --preset P [--dataset D] --data-root DIR [--data-root2 DIR]
          [--model NAME] [--maxdisp N] [--dtype float32|bfloat16] [--logdir DIR]
          [--ckpt DIR] [--log-images N] [--vis-band lo:hi] [--seed N]
-         [--n-disp-shards 1] [--device cuda|cpu]
+         [--n-disp-shards N] [--device cuda|cpu]
   infer  --left L.png --right R.png --out disp.png [--submission]
          | --list FILE --data-root DIR [--save-path DIR]
          [--weights PATH | --logdir DIR] [--model dcanet] [--maxdisp 192]
@@ -40,9 +40,10 @@ global batch and must divide by the number of processes (each rank loads
 its share, `data/loader.py::shard_for_host`); BatchNorm statistics, loss
 means and gradients are those of the global batch, so W ranks take the
 steps of one process at the same `--batch-size`. `--n-data-shards`, when
-given, must equal the number of processes, and `--n-disp-shards` must be 1
-(`parallel/mesh.py`). Rank 0 alone prints, logs and writes checkpoints.
-`eval`, `infer` and `export` run in one process.
+given, must equal the number of processes; `--n-disp-shards` above 1 raises
+(disparity-sharded training is ROADMAP Queue 1 item 4). Rank 0 alone
+prints, logs and writes checkpoints. `infer` and `export` run in one
+process.
 
 `eval` (dcanet_tpu/cli.py:228-358) scores the preset's test split the way
 the reference's test loops do: each benchmark's own test-time geometry
@@ -55,6 +56,12 @@ The weights are the newest checkpoint under --ckpt (default <logdir>/ckpt),
 else a reference init drawn from --seed. `--log-images N` writes image
 panels of the first N pairs under <logdir>/images; the results, with the
 host ms/pair after the first pair, go to <logdir>/metrics.jsonl and .csv.
+`--n-disp-shards N` runs it as N processes, started as `train`'s are, that
+split every cost volume's disparity planes between them (DCANet family
+only; `parallel/sharding.py`): each builds and aggregates its own planes,
+and they exchange the planes and reductions the 3D chain needs. Every rank
+scores every pair and returns the same results (rank 0's host times);
+rank 0 alone prints and writes.
 
 `infer`: single-pair inference to a uint16 x256 PNG. `--submission` follows
 the reference's benchmark-submission protocol (my_img.py:47-111): per-channel
@@ -108,12 +115,14 @@ from dcanet_tpu_torch.weights import load_weights
 
 def build_model(
     name: str = "dcanet", maxdisp: int = 192, weights: Optional[Union[str, Path]] = None,
-    device: Optional[Union[str, torch.device]] = None, seed: int = 0,
+    device: Optional[Union[str, torch.device]] = None, seed: int = 0, constrain_volume=None,
 ) -> torch.nn.Module:
     """The registry's model `name` in eval mode on `device` (CUDA unless asked
-    otherwise), with the given weights or a reference init drawn from `seed`."""
+    otherwise), with the given weights or a reference init drawn from `seed`;
+    `constrain_volume` (a disparity-sharding plan) for the DCANet family."""
     dev = resolve_device(device)
-    model = make_model(name, maxdisp=maxdisp)
+    kw = {} if constrain_volume is None else {"constrain_volume": constrain_volume}
+    model = make_model(name, maxdisp=maxdisp, **kw)
     if weights:
         model.load_state_dict(load_weights(weights, model), strict=True)
     else:
@@ -137,17 +146,22 @@ def _no_tf32(device: torch.device) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _newest_checkpoint(directory: str, seed: int) -> Optional[Path]:
+def _lead_printer(lead: bool):
+    """print (flushed) on the rank that leads, nothing on the others."""
+    return (lambda msg: print(msg, flush=True)) if lead else (lambda msg: None)
+
+
+def _newest_checkpoint(directory: str, seed: int, say=print) -> Optional[Path]:
     """The newest checkpoint of `train` under `directory`, or None when there
     is none (the model then takes the reference init drawn from `seed`);
-    prints which. Reads only."""
+    says which. Reads only."""
     from dcanet_tpu_torch.train.checkpoint import latest_checkpoint
 
     path = latest_checkpoint(directory)
     if path is None:
-        print(f"no checkpoint under {directory}; using the reference init from seed {seed}")
+        say(f"no checkpoint under {directory}; using the reference init from seed {seed}")
     else:
-        print(f"restored weights from {path}")
+        say(f"restored weights from {path}")
     return path
 
 
@@ -284,15 +298,17 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
     from dcanet_tpu_torch.utils.experiment import AverageMeterDict, MetricLogger
     from dcanet_tpu_torch.utils.profiling import StepTimer
 
+    if cfg.n_disp_shards > 1:
+        raise NotImplementedError(
+            f"n_disp_shards={cfg.n_disp_shards}: disparity-sharded training is ROADMAP Queue 1 item 4 "
+            "(`eval --n-disp-shards` shards eval)"
+        )
     dev = initialize(device=resolve_device(device))
     mesh = make_mesh(cfg.n_data_shards, cfg.n_disp_shards)
     if cfg.batch_size % mesh.n_data != 0:
         raise ValueError(f"batch_size {cfg.batch_size} not divisible by n_data_shards {mesh.n_data}")
     lead = mesh.rank == 0
-
-    def say(msg: str) -> None:
-        if lead:
-            print(msg, flush=True)
+    say = _lead_printer(lead)
 
     if cfg.dtype == "float32":
         _no_tf32(dev)
@@ -388,22 +404,34 @@ def _parse_vis_band(spec: str) -> Tuple[float, float]:
 
 def cmd_eval(cfg: RunConfig, ckpt: Optional[str] = None, device: Optional[str] = None) -> Dict[str, float]:
     """Score cfg.model on the test split of cfg.dataset (see the module
-    docstring); prints and returns the results."""
+    docstring); prints and returns the results. With cfg.n_disp_shards > 1
+    the processes (`parallel.initialize`) split the cost volumes' disparity
+    planes; each returns the same results, and rank 0 alone prints and
+    writes. A process group that this command formed is left at its end."""
+    import torch.distributed as dist
+
     from dcanet_tpu_torch.data.eval_protocol import eval_transform
+    from dcanet_tpu_torch.parallel import initialize, make_disp_constraint, make_mesh, shutdown
     from dcanet_tpu_torch.train.checkpoint import checkpoint_step
-    from dcanet_tpu_torch.parallel import make_mesh
     from dcanet_tpu_torch.train.metrics import disparity_class_confusion, segmentation_scores
     from dcanet_tpu_torch.utils.experiment import AverageMeterDict, MetricLogger
 
-    dev = resolve_device(device)
-    make_mesh(1, cfg.n_disp_shards)  # one process; raises for disparity-axis sharding
+    formed = not dist.is_initialized()
+    dev = initialize(device=resolve_device(device))
+    mesh = make_mesh(1, cfg.n_disp_shards)
+    lead = mesh.disp_rank == 0
+    say = _lead_printer(lead)
+
     vis_band = _parse_vis_band(cfg.vis_band) if cfg.vis_band else None
     ds = build_dataset(cfg, training=False)
-    print(f"eval samples: {len(ds)}")
-    path = _newest_checkpoint(ckpt or os.path.join(cfg.logdir, "ckpt"), cfg.seed)
-    model = build_model(cfg.model, cfg.maxdisp, path, dev, cfg.seed)
+    say(f"eval samples: {len(ds)}")
+    if mesh.n_disp > 1:
+        say(f"eval mesh: disp={mesh.n_disp}")
+    path = _newest_checkpoint(ckpt or os.path.join(cfg.logdir, "ckpt"), cfg.seed, say)
+    plan = make_disp_constraint(mesh) if mesh.n_disp > 1 else None
+    model = build_model(cfg.model, cfg.maxdisp, path, dev, cfg.seed, constrain_volume=plan)
     step = checkpoint_step(path) if path else 0
-    print(f"evaluating step {step}")
+    say(f"evaluating step {step}")
     bf16 = cfg.dtype == "bfloat16"
     if not bf16:
         _no_tf32(dev)
@@ -411,7 +439,8 @@ def cmd_eval(cfg: RunConfig, ckpt: Optional[str] = None, device: Optional[str] =
     meters = AverageMeterDict()
     confusions: List[torch.Tensor] = []  # one per CVA volume
     seconds = []
-    with contextlib.closing(MetricLogger(cfg.logdir, cfg.use_tensorboard)) as logger:
+    logger = MetricLogger(cfg.logdir, cfg.use_tensorboard) if lead else None
+    with contextlib.closing(logger) if lead else contextlib.nullcontext():
         for i in range(len(ds)):
             t0 = time.perf_counter()
             left, right, gt, pads = eval_transform(ds[i], protocol)
@@ -433,11 +462,18 @@ def cmd_eval(cfg: RunConfig, ckpt: Optional[str] = None, device: Optional[str] =
             results.update({f"vol{vi + 1}/{k}": float(v) for k, v in segmentation_scores(conf).items()})
         if confusions:  # the bare keys report the last volume
             results.update({k: float(v) for k, v in segmentation_scores(confusions[-1]).items()})
-        if len(seconds) > 1:  # host clock, after the first pair
+        if len(seconds) > 1:  # host clock, after the first pair; rank 0's on every rank
+            if mesh.n_disp > 1:
+                times = torch.tensor(seconds, dtype=torch.float64, device=dev)
+                dist.broadcast(times, src=0)
+                seconds = times.tolist()
             results["ms_per_pair"] = 1e3 * sum(seconds[1:]) / len(seconds[1:])
             results["pairs_per_s"] = len(seconds[1:]) / sum(seconds[1:])
-        logger.log(step, results, prefix="eval/")
-    print({k: round(v, 4) for k, v in results.items()})
+        if lead:
+            logger.log(step, results, prefix="eval/")
+    say(str({k: round(v, 4) for k, v in results.items()}))
+    if formed:
+        shutdown()
     return results
 
 
@@ -453,7 +489,7 @@ def _eval_one(cfg: RunConfig, i: int, step: int, out, gt: torch.Tensor, left: np
     n_valid = int(m.pop("n_valid_images"))
     if n_valid:
         meters.update(m, n=n_valid)
-    if i < cfg.log_images:
+    if logger is not None and i < cfg.log_images:
         _log_panels(cfg, i, step, out, disp.cpu().numpy(), gt.cpu().numpy(), unpad(left, pads), logger, vis_band)
 
 
@@ -512,7 +548,8 @@ def main(argv: Optional[Sequence[str]] = None):
     st.add_argument("--num-workers", type=int, default=None)
     st.add_argument("--n-data-shards", type=int, default=None,
                     help="data-parallel processes; must equal their number (default: their number)")
-    st.add_argument("--n-disp-shards", type=int, default=None, help="only 1 (disparity-axis sharding is not ported)")
+    st.add_argument("--n-disp-shards", type=int, default=None,
+                    help="must be 1: disparity-sharded training is ROADMAP Queue 1 item 4 (eval takes N)")
     st.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     se = sub.add_parser("eval", help="EPE / D1 / >1,2,3 px and DCA class scores on a preset's test split")
     se.add_argument("--preset", default="sceneflow", choices=sorted(PRESETS))
@@ -529,7 +566,8 @@ def main(argv: Optional[Sequence[str]] = None):
     se.add_argument("--vis-band", default=None,
                     help="full-resolution disparity band 'lo:hi' of the probability-mass panels")
     se.add_argument("--seed", type=int, default=None, help="the reference init's seed, when there is no checkpoint")
-    se.add_argument("--n-disp-shards", type=int, default=None, help="only 1 (disparity-axis sharding is not ported)")
+    se.add_argument("--n-disp-shards", type=int, default=None,
+                    help="processes that split the cost volumes' disparity planes; must equal their number")
     se.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp = sub.add_parser("infer", help="inference -> uint16 x256 PNG, one pair or a KITTI test list")
     sp.add_argument("--left")

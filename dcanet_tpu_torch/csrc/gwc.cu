@@ -4,6 +4,16 @@
 //   out[b, g, d, h, w] = 0 for w < d (the occluded left margin; every plane
 //   with d >= W is all zeros).
 //
+// A launch writes the planes d in [d_lo, d_lo + D) of that volume: plane k
+// of its output holds disparity d_lo + k (d_lo = 0 and D = maxdisp for the
+// whole volume). A rank of the disparity-sharded eval builds only its own
+// planes this way. The kernel's passes start at d_lo rounded down to a
+// multiple of kV, so that the staged windows of R stay aligned for the
+// 16-byte copies; the up to kV - 1 planes below d_lo are computed and not
+// stored. That arithmetic costs the bf16 kernel about 18 % (chip_smoke.py
+// phase 2 on an H100), so launches from d_lo = 0, the whole volume's
+// among them, take an instantiation without it (kRange = false).
+//
 // Layouts: L, R are NCHW (B, C, H, W), as the port's 2D convs emit them; the
 // volume is written straight into NCDHW (B, G, D, H, W), the layout F.conv3d
 // consumes. f32 or bf16 in, f32 accumulation, the input type out.
@@ -256,10 +266,10 @@ struct FwdShape {
   static constexpr int kMinBlocks = 512 / kThreads > 0 ? 512 / kThreads : 1;
 };
 
-template <typename T, int CPG>
+template <typename T, int CPG, bool kRange>
 __global__ void __launch_bounds__(FwdShape<T>::kThreads, FwdShape<T>::kMinBlocks)
 gwc_volume_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict__ out,
-                  int G, int H, int W, int D, int tiles, int items, bool vec) {
+                  int G, int H, int W, int D, int d_lo, int tiles, int items, bool vec) {
   using E = Elem<T>;
   using S = typename E::bits;
   using F = FwdTile<T>;
@@ -278,6 +288,10 @@ gwc_volume_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __
   const int t = threadIdx.x;
   const int cg = t % NCG, s = t / NCG;
   const long long plane = (long long)H * W;
+  // the passes cover the disparities dbase + [0, DT): the D output planes
+  // from d_lo = dbase + off on, dbase aligned to V; without kRange (d_lo =
+  // 0) the same code as a kernel with no range
+  const int off = kRange ? d_lo % V : 0, dbase = kRange ? d_lo - off : 0, DT = D + off;
 
   // work item -> (b, g, h, tile), tile fastest: the first column, the rows
   // of channel g*CPG at (b, h, 0) in L and R, and out[b, g, 0, h, 0]
@@ -297,8 +311,9 @@ gwc_volume_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __
     return Item{tile * TW, reinterpret_cast<const S*>(left) + fbase, reinterpret_cast<const S*>(right) + fbase,
                  reinterpret_cast<S*>(out) + bg * D * plane + (long long)h * W};
   };
-  // R[w0 - dc - DC, w0 + TW) of the item's rows into rs[buf], and for the
-  // first pass L[w0, w0 + TW) into ls[buf]; one commit group
+  // R[w0 - dbase - dc - DC, w0 - dbase - dc + TW) of the item's rows into
+  // rs[buf], and for the first pass L[w0, w0 + TW) into ls[buf]; one commit
+  // group
   auto stage = [&](const Item& it, int buf, int dc) {
     if (dc == 0) {
       for (int i = t; i < CPG * NCG; i += Sh::kThreads) {
@@ -306,7 +321,7 @@ gwc_volume_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __
         stage_run<S, V>(it.l + c * plane, it.w0 + j, W, vec, &ls[buf][c][j]);
       }
     }
-    const int a = it.w0 - dc - DC;  // column of rs[buf][.][0]
+    const int a = it.w0 - dbase - dc - DC;  // column of rs[buf][.][0], a multiple of V
     for (int i = t; i < CPG * (RW / V); i += Sh::kThreads) {
       const int c = i / (RW / V), j = (i % (RW / V)) * V;
       stage_run<S, V>(it.r + c * plane, a + j, W, vec, &rs[buf][c][j]);
@@ -329,7 +344,7 @@ gwc_volume_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __
     __syncthreads();
     const Item it = decode(item);
     const int wv = it.w0 + cg * V;  // this thread's first column
-    for (int dc = 0; dc < D; dc += DC) {
+    for (int dc = 0; dc < DT; dc += DC) {
       if (dc) {  // a further pass over d: this item's own window of R
         __syncthreads();
         stage(it, buf, dc);
@@ -337,9 +352,10 @@ gwc_volume_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __
         __syncthreads();
       }
       const int d0 = dc + s * ND;
-      if (wv >= W || d0 >= D) continue;
+      if (wv >= W || d0 >= DT) continue;
 
-      // out(d0 + k, wv + v) needs R[wv + v - d0 - k] = rs[buf][c][j0 + v - k + ND]
+      // disparity dbase + d0 + k (output plane d0 + k - off) at column wv + v
+      // needs R[wv + v - dbase - d0 - k] = rs[buf][c][j0 + v - k + ND]
       const int j0 = cg * V + DC - (s + 1) * ND;
       float acc[ND][V];
 #pragma unroll
@@ -364,13 +380,14 @@ gwc_volume_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __
 #pragma unroll
       for (int k = 0; k < ND; ++k) {
         const int d = d0 + k;
-        if (d >= D) break;
+        if (d >= DT) break;
+        if (kRange && d < off) continue;  // below d_lo: not this launch's plane
         float x[V];
 #pragma unroll
-        for (int v = 0; v < V; ++v) x[v] = wv + v >= d ? acc[k][v] / (float)CPG : 0.0f;
+        for (int v = 0; v < V; ++v) x[v] = wv + v >= dbase + d ? acc[k][v] / (float)CPG : 0.0f;
         S o[V];
         E::round(x, o);
-        S* dst = it.o + d * plane + wv;
+        S* dst = it.o + (d - off) * plane + wv;
         if (vec) {
           store_run<S, V>(dst, o);
         } else {
@@ -739,10 +756,10 @@ long long grid_size(long long items, long long tiles, long long resident) {
 
 template <typename T>
 int launch(const void* left, const void* right, void* out, int B, int C, int H, int W,
-           int G, int D, int device, void* stream) {
+           int G, int D, int d_lo, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (G <= 0 || C % G != 0) return (int)cudaErrorInvalidValue;
+  if (G <= 0 || C % G != 0 || d_lo < 0) return (int)cudaErrorInvalidValue;
   if ((long long)B * G * H * W == 0 || D == 0) return 0;
   constexpr int TW = FwdTile<T>::kTW;
   constexpr unsigned kAlign = FwdTile<T>::kV * sizeof(T);
@@ -761,13 +778,13 @@ int launch(const void* left, const void* right, void* out, int B, int C, int H, 
   // as many blocks as are resident at once, each walking its items
 #define GWC_FWD(CPG)                                                                              \
   {                                                                                               \
+    auto kernel = d_lo ? gwc_volume_kernel<T, CPG, true> : gwc_volume_kernel<T, CPG, false>;      \
     int per_sm = 0;                                                                               \
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gwc_volume_kernel<T, CPG>,       \
-                                                        FwdShape<T>::kThreads, 0);                \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FwdShape<T>::kThreads, 0); \
     if (err != cudaSuccess) return (int)err;                                                      \
     const long long blocks = grid_size(items, tiles, (long long)sms * std::max(per_sm, 1));     \
-    gwc_volume_kernel<T, CPG><<<(unsigned)blocks, FwdShape<T>::kThreads, 0, s>>>(                 \
-        l, r, o, G, H, W, D, (int)tiles, (int)items, vec);                                        \
+    kernel<<<(unsigned)blocks, FwdShape<T>::kThreads, 0, s>>>(l, r, o, G, H, W, D, d_lo, (int)tiles, \
+                                                             (int)items, vec);                    \
   }                                                                                               \
   break;
   switch (C / G) {
@@ -852,14 +869,15 @@ int launch_backward(const void* grad, const void* left, const void* right, void*
 
 // Plain C interface for ctypes. Pointers and the stream are passed as
 // void*; the return value is the cudaError_t of the launch (0 = success).
+// The forward writes the D planes d_lo, ..., d_lo + D - 1 of the volume.
 extern "C" int gwc_volume_f32(const void* left, const void* right, void* out, int B, int C,
-                              int H, int W, int G, int D, int device, void* stream) {
-  return launch<float>(left, right, out, B, C, H, W, G, D, device, stream);
+                              int H, int W, int G, int D, int d_lo, int device, void* stream) {
+  return launch<float>(left, right, out, B, C, H, W, G, D, d_lo, device, stream);
 }
 
 extern "C" int gwc_volume_bf16(const void* left, const void* right, void* out, int B, int C,
-                               int H, int W, int G, int D, int device, void* stream) {
-  return launch<__nv_bfloat16>(left, right, out, B, C, H, W, G, D, device, stream);
+                               int H, int W, int G, int D, int d_lo, int device, void* stream) {
+  return launch<__nv_bfloat16>(left, right, out, B, C, H, W, G, D, d_lo, device, stream);
 }
 
 extern "C" int gwc_volume_backward_f32(const void* grad, const void* left, const void* right,

@@ -1,18 +1,21 @@
-"""Synthetic datasets in the SceneFlow and the KITTI 2015 layouts, drawn from a seed:
+"""Synthetic datasets in the SceneFlow, KITTI 2015 and ETH3D layouts, drawn from a seed:
 
   SceneFlow   <root>/frames_finalpass/<split>/A/<seq>/{left,right}/<frame>.png
               <root>/frames_disparity/<split>/A/<seq>/left/<frame>.pfm
   KITTI 2015  <root>/{image_2,image_3}/<index:06d>_10.png
               <root>/disp_occ_0/<index:06d>_10.png (uint16, disparity x 256,
               0 where there is no gt)
+  ETH3D       <root>/<scene>/{im0.png, im1.png, disp0GT.pfm} (inf where
+              there is no gt)
 
 Each left image is a blocky random texture; the right image is the left one
 shifted by the disparity (left[y, x] = right[y, x - d]), which grows down the
 image (rows of constant disparity between `min_disp` and `max_disp`), so the
 pair is consistent with its ground truth. The KITTI gt is sparse as KITTI's
 LiDAR gt is: none in the top quarter of the image, and 40 % of the pixels
-below it. For smoke tests of the training path (`cli train`) and of the eval
-path (`cli eval`, `cli infer --list`).
+below it; the ETH3D gt leaves a random tenth of the pixels without a value,
+as ETH3D's does. For smoke tests of the training path (`cli train`) and of
+the eval path (`cli eval`, `cli infer --list`).
 """
 
 from __future__ import annotations
@@ -96,4 +99,26 @@ def write_kitti2015_tree(
         write_png(root / "image_2" / name, left)
         write_png(root / "image_3" / name, right)
         write_png(root / "disp_occ_0" / name, gt)
+    return root
+
+
+def write_eth3d_tree(
+    root: Union[str, Path], num_pairs: int, hw: Tuple[int, int] = (489, 942), seed: int = 0,
+    min_disp: int = 2, max_disp: int = 60, block: int = 4,
+) -> Path:
+    """Write `num_pairs` scenes of size `hw` under `root` (the ETH3D two-view
+    layout, `cli eval --dataset eth3d`); returns `root`."""
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    for i in range(num_pairs):
+        scene = root / f"scene_{i:02d}"
+        os.makedirs(scene, exist_ok=True)
+        disp_rows = _disp_rows(h, min_disp, max_disp)
+        left, right = _shifted_pair(rng, disp_rows, w, block, max_disp + 1)
+        gt = np.repeat(disp_rows[:, None], w, axis=1).astype(np.float32)
+        gt[rng.random((h, w)) < 0.1] = np.inf
+        write_png(scene / "im0.png", left)
+        write_png(scene / "im1.png", right)
+        write_pfm(scene / "disp0GT.pfm", gt)
     return root

@@ -15,16 +15,23 @@ linear transposes there). Layouts: features NCHW (B, C, H, W), volume NCDHW
   the kernels. There is no fallback: a CUDA input either launches the
   kernels or raises.
 
+The forwards take `planes=(d_lo, d_hi)`: the volume's planes d_lo <= d <
+d_hi alone, (B, G, d_hi - d_lo, H, W), plane k holding disparity d_lo + k
+(a rank of the disparity-sharded eval builds only its own). The backward
+takes the whole volume; `GwcVolume` refuses a plane range's gradient.
+
 `LAUNCHES` and `BACKWARD_LAUNCHES` count kernel launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from dcanet_tpu_torch.kernels import build
+from dcanet_tpu_torch.ops.cost_volume import plane_range
 from dcanet_tpu_torch.ops.cost_volume import build_gwc_volume as gwc_volume_reference
 
 LAUNCHES = 0
@@ -37,11 +44,11 @@ _BWD_FUNCS = {torch.float32: "gwc_volume_backward_f32", torch.bfloat16: "gwc_vol
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("gwc")
-    for names, n_ptr in ((_FUNCS, 3), (_BWD_FUNCS, 5)):
+    for names, n_ptr, n_int in ((_FUNCS, 3, 8), (_BWD_FUNCS, 5, 7)):
         for fname in names.values():
             fn = getattr(lib, fname)
             if fn.argtypes is None:
-                fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
     fn = lib.gwc_volume_backward_smem_bytes
     if fn.argtypes is None:
@@ -73,18 +80,21 @@ def _check(left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: in
 
 
 def gwc_volume_cuda(
-    left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
+    left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int,
+    planes: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """The CUDA kernel: (B, C, H, W) x2 -> (B, G, D, H, W) on the features' device."""
+    """The CUDA kernel: (B, C, H, W) x2 -> (B, G, d_hi - d_lo, H, W) on the
+    features' device; the planes [d_lo, d_hi) of `planes`, all D without."""
     global LAUNCHES
+    d_lo, d_hi = plane_range(maxdisp, planes)
     _check(left, right, maxdisp, num_groups)
     b, c, h, w = left.shape
     fn = getattr(_lib(), _FUNCS[left.dtype])
-    out = torch.empty((b, num_groups, maxdisp, h, w), dtype=left.dtype, device=left.device)
+    out = torch.empty((b, num_groups, d_hi - d_lo, h, w), dtype=left.dtype, device=left.device)
     stream = torch.cuda.current_stream(left.device).cuda_stream
     err = fn(
         left.data_ptr(), right.data_ptr(), out.data_ptr(),
-        b, c, h, w, num_groups, maxdisp, left.device.index, stream,
+        b, c, h, w, num_groups, d_hi - d_lo, d_lo, left.device.index, stream,
     )
     if err != 0:
         raise RuntimeError(f"gwc kernel launch failed with CUDA error {err}")
@@ -138,26 +148,36 @@ def gwc_volume_backward_reference(
 
 
 class GwcVolume(torch.autograd.Function):
-    """The gwc volume on CUDA tensors: forward and backward are the kernels."""
+    """The gwc volume on CUDA tensors: forward and backward are the kernels.
+    The backward takes the whole volume's gradient: a plane range's raises
+    (the disparity-sharded train step is ROADMAP Queue 1 item 4)."""
 
     @staticmethod
-    def forward(ctx, left, right, maxdisp: int, num_groups: int):
+    def forward(ctx, left, right, maxdisp: int, num_groups: int, planes=None):
         ctx.save_for_backward(left, right)
         ctx.maxdisp, ctx.num_groups = maxdisp, num_groups
-        return gwc_volume_cuda(left, right, maxdisp, num_groups)
+        ctx.partial = plane_range(maxdisp, planes) != (0, maxdisp)
+        return gwc_volume_cuda(left, right, maxdisp, num_groups, planes)
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.partial:
+            raise NotImplementedError(
+                "the gwc backward takes the whole volume; a plane range's gradient (disparity-sharded "
+                "training) is ROADMAP Queue 1 item 4"
+            )
         left, right = ctx.saved_tensors
         dleft, dright = gwc_volume_backward_cuda(grad.contiguous(), left, right, ctx.maxdisp, ctx.num_groups)
-        return dleft, dright, None, None
+        return dleft, dright, None, None, None
 
 
 def gwc_volume(
-    left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
+    left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int,
+    planes: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """(B, C, H, W) x2 -> (B, G, D, H, W), differentiable: the plain version
-    for CPU tensors, the CUDA kernels otherwise."""
+    """(B, C, H, W) x2 -> (B, G, D, H, W), or its planes [d_lo, d_hi) with
+    `planes`, differentiable: the plain version for CPU tensors, the CUDA
+    kernels otherwise."""
     if left.device.type == "cpu" and right.device.type == "cpu":
-        return gwc_volume_reference(left, right, maxdisp, num_groups)
-    return GwcVolume.apply(left, right, maxdisp, num_groups)
+        return gwc_volume_reference(left, right, maxdisp, num_groups, planes)
+    return GwcVolume.apply(left, right, maxdisp, num_groups, planes)

@@ -35,6 +35,15 @@ float32, also under bf16 autocast. Layouts: images (B, 3, H, W), disparity
 (B, H, W), probability volumes (B, D/4, H/4, W/4), class logits
 (B, D/8, H/8, W/8).
 
+`constrain_volume` (the JAX field's name) takes the plan of
+`parallel.make_disp_constraint(mesh)`: in eval, each rank of the mesh's
+disp axis builds (the gwc kernel's plane range), aggregates and holds only
+its planes of every volume, the 3x3x3 chain on halos; the CVA's class
+logits and the final cost are gathered whole, so that the softmax,
+soft-argmin and `prop` run replicated and every rank returns the unsharded
+forward's result. A train-mode forward with a plan that shards raises
+(ROADMAP Queue 1 item 4).
+
 GwcNetBaseline (reference models/gwcnet.py:107-249): the same features and
 volumes, dres0/dres1, three stacked Hourglass3D aggregators (dres2-4) and
 four classif heads, each cost upsampled 4x trilinearly to full resolution,
@@ -45,7 +54,7 @@ CVA, no class logits.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,7 +65,7 @@ from dcanet_tpu_torch.nn.aggregation import Hourglass3D
 from dcanet_tpu_torch.nn.cva import CVA
 from dcanet_tpu_torch.nn.feature import FeatureExtractor
 from dcanet_tpu_torch.nn.guidance import Guidance
-from dcanet_tpu_torch.nn.layers import ConvBN, frozen_bn_statistics
+from dcanet_tpu_torch.nn.layers import ConvBN, frozen_bn_statistics, run_sharded
 from dcanet_tpu_torch.nn.propagation import PropagationNet
 from dcanet_tpu_torch.ops.cost_volume import build_concat_volume
 from dcanet_tpu_torch.ops.precision import at_least_f32
@@ -117,13 +126,15 @@ def stereo_features(extractor: nn.Module, left: torch.Tensor, right: torch.Tenso
     return extractor(left), extractor(right)
 
 
-def cost_volume(feats_l, feats_r, d4: int, num_groups: int, use_concat: bool) -> torch.Tensor:
+def cost_volume(feats_l, feats_r, d4: int, num_groups: int, use_concat: bool,
+                planes: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The gwc volume (the CUDA kernel on the card), followed on the channel
-    axis by the concat volume when `use_concat`: (B, G [+ 2*C], D/4, H/4, W/4)."""
-    volume = gwc_volume(feats_l["gwc_feature"], feats_r["gwc_feature"], d4, num_groups)
+    axis by the concat volume when `use_concat`: (B, G [+ 2*C], D/4, H/4, W/4),
+    or its planes [d_lo, d_hi) with `planes`."""
+    volume = gwc_volume(feats_l["gwc_feature"], feats_r["gwc_feature"], d4, num_groups, planes)
     if not use_concat:
         return volume
-    concat = build_concat_volume(feats_l["concat_feature"], feats_r["concat_feature"], d4)
+    concat = build_concat_volume(feats_l["concat_feature"], feats_r["concat_feature"], d4, planes)
     return torch.cat([volume, concat.to(volume.dtype)], dim=1)
 
 
@@ -132,11 +143,13 @@ class DCANet(nn.Module):
         self, maxdisp: int = 192, num_cva: int = 3, use_concat_volume: bool = True, num_groups: int = 40,
         concat_channels: int = 12, base_channels: int = 32,
         full_res_supervision: bool = False, stacked_features: bool = True, remat: bool = False,
+        constrain_volume=None,
     ):
         super().__init__()
         if maxdisp % 4:
             raise ValueError(f"maxdisp must be a multiple of 4, got {maxdisp}")
         self.maxdisp, self.num_cva, self.num_groups = maxdisp, num_cva, num_groups
+        self.constrain_volume = constrain_volume
         self.use_concat_volume = use_concat_volume
         self.full_res_supervision, self.stacked_features, self.remat = full_res_supervision, stacked_features, remat
         c = base_channels
@@ -149,32 +162,39 @@ class DCANet(nn.Module):
             self.add_module(f"classif{i}", _classifier(c))
         self.prop = PropagationNet(64, scale=4)
 
-    def _cva(self, i: int, x: torch.Tensor, post_residual):
+    def _cva(self, i: int, x: torch.Tensor, post_residual, shard=None):
         block = getattr(self, f"cva{i}")
         if self.remat and self.training and torch.is_grad_enabled():
             return checkpoint(block, x, post_residual, use_reentrant=False, context_fn=_remat_contexts)
-        return block(x, post_residual)
+        return block(x, post_residual, shard)
 
-    def _head(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        return getattr(self, f"classif{i}")(x)[:, 0]
+    def _head(self, i: int, x: torch.Tensor, shard=None) -> torch.Tensor:
+        cost = run_sharded(getattr(self, f"classif{i}"), x, shard)[:, 0]
+        return cost if shard is None else shard.gather(cost, 1)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
         """left, right: (B, 3, H, W) with H, W multiples of 16."""
         d4 = self.maxdisp // 4
+        shard = None if self.constrain_volume is None else self.constrain_volume.split(d4)
+        if shard is not None and self.training:
+            raise NotImplementedError(
+                "a disparity-sharded forward is eval only; disparity-sharded training is ROADMAP Queue 1 item 4"
+            )
         feats_l, feats_r = stereo_features(self.feature_extraction, left, right, self.stacked_features)
         guidance = self.guidance(left)
-        volume = cost_volume(feats_l, feats_r, d4, self.num_groups, self.use_concat_volume)
+        volume = cost_volume(feats_l, feats_r, d4, self.num_groups, self.use_concat_volume,
+                             None if shard is None else shard.planes)
 
-        cost0 = self.dres0(volume)
-        cost0 = self.dres1(cost0) + cost0
+        cost0 = run_sharded(self.dres0, volume, shard)
+        cost0 = run_sharded(self.dres1, cost0, shard) + cost0
 
         out, outs, cva_logits = cost0, [cost0], []
         for i in range(1, self.num_cva + 1):
-            logits, out = self._cva(i, out, cost0 if i == 1 else None)
+            logits, out = self._cva(i, out, cost0 if i == 1 else None, shard)
             cva_logits.append(logits)
             outs.append(out)
 
-        final_cost = self._head(self.num_cva, out)
+        final_cost = self._head(self.num_cva, out, shard)
         with torch.autocast(device_type=final_cost.device.type, enabled=False):
             final_prob = _softmax_f32(final_cost)
             pred_coarse = disparity_regression(final_prob, d4)

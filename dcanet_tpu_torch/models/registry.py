@@ -4,7 +4,10 @@ count and without the concat volume, the plain GwcNet baselines and the
 GANet-style network.
 
 `remat` belongs to the DCANet family; the other families raise a ValueError
-that names the model when it is asked for."""
+that names the model when it is asked for. So does `constrain_volume` (a
+disparity-sharding plan, `parallel.make_disp_constraint`): the other
+families' constructors do not take it and raise a TypeError, as their flax
+modules do."""
 
 from __future__ import annotations
 

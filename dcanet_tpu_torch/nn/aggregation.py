@@ -12,12 +12,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dcanet_tpu_torch.nn.layers import ConvBN, ConvBNAct, batch_norm, torch_conv_transpose3d
+from dcanet_tpu_torch.nn.layers import ConvBN, ConvBNAct, batch_norm, run_sharded, torch_conv_transpose3d
 
 
 class MultiAggregation(nn.Module):
     """conv(s2) -> conv -> deconv(2x)+BN, residual 1x1x1 redir, relu, then the
-    optional `post_residual` (the model-level `cost0 + agg`)."""
+    optional `post_residual` (the model-level `cost0 + agg`). With a
+    `DispShard` (parallel/sharding.py) on this rank's planes: conv1, conv2
+    and the deconv on halos, redir plane-local."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -27,8 +29,10 @@ class MultiAggregation(nn.Module):
         self.conv3 = nn.Sequential(torch_conv_transpose3d(2 * c, c), batch_norm(c, 3))
         self.redir = ConvBN(c, c, 1, 1, 0, dims=3)
 
-    def forward(self, x: torch.Tensor, post_residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        y = self.conv3(self.conv2(self.conv1(x)))
+    def forward(self, x: torch.Tensor, post_residual: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
+        y = x
+        for conv in (self.conv1, self.conv2, self.conv3):
+            y = run_sharded(conv, y, shard)
         out = torch.relu(y + self.redir(x))
         return out if post_residual is None else out + post_residual
 

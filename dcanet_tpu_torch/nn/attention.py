@@ -35,6 +35,11 @@ class DisparityAttentionBlock(nn.Module):
     """Cross-attention along the disparity axis, per pixel.
 
     query_feats, key_feats: (B, C, D, H, W) -> (B, out_channels, D, H, W).
+    With a `DispShard` (parallel/sharding.py) both are this rank's planes
+    of a D-sharded volume: the queries stay on them, and the keys and values
+    cover every plane. The key features are gathered (one exchange of C
+    channels) and every rank projects them whole; gathering the projected K
+    and V instead would move twice the bytes to save three pointwise convs.
     """
 
     def __init__(
@@ -50,8 +55,11 @@ class DisparityAttentionBlock(nn.Module):
         self.value_project = Projection(in_channels, transform_channels, value_out_num_convs)
         self.out_project = Projection(transform_channels, out_channels, value_out_num_convs)
 
-    def forward(self, query_feats: torch.Tensor, key_feats: torch.Tensor) -> torch.Tensor:
+    def forward(self, query_feats: torch.Tensor, key_feats: torch.Tensor, shard=None) -> torch.Tensor:
+        if shard is not None:
+            key_feats = shard.gather(key_feats, 2)
         b, _, d, h, w = query_feats.shape
+        dk = key_feats.shape[2]
         hd = self.head_dim
         # The query is scaled BEFORE the dot, as the JAX package does: the
         # product stays finite at magnitudes where softmax(sim * scale) would not.
@@ -61,8 +69,8 @@ class DisparityAttentionBlock(nn.Module):
         tc = query.shape[1]
         # channel = head * head_dim + e: contiguous head blocks
         q = query.view(b, tc // hd, hd, d, h, w)
-        k = key.view(b, tc // hd, hd, d, h, w)
-        v = value.view(b, tc // hd, hd, d, h, w)
+        k = key.view(b, tc // hd, hd, dk, h, w)
+        v = value.view(b, tc // hd, hd, dk, h, w)
         sim = torch.einsum("bneihw,bnejhw->bnhwij", q, k)
         attn = sim.softmax(dim=-1)  # over the key disparity j
         ctx = torch.einsum("bnhwij,bnejhw->bneihw", attn.to(v.dtype), v)

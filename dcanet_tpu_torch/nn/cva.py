@@ -10,6 +10,12 @@ Port of dcanet_tpu/nn/cva.py, non-packed branch:
     of concat(augmented, input), and MultiAggregation.
 
 Cost volumes are (B, C, D, H, W); classification logits (B, D, H, W).
+
+With a `DispShard` (parallel/sharding.py) a CVA block runs on this rank's
+planes of a D-sharded volume: the pool, the 3x3x3 convs, the resize and
+MultiAggregation on halos (`nn/layers.py::run_sharded`), the class logits
+gathered whole for the SLC pooling and returned whole, the attention's keys
+over every plane.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from torch import nn
 
 from dcanet_tpu_torch.nn.aggregation import MultiAggregation
 from dcanet_tpu_torch.nn.attention import DisparityAttentionBlock
-from dcanet_tpu_torch.nn.layers import ConvBN, avg_pool3d_torch
+from dcanet_tpu_torch.nn.layers import ConvBN, avg_pool3d_torch, run_sharded
 from dcanet_tpu_torch.ops.slc import slc_pool
 from dcanet_tpu_torch.ops.upsample import resize_trilinear
 
@@ -31,9 +37,10 @@ class SemanticLevelContext(nn.Module):
         super().__init__()
         self.cross_attention = DisparityAttentionBlock(feats_channels, transform_channels, feats_channels)
 
-    def forward(self, x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-        """x: (B, C, D, H, W) cost volume; logits: (B, D, H, W) class logits."""
-        return self.cross_attention(x, slc_pool(x, logits) + x)
+    def forward(self, x: torch.Tensor, logits: torch.Tensor, shard=None) -> torch.Tensor:
+        """x: (B, C, D, H, W) cost volume; logits: (B, D, H, W) class logits
+        (with a `shard`, x is this rank's planes and the logits are whole)."""
+        return self.cross_attention(x, slc_pool(x, logits, shard) + x, shard)
 
 
 class CVA(nn.Module):
@@ -50,12 +57,15 @@ class CVA(nn.Module):
         self.cost_agg = MultiAggregation(c)
 
     def forward(
-        self, cost_volume: torch.Tensor, post_residual: Optional[torch.Tensor] = None
+        self, cost_volume: torch.Tensor, post_residual: Optional[torch.Tensor] = None, shard=None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (class_logits (B, D/2, H/2, W/2), aggregated cost
-        (B, C, D, H, W)); D, H and W must be even."""
-        cost_down = self.downsample(cost_volume)
-        logits = self.classify(cost_down)[:, 0]
-        augmented = resize_trilinear(self.slc_net(cost_down, logits), 2)
+        (B, C, D, H, W)); D, H and W must be even. With a `shard` the volumes
+        are this rank's planes and the logits whole."""
+        cost_down = run_sharded(self.downsample, cost_volume, shard)
+        logits = run_sharded(self.classify, cost_down, shard)[:, 0]
+        if shard is not None:
+            logits = shard.gather(logits, 1)
+        augmented = resize_trilinear(self.slc_net(cost_down, logits, shard), 2, shard)
         fused = self.fuse(torch.cat([augmented.to(cost_volume.dtype), cost_volume], dim=1))
-        return logits, self.cost_agg(fused, post_residual)
+        return logits, self.cost_agg(fused, post_residual, shard)

@@ -270,3 +270,61 @@ def avg_pool3d_torch() -> nn.AvgPool3d:
     """AvgPool3d(3, stride 2, padding 1), count_include_pad=True: the JAX
     package's AvgPool3dTorch."""
     return nn.AvgPool3d(3, 2, 1, count_include_pad=True)
+
+
+# ---- the ops that mix planes along D, on a rank's slab of a D-sharded volume ----
+#
+# Each runs the unchanged module's weights on the slab padded along D by
+# `shard.halo` (parallel/sharding.py), with no D padding in the call and the
+# H/W padding as the module has it. A rank holds the 1/4-resolution planes
+# [2 p0, 2 p1) and the half-resolution planes [p0, p1).
+
+
+def _conv3d_sharded(conv: nn.Conv3d, x: torch.Tensor, shard) -> torch.Tensor:
+    """A 3x3x3 pad-1 conv: stride 1 takes one plane each side; stride 2 (out
+    plane o reads in planes 2o - 1 .. 2o + 1) one plane below."""
+    if conv.kernel_size[0] != 3 or conv.padding[0] != 1 or conv.dilation[0] != 1 or conv.stride[0] not in (1, 2):
+        raise ValueError(f"no D-sharded form of {conv}")
+    xp = shard.halo(x, 1, 1 if conv.stride[0] == 1 else 0)
+    return F.conv3d(xp, conv.weight, conv.bias, conv.stride, (0,) + tuple(conv.padding[1:]), conv.dilation, conv.groups)
+
+
+def _avg_pool3d_sharded(pool: nn.AvgPool3d, x: torch.Tensor, shard) -> torch.Tensor:
+    """AvgPool3d(3, s2, p1), count_include_pad: out plane o averages in planes
+    2o - 1 .. 2o + 1, one plane below; the zeros below the volume's first
+    plane count in the divisor, as the unsharded padding's do."""
+    if (pool.kernel_size, pool.stride, pool.padding, pool.count_include_pad, pool.ceil_mode) != (3, 2, 1, True, False):
+        raise ValueError(f"no D-sharded form of {pool}")
+    return F.avg_pool3d(shard.halo(x, 1, 0), 3, 2, (0, 1, 1), count_include_pad=True)
+
+
+def _conv_transpose3d_sharded(deconv: nn.ConvTranspose3d, x: torch.Tensor, shard) -> torch.Tensor:
+    """The k3 s2 p1 op1 transposed conv: out planes [2 p0, 2 p1) read in
+    planes [p0, p1], one plane above. With no D padding in the call, out
+    plane j of the padded slab is global plane 2 p0 + j - 1."""
+    if (deconv.kernel_size[0], deconv.stride[0], deconv.padding[0], deconv.output_padding[0]) != (3, 2, 1, 1):
+        raise ValueError(f"no D-sharded form of {deconv}")
+    y = F.conv_transpose3d(shard.halo(x, 0, 1), deconv.weight, deconv.bias, deconv.stride,
+                           (0,) + tuple(deconv.padding[1:]), (0,) + tuple(deconv.output_padding[1:]),
+                           deconv.groups, deconv.dilation)
+    return y.narrow(2, 1, 2 * x.shape[2])
+
+
+def run_sharded(module: nn.Module, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """module(x), or with a `DispShard` its D-sharded form on this rank's slab:
+    Sequentials element by element, the 3x3x3 convs, the CVA's pool and the
+    transposed conv on halos; 1x1x1 convs, eval BatchNorm and activations
+    are plane-local and run as they are."""
+    if shard is None:
+        return module(x)
+    if isinstance(module, nn.Sequential):
+        for m in module:
+            x = run_sharded(m, x, shard)
+        return x
+    if isinstance(module, nn.Conv3d) and module.kernel_size[0] > 1:
+        return _conv3d_sharded(module, x, shard)
+    if isinstance(module, nn.AvgPool3d):
+        return _avg_pool3d_sharded(module, x, shard)
+    if isinstance(module, nn.ConvTranspose3d):
+        return _conv_transpose3d_sharded(module, x, shard)
+    return module(x)

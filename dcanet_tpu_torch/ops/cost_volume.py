@@ -11,14 +11,29 @@ Semantics (the reference's build_gwc_volume / build_concat_volume):
     with zeros for the occluded left margin w < d, and all-zero planes d >= W.
 
 `build_gwc_volume` is the plain version of the CUDA kernel in
-`dcanet_tpu_torch/kernels/gwc.py`, which the model calls.
+`dcanet_tpu_torch/kernels/gwc.py`, which the model calls. Both builders take
+`planes=(d_lo, d_hi)`: the planes d_lo <= d < d_hi alone, plane k holding
+disparity d_lo + k (the disparity-sharded eval's share of a rank).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from dcanet_tpu_torch.ops.precision import at_least_f32
+
+Planes = Optional[Tuple[int, int]]
+
+
+def plane_range(maxdisp: int, planes: Planes) -> Tuple[int, int]:
+    """(d_lo, d_hi) of a volume of `maxdisp` planes, the whole volume for
+    None; raises unless 0 <= d_lo < d_hi <= maxdisp."""
+    d_lo, d_hi = (0, maxdisp) if planes is None else (int(planes[0]), int(planes[1]))
+    if not 0 <= d_lo < d_hi <= maxdisp:
+        raise ValueError(f"plane range {planes} not inside [0, {maxdisp})")
+    return d_lo, d_hi
 
 
 def groupwise_correlation(fea1: torch.Tensor, fea2: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -31,28 +46,33 @@ def groupwise_correlation(fea1: torch.Tensor, fea2: torch.Tensor, num_groups: in
 
 
 def build_gwc_volume(
-    left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
+    left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int, planes: Planes = None
 ) -> torch.Tensor:
-    """Grouped-correlation cost volume, (B, C, H, W) x2 -> (B, G, D, H, W).
+    """Grouped-correlation cost volume, (B, C, H, W) x2 -> (B, G, D, H, W),
+    or its planes [d_lo, d_hi) with `planes`.
 
     Computes in float32 and returns the input dtype, as the CUDA kernel does
     (float64 input, which the kernel refuses, in float64).
     """
     b, c, h, w = left.shape
+    d_lo, d_hi = plane_range(maxdisp, planes)
     lf, rf = at_least_f32(left), at_least_f32(right)
-    out = torch.zeros((b, num_groups, maxdisp, h, w), dtype=lf.dtype, device=left.device)
-    for d in range(min(maxdisp, w)):
-        out[:, :, d, :, d:] = groupwise_correlation(lf[..., d:], rf[..., : w - d], num_groups)
+    out = torch.zeros((b, num_groups, d_hi - d_lo, h, w), dtype=lf.dtype, device=left.device)
+    for d in range(d_lo, min(d_hi, w)):
+        out[:, :, d - d_lo, :, d:] = groupwise_correlation(lf[..., d:], rf[..., : w - d], num_groups)
     return out.to(left.dtype)
 
 
-def build_concat_volume(left: torch.Tensor, right: torch.Tensor, maxdisp: int) -> torch.Tensor:
-    """Concatenation cost volume, (B, C, H, W) x2 -> (B, 2C, D, H, W): channel
-    block [:C] holds the zero-margined left feature, [C:] the d-shifted right
-    feature."""
+def build_concat_volume(
+    left: torch.Tensor, right: torch.Tensor, maxdisp: int, planes: Planes = None
+) -> torch.Tensor:
+    """Concatenation cost volume, (B, C, H, W) x2 -> (B, 2C, D, H, W), or its
+    planes [d_lo, d_hi) with `planes`: channel block [:C] holds the
+    zero-margined left feature, [C:] the d-shifted right feature."""
     b, c, h, w = left.shape
-    out = left.new_zeros((b, 2 * c, maxdisp, h, w))
-    for d in range(min(maxdisp, w)):
-        out[:, :c, d, :, d:] = left[..., d:]
-        out[:, c:, d, :, d:] = right[..., : w - d]
+    d_lo, d_hi = plane_range(maxdisp, planes)
+    out = left.new_zeros((b, 2 * c, d_hi - d_lo, h, w))
+    for d in range(d_lo, min(d_hi, w)):
+        out[:, :c, d - d_lo, :, d:] = left[..., d:]
+        out[:, c:, d - d_lo, :, d:] = right[..., : w - d]
     return out

@@ -22,13 +22,22 @@ import torch.nn.functional as F
 from dcanet_tpu_torch.ops.precision import at_least_f32
 
 
-def slc_pool(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def slc_pool(x: torch.Tensor, logits: torch.Tensor, shard=None) -> torch.Tensor:
     """x: (B, C, D, H, W) cost-volume features; logits: (B, D, H, W) raw
     classification logits over D. Returns (B, C, D, H, W), zero except at each
     pixel's argmax plane, where it holds the pixel's feature scaled by its
-    within-class softmax weight."""
-    b, c, d, h, w = x.shape
-    if logits.shape != (b, d, h, w):
+    within-class softmax weight.
+
+    With a `DispShard` (parallel/sharding.py), x is this rank's planes
+    [lo, hi) of D and `logits` the whole D on every rank: each rank takes
+    the same softmax, argmax and class statistics, and returns its planes.
+    A pixel's output is non-zero only at its argmax plane, and the rank
+    that holds that plane holds the pixel's feature there, so nothing is
+    exchanged."""
+    b, c, planes, h, w = x.shape
+    d = logits.shape[1] if logits.dim() == 4 else -1
+    lo, hi = (0, d) if shard is None else shard.span(d)
+    if logits.shape != (b, d, h, w) or hi - lo != planes:
         raise ValueError(f"logits {tuple(logits.shape)} do not fit volume {tuple(x.shape)}")
 
     p = at_least_f32(logits).softmax(dim=1)
@@ -50,7 +59,7 @@ def slc_pool(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     pix_sum = (onehot * class_sum[:, None, None, :]).sum(dim=-1)
     weight = e / pix_sum  # (B, H, W)
 
-    mask = onehot.permute(0, 3, 1, 2)[:, None]  # (B, 1, D, H, W)
-    f = (x * mask.to(x.dtype)).sum(dim=2)  # (B, C, H, W): feature at the argmax plane
+    mask = onehot[..., lo:hi].permute(0, 3, 1, 2)[:, None]  # (B, 1, D, H, W): this rank's planes
+    f = (x * mask.to(x.dtype)).sum(dim=2)  # (B, C, H, W): feature at the argmax plane (0 off this rank)
     scaled = (f.to(weight.dtype) * weight[:, None]).to(x.dtype)
     return mask.to(x.dtype) * scaled[:, :, None]

@@ -13,15 +13,26 @@ import torch
 import torch.nn.functional as F
 
 
-def resize_trilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
+def resize_trilinear(x: torch.Tensor, scale: int, shard=None) -> torch.Tensor:
     """Trilinear upsampling of the (D, H, W) axes by `scale`.
 
-    x: (B, D, H, W) or (B, C, D, H, W).
+    x: (B, D, H, W) or (B, C, D, H, W). With a `DispShard`
+    (parallel/sharding.py), x is this rank's half-resolution planes
+    [p0, p1) of a D-sharded volume and the result its planes [2 p0, 2 p1)
+    (scale 2): output plane j samples input planes j/2 - 1/4 on either
+    side, so the slab takes one plane each side, the edge plane repeated at
+    the volume's ends (the clamp of the unsharded resize), and the middle
+    2 (p1 - p0) output planes of the padded slab are this rank's.
     """
     if x.dim() == 4:
-        return resize_trilinear(x[:, None], scale)[:, 0]
+        return resize_trilinear(x[:, None], scale, shard)[:, 0]
     if x.dim() != 5:
         raise ValueError(f"expected rank 4/5, got {tuple(x.shape)}")
+    if shard is not None:
+        if scale != 2:
+            raise ValueError(f"the D-sharded resize is 2x, got {scale}x")
+        m = x.shape[2]
+        return resize_trilinear(shard.halo(x, 1, 1, fill="edge"), 2).narrow(2, 2, 2 * m)
     size = tuple(s * scale for s in x.shape[2:])
     return F.interpolate(x, size=size, mode="trilinear", align_corners=False)
 

@@ -1,10 +1,13 @@
-"""The data-parallel mesh (port of dcanet_tpu/parallel/mesh.py).
+"""The (data, disp) mesh of the processes (port of dcanet_tpu/parallel/mesh.py).
 
 The JAX package lays a (data, disp) grid over its devices and lets XLA
-shard the batch over `data`. Here one process drives one card, so the data
-axis is the process group itself: rank r holds rows [r * b, (r + 1) * b) of
-a global batch of n_data * b rows, and the disp axis is 1 (disparity-axis
-sharding is ROADMAP Queue 1 item 3).
+shard the batch over `data` and the cost volume's disparity axis over
+`disp`. Here one process drives one card, and the grid is laid over the
+process group as the JAX package lays it over its devices: process
+p = data * n_disp + disp. Data-parallel training (n_disp = 1): rank r holds
+rows [r * b, (r + 1) * b) of a global batch of n_data * b rows. Disparity-
+sharded eval (n_data = 1): rank r holds its planes of every volume
+(`parallel/sharding.py`).
 """
 
 from __future__ import annotations
@@ -21,29 +24,30 @@ from dcanet_tpu_torch.parallel.distributed import process_count, process_index
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The grid's extents and this process's place on the data axis."""
+    """The grid's extents and this process's place on the data axis
+    (`rank`) and on the disp axis (`disp_rank`)."""
 
     n_data: int
     n_disp: int
     rank: int
+    disp_rank: int = 0
 
 
 def make_mesh(n_data: Optional[int] = None, n_disp: int = 1) -> Mesh:
-    """The (data, disp) grid of the ranks. `n_data` defaults to the number of
-    processes and must equal it (one process per card, no idle one);
-    `n_disp` > 1 is not ported yet."""
-    if n_disp > 1:
-        raise NotImplementedError(
-            f"n_disp_shards={n_disp}: disparity-axis sharding is not ported yet (ROADMAP Queue 1 item 3)"
-        )
+    """The (data, disp) grid of the ranks: n_data x n_disp must equal the
+    number of processes (one process per card, no idle one). `n_data`
+    defaults to the processes over n_disp."""
     world = process_count()
-    n_data = world if n_data is None else n_data
-    if n_disp < 1 or n_data != world:
+    axis = "data axis" if n_disp == 1 else "disp axis" if n_data in (None, 1) else "data x disp grid"
+    asked = n_data
+    n_data = world // max(n_disp, 1) if n_data is None else n_data
+    if n_disp < 1 or n_data < 1 or n_data * n_disp != world:
         raise ValueError(
-            f"mesh data={n_data} disp={n_disp} over {world} process(es): the data axis must equal the number "
-            "of processes (one per card) and disp must be 1"
+            f"mesh data={asked} disp={n_disp} over {world} process(es): the {axis} must equal the number "
+            "of processes (one per card)"
         )
-    return Mesh(n_data=n_data, n_disp=n_disp, rank=process_index())
+    p = process_index()
+    return Mesh(n_data=n_data, n_disp=n_disp, rank=p // n_disp, disp_rank=p % n_disp)
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:

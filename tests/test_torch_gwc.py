@@ -92,6 +92,8 @@ def test_plain_gwc_bf16_rounds_once(rng):
         ("unsupported_channels_per_group", ValueError),
         ("maxdisp_zero", ValueError),
         ("cpu_tensors", ValueError),
+        ("empty_plane_range", ValueError),
+        ("plane_range_past_maxdisp", ValueError),
     ],
 )
 def test_wrapper_rejects_bad_inputs(case, exc):
@@ -106,6 +108,8 @@ def test_wrapper_rejects_bad_inputs(case, exc):
         "unsupported_channels_per_group": (torch.zeros(1, 12, 4, 8), torch.zeros(1, 12, 4, 8), 4, 4),
         "maxdisp_zero": (x, x, 0, 4),
         "cpu_tensors": (x, x, 4, 4),
+        "empty_plane_range": (x, x, 4, 4, (2, 2)),
+        "plane_range_past_maxdisp": (x, x, 4, 4, (2, 5)),
     }[case]
     before = G.LAUNCHES
     with pytest.raises(exc):
@@ -140,20 +144,25 @@ def _forward_tiles():
     return tiles
 
 
-def _emulate_forward(left, right, maxdisp, groups, tw, v, nd, slices):
+def _emulate_forward(left, right, maxdisp, groups, tw, v, nd, slices, d_lo=0):
     """The forward kernel of csrc/gwc.cu in numpy at f32: block by block
     (b, g, h, W-tile), pass by pass over d, the shared-memory tiles with
     their zero halo, and each thread's strip of R from which its window
-    slides one column per d. Returns the volume (NaN where nothing was
-    written) and the number of writes per element."""
+    slides one column per d. `maxdisp` planes from disparity `d_lo` on: the
+    passes start at d_lo rounded down to a multiple of kV, the planes below
+    d_lo are not stored. Returns the volume (NaN where nothing was written)
+    and the number of writes per element."""
     b_, c_, h_, w_ = left.shape
     cpg, ncg, dpass = c_ // groups, tw // v, slices * nd
     cg, s = (a.ravel() for a in np.meshgrid(np.arange(ncg), np.arange(slices), indexing="ij"))
     k, vv = np.arange(nd)[:, None], np.arange(v)[None, :]
     out = np.full((b_, groups, maxdisp, h_, w_), np.nan, np.float32)
     writes = np.zeros(out.shape, np.int64)
+    off = d_lo % v
+    dbase, total = d_lo - off, maxdisp + off
 
     def staged(rows, first, n):  # columns [first, first + n) of each row, zero outside [0, W)
+        assert first % v == 0, f"a staged run at column {first} is not aligned to {v} (16-byte copies)"
         cols = first + np.arange(n)
         return np.where((cols >= 0) & (cols < w_), rows[:, np.clip(cols, 0, w_ - 1)], np.float32(0))
 
@@ -163,8 +172,8 @@ def _emulate_forward(left, right, maxdisp, groups, tw, v, nd, slices):
             for h in range(h_):
                 for w0 in range(0, w_, tw):
                     ls = staged(left[b, chans, h], w0, tw)  # (cpg, kTW)
-                    for dc in range(0, maxdisp, dpass):
-                        rs = staged(right[b, chans, h], w0 - dc - dpass, tw + dpass)
+                    for dc in range(0, total, dpass):
+                        rs = staged(right[b, chans, h], w0 - dbase - dc - dpass, tw + dpass)
                         wv, d0 = w0 + cg * v, dc + s * nd
                         lwin = ls[:, (cg * v)[:, None] + np.arange(v)]  # (cpg, threads, kV)
                         strip = rs[:, (cg * v + dpass - (s + 1) * nd)[:, None] + np.arange(nd + v)]
@@ -174,10 +183,11 @@ def _emulate_forward(left, right, maxdisp, groups, tw, v, nd, slices):
                             acc = acc + lwin[c][:, None, :] * rwin[c]
                         d = (d0[:, None, None] + k).repeat(v, 2)
                         w = (wv[:, None, None] + vv).repeat(nd, 1)
-                        live = (wv < w_)[:, None, None] & (d0 < maxdisp)[:, None, None] & (d < maxdisp) & (w < w_)
-                        val = np.where(w >= d, acc / np.float32(cpg), np.float32(0))
-                        out[b, g, d[live], h, w[live]] = val[live]
-                        np.add.at(writes, (b, g, d[live], h, w[live]), 1)
+                        live = (wv < w_)[:, None, None] & (d0 < total)[:, None, None] & (d < total) & (d >= off)
+                        live &= w < w_
+                        val = np.where(w >= dbase + d, acc / np.float32(cpg), np.float32(0))
+                        out[b, g, d[live] - off, h, w[live]] = val[live]
+                        np.add.at(writes, (b, g, d[live] - off, h, w[live]), 1)
     return out, writes
 
 
@@ -198,6 +208,30 @@ def test_forward_index_map_emulation(tile, shape, groups, maxdisp):
     got, writes = _emulate_forward(left, right, maxdisp, groups, tw, v, nd, slices)
     assert (writes == 1).all(), f"{int((writes == 0).sum())} elements unwritten, {int((writes > 1).sum())} twice"
     want = G.gwc_volume_reference(torch.from_numpy(left), torch.from_numpy(right), maxdisp, groups)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("tile", ["float", "__nv_bfloat16"])
+@pytest.mark.parametrize(
+    "shape,groups,maxdisp,planes",
+    [
+        ((1, 32, 2, 64), 4, 48, (24, 48)),  # the second of 2 ranks at D = 48
+        ((1, 16, 2, 45), 4, 60, (54, 60)),  # the last of 8 ranks at D = 60 (54 % kV != 0), past W = 45
+        ((1, 16, 2, 72), 4, 60, (30, 38)),  # a middle rank at D = 60 (30 % kV != 0), inside W
+        ((2, 8, 2, 150), 8, 140, (6, 130)),  # CPG = 1, several passes over d, D % pass != 0
+        ((1, 32, 3, 24), 4, 8, (2, 6)),  # D < one pass
+    ],
+)
+def test_forward_plane_range_index_map_emulation(tile, shape, groups, maxdisp, planes):
+    """A plane range: the kernel's passes start at d_lo, the staged window of
+    R shifts with them, and the output holds planes - d_lo."""
+    tw, v, nd, slices = _forward_tiles()[tile]
+    rng = np.random.default_rng(6)
+    left, right = _features(rng, shape)
+    d_lo, d_hi = planes
+    got, writes = _emulate_forward(left, right, d_hi - d_lo, groups, tw, v, nd, slices, d_lo=d_lo)
+    assert (writes == 1).all(), f"{int((writes == 0).sum())} elements unwritten, {int((writes > 1).sum())} twice"
+    want = G.gwc_volume_reference(torch.from_numpy(left), torch.from_numpy(right), maxdisp, groups, planes)
     np.testing.assert_allclose(got, want.numpy(), atol=1e-6, rtol=0)
 
 
@@ -224,6 +258,29 @@ def test_cuda_kernel_matches_plain_version(dtype):
         want = G.gwc_volume_reference(left, right, maxdisp, groups)
         rtol = 0.0 if dt == torch.float32 else 2.0**-7
         torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_plane_ranges_match_plain_version(dtype):
+    """Plane ranges (the disparity-sharded eval's), one launch each; the
+    backward of a range raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(1)
+    dt = getattr(torch, dtype)
+    for shape, groups, maxdisp, planes in [((1, 320, 4, 256), 40, 48, (24, 48)), ((1, 16, 5, 45), 4, 60, (54, 60)),
+                                           ((2, 8, 2, 150), 8, 140, (6, 130)), ((1, 32, 3, 24), 4, 8, (2, 6))]:
+        left, right = (torch.from_numpy(a).cuda().to(dt) for a in _features(rng, shape))
+        before = G.LAUNCHES
+        got = G.gwc_volume(left, right, maxdisp, groups, planes)
+        assert G.LAUNCHES == before + 1
+        want = G.gwc_volume_reference(left, right, maxdisp, groups, planes)
+        rtol = 0.0 if dt == torch.float32 else 2.0**-7
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=rtol)
+    left.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        G.gwc_volume(left, right, maxdisp, groups, planes).sum().backward()
 
 
 # ---- backward ----

@@ -398,7 +398,7 @@ def test_all_reduce_sum_gradient_is_summed(steps):
 def test_mesh_and_shard_batch():
     mesh = make_mesh()
     assert (mesh.n_data, mesh.n_disp, mesh.rank) == (1, 1, 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="disp axis must equal the number of processes"):
         make_mesh(n_disp=2)
     with pytest.raises(ValueError, match="must equal the number of processes"):
         make_mesh(n_data=2)
@@ -767,7 +767,7 @@ def test_cli_train_errors_over_two_ranks(cli_runs):
 @pytest.mark.parametrize("cmd,extra,error", [
     ("train", ["--n-disp-shards", "2"], NotImplementedError),
     ("train", ["--n-data-shards", "2"], ValueError),
-    ("eval", ["--n-disp-shards", "2"], NotImplementedError),
+    ("eval", ["--n-disp-shards", "2"], ValueError),  # one process, a disp axis of 2
 ])
 def test_cli_parallel_flags_refused_in_one_process(tmp_path, cmd, extra, error):
     with pytest.raises(error):
