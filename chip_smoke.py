@@ -18,7 +18,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      [54, 60) of D = 60 at a half-resolution Middlebury pair, a range past
      W, each timed beside its bound and the whole ETH3D volume; for the
      backward also D = 140, 2 and 16 channels per group, 32 on a full tile,
-     the Middlebury shape and a batch of 12), TF32
+     the Middlebury shape and a batch of 12, and plane ranges against the
+     plain version's range backward with NaN at the occluded grad entries:
+     [0, 24), [24, 48), [16, 32) and [0, 48) of the train shape, [54, 60)
+     and [0, 8) of the Middlebury train shape, a range across W and one
+     past it, each timed beside its bound), TF32
      off: the gwc volume, its backward (against autograd through the plain
      version), conv3d (with scale, bias and ReLU) and conv3d_fast's
      backward; CUDA-event times of kernel, plain version and, for conv3d,
@@ -126,7 +130,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      process's (time-shared); then one float64 forward at 256x512, the gwc
      volume by its plain version, 2 ranks against one process: disparity
      1e-9 px, class logits 1e-10 scaled.
- 12. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+ 12. disp_train: disparity-sharded `cli train --n-disp-shards 2` over two
+     worker processes that share the card under gloo (as phase 10),
+     DCANet(num_cva=3, maxdisp=192), the SceneFlow preset's 256x512 crop,
+     f32 with TF32 off, `--batch-size 1` (both ranks load the same pair) on
+     a synthetic tree of 4 pairs at 540x960, 2 epochs and a resumed one,
+     beside one process on the same tree: finite losses, one gwc forward
+     and one backward launch per rank per step, each of 24 planes (the
+     range backward; the counts of this phase, `disp_train`), parameters,
+     BatchNorm buffers and Adam state bit-equal across the ranks, rank 1
+     writing nothing, ms/step and each rank's peak memory beside one
+     process's; then one step from the seeded weights on phase 10's global
+     batch of 2 (whole on each rank), 2 ranks against one process, cuDNN's
+     deterministic algorithms: in f32 (loss terms rtol 1e-4, grad norm
+     1e-3, BatchNorm statistics 1e-4 scaled) and in float64, the gwc volume
+     by its plain version (loss terms 1e-7, grad norm 1e-6, statistics
+     1e-10 scaled, each parameter's gradient 1e-7 relative in L2); and the
+     step alone, one process against 2 ranks time-sharing the card.
+ 13. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
 `--phases cards`, a manual measurement outside the smoke's phases (never run
@@ -136,7 +157,9 @@ it, one process per card with the DCANET_* variables (NCCL), on 1, 2, 4,
 against one card, and the 2-card first step's loss terms against one card
 at batch 2; then `cli eval --dataset eth3d --n-disp-shards N` on N = 1, 2,
 4, ... cards the same way, f32 and bf16: ms/pair and the metrics against
-one card.
+one card. Between the two, `cli train --n-disp-shards 2` on 2 cards and on
+a data=2 x disp=2 grid of 4: ms/step, each card's peak memory, the first
+step's loss against one card.
 
 `--phases` runs a subset (for iterating on one part); the summary lines are
 printed only for the full run.
@@ -189,6 +212,22 @@ GWC_RANGES = (  # name, features, groups, D, planes
     ("middlebury [54,60)", MIDDLEBURY_EVAL_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (54, 60)),
     ("past W [8,12)", (2, 16, 5, 7), 4, 12, (8, 12)),
 )
+# the gwc backward's plane ranges, the shares of the disparity-sharded train
+# step's ranks: the SceneFlow train shape (D = 48; 2 ranks take [0, 24) and
+# [24, 48), the middle one of 3 [16, 32); the whole range by the range
+# entry), the Middlebury train shape (D = 60 on 8 ranks: the last [54, 60),
+# 54 % kND != 0, and the first [0, 8)), a range across W and one past it;
+# each timed
+GWC_BWD_RANGES = (  # name, features, groups, D, planes
+    ("train [0,24)", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, (0, 24)),
+    ("train [24,48)", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, (24, 48)),
+    ("train [16,32)", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, (16, 32)),
+    ("train [0,48)", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, (0, 48)),
+    ("middlebury [54,60)", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (54, 60)),
+    ("middlebury [0,8)", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (0, 8)),
+    ("across W [40,52)", (1, 16, 5, 45), 4, 60, (40, 52)),
+    ("past W [8,12)", (2, 16, 5, 7), 4, 12, (8, 12)),
+)
 # the conv3d kernel's own path: tools/bench_conv3d.py::run_pallas's shapes, NCDHW
 CONV_SHAPE = (1, 32, 48, 96, 312)
 CONV_SHAPE_64 = (1, 64, 48, 96, 312)
@@ -228,6 +267,13 @@ CARDS_EVAL_PAIRS = 8
 # at DISP_F64_HW
 DISP_WORLD, DISP_PAIRS, ETH3D_HW, DISP_F64_HW = 2, 4, (490, 941), (256, 512)
 DISP_TIMEOUT_S = 420
+# disp_train phase: `cli train --n-disp-shards DISP_TRAIN_WORLD` under gloo on
+# the one card, --batch-size 1 (both ranks load the same pair) on
+# DISP_TRAIN_PAIRS synthetic pairs, DISP_TRAIN_EPOCHS epochs and a resumed
+# one, against one process on the same tree; the parity step on phase 10's
+# global batch of 2, whole on each rank
+DISP_TRAIN_WORLD, DISP_TRAIN_PAIRS, DISP_TRAIN_EPOCHS = 2, 4, 2
+DISP_TRAIN_TIMEOUT_S = 420
 
 
 def log(msg: str) -> None:
@@ -333,13 +379,15 @@ def check_close(tag: str, got, want, atol: float, rtol: float) -> float:
     return max_err
 
 
-def gwc_backward_bound_ms(shape, groups: int, maxdisp: int, elem_bytes: int):
-    """Least time for the gwc backward: the entries w >= d of the volume's
-    grad (the occluded w < d reach neither dL nor dR), L and R read once, dL
-    and dR written once; a multiply-add per channel product this input
-    needs, for dL and again for dR."""
+def gwc_backward_bound_ms(shape, groups: int, maxdisp: int, elem_bytes: int, planes=None):
+    """Least time for the gwc backward, or for the backward of its planes
+    [d_lo, d_hi): the entries w >= d of those planes' grad (the occluded
+    w < d reach neither dL nor dR), L and R read once, dL and dR written
+    once; a multiply-add per channel product this input needs, for dL and
+    again for dR."""
     b, c, h, w = shape
-    pairs = sum(w - d for d in range(min(maxdisp, w)))
+    d_lo, d_hi = planes or (0, maxdisp)
+    pairs = sum(w - d for d in range(d_lo, min(d_hi, w)))
     bytes_moved = (4 * b * c * h * w + b * groups * h * pairs) * elem_bytes
     ops = 2 * 2 * b * c * h * pairs
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS
@@ -386,16 +434,35 @@ def library_tf32(x, w, flush) -> dict:
     return dict(ms=ms, max_abs_err=err, tolerance=atol)
 
 
-def _gwc_backward_plain(left, right, grad, d, groups):
+def _gwc_backward_plain(left, right, grad, d, groups, planes=None):
     """The plain backward's graph, built once: autograd through the plain
-    forward; the returned closure runs its backward only."""
+    forward (of the planes `planes`); the returned closure runs its
+    backward only."""
     import torch
 
     from dcanet_tpu_torch.kernels import gwc
 
     l, r = left.detach().requires_grad_(), right.detach().requires_grad_()
-    vol = gwc.gwc_volume_reference(l, r, d, groups)
+    vol = gwc.gwc_volume_reference(l, r, d, groups, planes)
+    if not vol.requires_grad:  # every plane past W: the plain backward's zeros
+        return lambda: gwc.gwc_volume_backward_reference(grad, left, right, d, groups, planes)
     return lambda: torch.autograd.grad(vol, (l, r), grad, retain_graph=True)
+
+
+def _range_grad_shape(shape, groups: int, planes) -> tuple:
+    """The grad of the planes [d_lo, d_hi) of a gwc volume of `shape` features."""
+    b, _, h, w = shape
+    return (b, groups, planes[1] - planes[0], h, w)
+
+
+def occluded_nan(grad, d_lo: int = 0):
+    """`grad` (B, G, D, H, W) of the planes from d_lo on, NaN at the occluded
+    entries w < d."""
+    import torch
+
+    d = d_lo + torch.arange(grad.shape[2], device=grad.device)[:, None, None]
+    w = torch.arange(grad.shape[4], device=grad.device)
+    return torch.where(w < d, torch.full((), float("nan"), dtype=grad.dtype, device=grad.device), grad)
 
 
 def phase_kernels():
@@ -508,6 +575,22 @@ def phase_kernels():
             for part, g_, w_ in (("dL", got[0], want[0]), ("dR", got[1], want[1]))
         )
         del left, right, grad, got, want
+    # the backward of plane ranges against autograd through the plain
+    # version's planes, the grad NaN at the occluded entries w < d (which
+    # must reach neither dL nor dR), the tolerances as above
+    for name, shape, groups, d, planes in GWC_BWD_RANGES:
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            left, right = randn(shape, dtype), randn(shape, dtype)
+            grad = occluded_nan(randn(_range_grad_shape(shape, groups, planes), dtype), planes[0])
+            got = gwc.gwc_volume_backward_cuda(grad, left, right, d, groups, planes)
+            want = gwc.gwc_volume_backward_reference(grad, left, right, d, groups, planes)
+            torch.cuda.synchronize()
+            bwd_errs[f"{name} {tag}"] = max(
+                check_close(f"gwc backward range {name} {tag} {tuple(shape)} G={groups} D={d} {part}", g_, w_,
+                            *bwd_tol(dtype, w_))
+                for part, g_, w_ in (("dL", got[0], want[0]), ("dR", got[1], want[1]))
+            )
+            del left, right, grad, got, want
     torch.cuda.empty_cache()
 
     # conv3d forward. f32: 27*C products summed in another order, so the
@@ -580,7 +663,7 @@ def phase_kernels():
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, device="cuda")  # 256 MB > 50 MB L2
-    timing = {"gwc": {}, "gwc_bwd": {}, "conv3d": {}}
+    timing = {"gwc": {}, "gwc_bwd": {}, "gwc_bwd_range": {}, "conv3d": {}}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         left, right = randn(MAIN_SHAPE, dtype), randn(MAIN_SHAPE, dtype)
         ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
@@ -645,6 +728,21 @@ def phase_kernels():
             log(f"[kernels] gwc range {name} {tag} x{tuple(shape)} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
                 f"ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
             del left, right
+    # the backward's plane ranges (the disparity-sharded train step's
+    # launches) beside their bounds
+    for name, shape, groups, d, planes in GWC_BWD_RANGES:
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            left, right = randn(shape, dtype), randn(shape, dtype)
+            grad = randn(_range_grad_shape(shape, groups, planes), dtype)
+            ms = time_cuda(lambda: gwc.gwc_volume_backward_cuda(grad, left, right, d, groups, planes), 20,
+                           flush=flush)
+            plain_ms = time_cuda(_gwc_backward_plain(left, right, grad, d, groups, planes), 5, flush=flush)
+            bound_ms, bound_by = gwc_backward_bound_ms(shape, groups, d, left.element_size(), planes)
+            timing["gwc_bwd_range"][f"{name} {tag}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                            bound_by=bound_by, library_ms=None)
+            log(f"[kernels] gwc backward range {name} {tag} x{tuple(shape)} D={d}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
+            del left, right, grad
     # the gwc forward at the main shape once more, after everything else: the
     # first f32 timing above has read up to ~15 % above later ones in the
     # same process (not the clock, fresh memory or the host: PERF.md §7)
@@ -1690,10 +1788,11 @@ def _bn_input_ratios(model) -> tuple:
     return ratios, [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, _FlaxStatistics)]
 
 
-def _parity_step(batch: dict, bn_ratios: bool = False) -> dict:
+def _parity_step(batch: dict, bn_ratios: bool = False, mesh=None) -> dict:
     """One f32 train step of the seeded DCANet(num_cva=3, maxdisp=192) on
-    `batch` (this process's share), cuDNN's deterministic algorithms (with
-    `bn_ratios`, its BatchNorm inputs' channel |mean| / std too); then
+    `batch` (this process's share), with the disparity-sharding plan of
+    `mesh`'s disp axis where it has one, cuDNN's deterministic algorithms
+    (with `bn_ratios`, its BatchNorm inputs' channel |mean| / std too); then
     PARALLEL_WARMUP + PARALLEL_TIMED more steps with cuDNN's defaults, each
     timed on the host clock between synchronisations."""
     import torch
@@ -1704,7 +1803,7 @@ def _parity_step(batch: dict, bn_ratios: bool = False) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    state = cli.build_train_state(preset("sceneflow", seed=SEED), PARALLEL_PAIRS // PARALLEL_WORLD, "cuda")
+    state = cli.build_train_state(preset("sceneflow", seed=SEED), PARALLEL_PAIRS // PARALLEL_WORLD, "cuda", mesh)
     batch = {k: v.cuda() for k, v in batch.items()}
     cfg = LossConfig(max_disp=192)
     ratios, hooks = _bn_input_ratios(state.model) if bn_ratios else ([], [])
@@ -1727,13 +1826,14 @@ def _parity_step(batch: dict, bn_ratios: bool = False) -> dict:
     return out
 
 
-def _parity_step_f64(batch: dict) -> dict:
+def _parity_step_f64(batch: dict, mesh=None) -> dict:
     """One float64 train step of the seeded DCANet(num_cva=3, maxdisp=192)
-    on `batch` (this process's share), cuDNN's deterministic algorithms, the
-    gwc volume by its plain version (the kernels take f32 and bf16; the
-    plain version computes float64 input in float64): float64 leaves the
-    rounding of a 2-rank step against one process far below a fault in the
-    global BatchNorm's backward or the gradient all-reduce."""
+    on `batch` (this process's share; with `mesh`'s disparity-sharding
+    plan), cuDNN's deterministic algorithms, the gwc volume by its plain
+    version (the kernels take f32 and bf16; the plain version computes
+    float64 input in float64): float64 leaves the rounding of a 2-rank step
+    against one process far below a fault in the global BatchNorm's
+    backward, an exchange's gradient or the gradient all-reduce."""
     import torch
 
     from dcanet_tpu_torch import cli
@@ -1742,7 +1842,7 @@ def _parity_step_f64(batch: dict) -> dict:
     from dcanet_tpu_torch.models import dcanet
     from dcanet_tpu_torch.train.loop import LossConfig
 
-    state = cli.build_train_state(preset("sceneflow", seed=SEED), PARALLEL_PAIRS // PARALLEL_WORLD, "cuda")
+    state = cli.build_train_state(preset("sceneflow", seed=SEED), PARALLEL_PAIRS // PARALLEL_WORLD, "cuda", mesh)
     state.model.double()
     batch = {k: v.to("cuda", torch.float64) for k, v in batch.items()}
     kernel_gwc, dcanet.gwc_volume = dcanet.gwc_volume, gwc_volume_reference
@@ -1833,11 +1933,63 @@ def _parallel_worker(rank: int, port: int, root: str, logdir: str, batch_path: s
     shutdown()
 
 
+def _rel_metrics(got: dict, want: dict) -> dict:
+    return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in ("total", "focal", "smooth_l1", "grad_norm")}
+
+
+def _norm(t) -> float:
+    return float(t.double().norm())
+
+
+def _grad_rel(grads: dict, ref: dict):
+    """The whole gradient's distance to `ref`'s and each parameter's,
+    relative in L2 (a parameter's to max(its norm, 1e-6 of the whole): a
+    conv bias before a BatchNorm has an exact gradient of 0)."""
+    total = math.sqrt(sum(_norm(g) ** 2 for g in ref.values()))
+    whole = math.sqrt(sum(_norm(grads[n] - g) ** 2 for n, g in ref.items())) / total
+    each = {n: _norm(grads[n] - g) / max(_norm(g), 1e-6 * total) for n, g in ref.items()}
+    return whole, each
+
+
+def _worst(each: dict, k: int = 3) -> str:
+    return ", ".join(f"{n} {v:.2e}" for n, v in sorted(each.items(), key=lambda kv: -kv[1])[:k])
+
+
+def run_workers(tag: str, target, world: int, args: tuple, workdir: Path, timeout_s: float):
+    """`target(rank, port, *args, out_path)` in `world` spawned processes
+    that meet on a free local port, each joined within `timeout_s` of their
+    start and killed after it: the results they saved, by rank, and their
+    wall time. Raises unless every one exits 0 (its traceback is above)."""
+    import multiprocessing
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    outs = [workdir / f"{tag}_rank{r}.pt" for r in range(world)]
+    procs = [ctx.Process(target=target, args=(r, port, *args, str(outs[r]))) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"[{tag}] worker exit codes {codes} (their tracebacks are above)")
+    return [torch.load(o, weights_only=False) for o in outs], wall
+
+
 def phase_parallel(workdir: Path) -> dict:
     """Data-parallel `cli train` over PARALLEL_WORLD processes on the one
     card (see the module docstring, phase 10). Returns its numbers."""
-    import multiprocessing
-
     import torch
 
     from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
@@ -1856,29 +2008,9 @@ def phase_parallel(workdir: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     logdir = workdir / "parallel_run"
-    ctx = multiprocessing.get_context("spawn")
-    outs = [workdir / f"parallel_rank{r}.pt" for r in range(PARALLEL_WORLD)]
-    procs = [ctx.Process(target=_parallel_worker, args=(r, port, str(root), str(logdir), str(batch_path), str(outs[r])))
-             for r in range(PARALLEL_WORLD)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
-    for p in procs:
-        p.join(timeout=max(deadline - time.monotonic(), 1))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    wall = time.perf_counter() - t0
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * PARALLEL_WORLD:
-        raise AssertionError(f"[parallel] worker exit codes {codes} (their tracebacks are above)")
-    ranks = [torch.load(o, weights_only=False) for o in outs]
+    ranks, wall = run_workers("parallel", _parallel_worker, PARALLEL_WORLD, (str(root), str(logdir), str(batch_path)),
+                              workdir, PARALLEL_TIMEOUT_S)
 
     steps = PARALLEL_PAIRS // PARALLEL_WORLD * (PARALLEL_EPOCHS + 1)
     keys = ("total", "focal", "smooth_l1", "grad_norm", "epe")
@@ -1928,33 +2060,14 @@ def phase_parallel(workdir: Path) -> dict:
         if ranks[0][key]["metrics"] != ranks[1][key]["metrics"]:
             raise AssertionError(f"[parallel] {key}: the ranks report different metrics")
 
-    def rel_metrics(got, want):
-        return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
-                for k in ("total", "focal", "smooth_l1", "grad_norm")}
-
-    def norm(t):
-        return float(t.double().norm())
-
-    def grad_rel(grads, ref):
-        """The whole gradient's distance to `ref`'s and each parameter's,
-        relative in L2 (a parameter's to max(its norm, 1e-6 of the whole):
-        a conv bias before a BatchNorm has an exact gradient of 0)."""
-        total = math.sqrt(sum(norm(g) ** 2 for g in ref.values()))
-        whole = math.sqrt(sum(norm(grads[n] - g) ** 2 for n, g in ref.items())) / total
-        each = {n: norm(grads[n] - g) / max(norm(g), 1e-6 * total) for n, g in ref.items()}
-        return whole, each
-
-    def worst(each, k=3):
-        return ", ".join(f"{n} {v:.2e}" for n, v in sorted(each.items(), key=lambda kv: -kv[1])[:k])
-
-    rel, rel64 = rel_metrics(two["metrics"], one["metrics"]), rel_metrics(two64["metrics"], one64["metrics"])
+    rel, rel64 = _rel_metrics(two["metrics"], one["metrics"]), _rel_metrics(two64["metrics"], one64["metrics"])
     stat_err = max(_scaled_err(two["stats"][k], one["stats"][k]) for k in one["stats"])
     stat_err64 = max(_scaled_err(two64["stats"][k], one64["stats"][k]) for k in one64["stats"])
-    whole, each = grad_rel(two["grads"], one["grads"])
-    whole64, each64 = grad_rel(two64["grads"], one64["grads"])
+    whole, each = _grad_rel(two["grads"], one["grads"])
+    whole64, each64 = _grad_rel(two64["grads"], one64["grads"])
     # each f32 step's own distance to the float64 gradient of the same step
-    one_vs64, one_each64 = grad_rel(one["grads"], one64["grads"])
-    two_vs64, two_each64 = grad_rel(two["grads"], one64["grads"])
+    one_vs64, one_each64 = _grad_rel(one["grads"], one64["grads"])
+    two_vs64, two_each64 = _grad_rel(two["grads"], one64["grads"])
     m1, m2 = one["metrics"], two["metrics"]
     ratios = one["bn_ratios"]
     ms1, ms2 = statistics.median(one["step_ms"]), statistics.median(two["step_ms"])
@@ -1962,13 +2075,13 @@ def phase_parallel(workdir: Path) -> dict:
         f"on the global batch of 2: loss {m2['total']:.6f} vs {m1['total']:.6f}, grad norm {m2['grad_norm']:.6f} vs "
         f"{m1['grad_norm']:.6f}; relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
         + f"; BatchNorm statistics {stat_err:.3e} scaled (bounds: loss terms 1e-4, grad norm 1e-3, statistics "
-        f"1e-4). Recorded: the whole gradient {whole:.2e} relative in L2; each parameter's, worst {worst(each)}")
+        f"1e-4). Recorded: the whole gradient {whole:.2e} relative in L2; each parameter's, worst {_worst(each)}")
     log(f"[parallel] parity in float64 (the gwc volume by its plain version): 2 ranks vs one process: "
         f"relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel64.items()) + f"; BatchNorm statistics "
-        f"{stat_err64:.3e} scaled; the whole gradient {whole64:.2e}, each parameter's worst {worst(each64)} "
+        f"{stat_err64:.3e} scaled; the whole gradient {whole64:.2e}, each parameter's worst {_worst(each64)} "
         f"(bounds: loss terms 1e-7, grad norm 1e-6 (summed in f32), statistics 1e-10, each parameter 1e-7)")
     log(f"[parallel] the f32 steps against the float64 step's gradient: one process {one_vs64:.2e} (worst "
-        f"{worst(one_each64)}), 2 ranks {two_vs64:.2e} (worst {worst(two_each64)}); the BatchNorm inputs' channel "
+        f"{_worst(one_each64)}), 2 ranks {two_vs64:.2e} (worst {_worst(two_each64)}); the BatchNorm inputs' channel "
         f"|mean| / std over the step's {len(ratios)} channels: max {ratios.max():.3f}, 99th percentile "
         f"{np.percentile(ratios, 99):.3f}, median {np.median(ratios):.3f}")
     log(f"[parallel] the step alone (batch on the card, cuDNN defaults, median of {PARALLEL_TIMED} after "
@@ -2141,8 +2254,6 @@ def _eth3d_tree_and_checkpoint(workdir: Path, flat, pairs: int, tag: str):
 def phase_disp(workdir: Path, flat) -> dict:
     """Disparity-sharded `cli eval` over DISP_WORLD processes on the one card
     (see the module docstring, phase 11). Returns its numbers."""
-    import multiprocessing
-
     import torch
 
     t_phase = time.perf_counter()
@@ -2153,29 +2264,9 @@ def phase_disp(workdir: Path, flat) -> dict:
     one["f64"] = _disp_f64_forward(state)
     torch.cuda.empty_cache()
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     logdir = workdir / "disp_ranks"
-    ctx = multiprocessing.get_context("spawn")
-    outs = [workdir / f"disp_rank{r}.pt" for r in range(DISP_WORLD)]
-    procs = [ctx.Process(target=_disp_worker, args=(r, port, str(root), str(ckpt), str(logdir), str(outs[r])))
-             for r in range(DISP_WORLD)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + DISP_TIMEOUT_S
-    for p in procs:
-        p.join(timeout=max(deadline - time.monotonic(), 1))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    wall = time.perf_counter() - t0
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * DISP_WORLD:
-        raise AssertionError(f"[disp] worker exit codes {codes} (their tracebacks are above)")
-    ranks = [torch.load(o, weights_only=False) for o in outs]
+    ranks, wall = run_workers("disp", _disp_worker, DISP_WORLD, (str(root), str(ckpt), str(logdir)), workdir,
+                              DISP_TIMEOUT_S)
 
     out = {"workers_s": wall}
     half = MAIN_D // DISP_WORLD
@@ -2232,16 +2323,211 @@ def phase_disp(workdir: Path, flat) -> dict:
     return out
 
 
-def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pairs: int) -> list:
+def _disp_train_args(root: str, n_disp: int) -> list:
+    return ["train", "--preset", "sceneflow", "--data-root", root, "--batch-size", "1", "--dtype", "float32",
+            "--seed", str(SEED), "--print-freq", "1", "--num-workers", "4", "--n-disp-shards", str(n_disp),
+            "--device", "cuda"]
+
+
+def _disp_train_run(args: list, logdir: str) -> dict:
+    """`cli train` with `args` for DISP_TRAIN_EPOCHS epochs and a resumed one:
+    its records, the gwc launches (the counts set to 0 before, read after)
+    and each launch's planes, the peak memory above what the process held
+    before, the paths written under `logdir` and the final state's digest."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.train import loop
+
+    fwd_planes, bwd_planes, states = [], [], []
+    kernel, backward, real_step = gwc.gwc_volume_cuda, gwc.gwc_volume_backward_cuda, loop.train_step
+
+    def kernel_spy(*a, **k):
+        out = kernel(*a, **k)
+        fwd_planes.append(out.shape[2])
+        return out
+
+    def backward_spy(grad, *a, **k):
+        bwd_planes.append(grad.shape[2])
+        return backward(grad, *a, **k)
+
+    def step_spy(state, batch, cfg):
+        states[:] = [state]
+        return real_step(state, batch, cfg)
+
+    gwc.gwc_volume_cuda, gwc.gwc_volume_backward_cuda, loop.train_step = kernel_spy, backward_spy, step_spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gwc.LAUNCHES = gwc.BACKWARD_LAUNCHES = gwc.RANGE_BACKWARD_LAUNCHES = 0
+    try:
+        with writes_under(logdir, []) as written:
+            args = args + ["--logdir", logdir]
+            hist = cli.main(args + ["--epochs", str(DISP_TRAIN_EPOCHS)])
+            resumed = cli.main(args + ["--epochs", str(DISP_TRAIN_EPOCHS + 1), "--resume"])
+        launches = (gwc.LAUNCHES, gwc.BACKWARD_LAUNCHES, gwc.RANGE_BACKWARD_LAUNCHES)
+    finally:
+        gwc.gwc_volume_cuda, gwc.gwc_volume_backward_cuda, loop.train_step = kernel, backward, real_step
+    torch.cuda.synchronize()
+    out = dict(hist=hist, resumed=resumed, fwd=launches[0], bwd=launches[1], range_bwd=launches[2],
+               fwd_planes=fwd_planes, bwd_planes=bwd_planes, written=written, digest=state_digest(states[0]),
+               peak_bytes=torch.cuda.max_memory_allocated() - held)
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def _disp_train_worker(rank: int, port: int, root: str, logdir: str, batch_path: str, out_path: str) -> None:
+    """One rank of phase 12: gloo on cuda:0 (the ranks share the card); `cli
+    train --n-disp-shards DISP_TRAIN_WORLD`, then this rank's parity steps
+    on the whole global batch with the mesh's plan."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=DISP_TRAIN_WORLD)
+    torch.cuda.set_device(0)
+    from dcanet_tpu_torch.parallel import make_mesh, shutdown
+
+    result = _disp_train_run(_disp_train_args(root, DISP_TRAIN_WORLD), logdir)
+    batch = torch.load(batch_path, weights_only=True)
+    mesh = make_mesh(1, DISP_TRAIN_WORLD)
+    result["parity"] = _parity_step(batch, mesh=mesh)
+    result["parity64"] = _parity_step_f64(batch, mesh=mesh)
+    for key in ("parity", "parity64"):  # rank 0's gradients stand for both; rank 1 sends their digest
+        if rank != 0:
+            result[key]["grads_digest"] = _grads_digest(result[key].pop("grads"))
+    torch.save(result, out_path)
+    shutdown()
+
+
+def phase_disp_train(workdir: Path) -> dict:
+    """Disparity-sharded `cli train` over DISP_TRAIN_WORLD processes on the
+    one card (see the module docstring, phase 12). Returns its numbers."""
+    import torch
+
+    from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = write_sceneflow_tree(workdir / "disp_train_sceneflow", DISP_TRAIN_PAIRS, SCENEFLOW_HW, seed=SEED + 1)
+    batch = _parallel_batch(SEED + 4)
+    batch_path = workdir / "disp_train_batch.pt"
+    torch.save(batch, batch_path)
+
+    one_run = _disp_train_run(_disp_train_args(str(root), 1), str(workdir / "disp_train_one"))
+    one, one64 = _parity_step(batch), _parity_step_f64(batch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    logdir = workdir / "disp_train_ranks"
+    ranks, wall = run_workers("disp_train", _disp_train_worker, DISP_TRAIN_WORLD,
+                              (str(root), str(logdir), str(batch_path)), workdir, DISP_TRAIN_TIMEOUT_S)
+
+    steps = DISP_TRAIN_PAIRS * (DISP_TRAIN_EPOCHS + 1)
+    half = MAIN_D // DISP_TRAIN_WORLD
+    keys = ("total", "focal", "smooth_l1", "grad_norm", "epe")
+    for r, res in enumerate([one_run] + ranks):
+        who = "one process" if r == 0 else f"rank {r - 1}"
+        hist = res["hist"] + res["resumed"]
+        if [h["step"] for h in hist] != list(range(steps)):
+            raise AssertionError(f"[disp_train] {who} took steps {[h['step'] for h in hist]}")
+        if not all(math.isfinite(h[k]) for h in hist for k in keys):
+            raise AssertionError(f"[disp_train] {who}: a metric is not finite")
+        planes = MAIN_D if r == 0 else half
+        want = (steps, steps, 0 if r == 0 else steps, [planes] * steps, [planes] * steps)
+        got = (res["fwd"], res["bwd"], res["range_bwd"], res["fwd_planes"], res["bwd_planes"])
+        if got != want:
+            raise AssertionError(f"[disp_train] {who}: gwc forward / backward / range backward launches and their "
+                                 f"planes {got}, expected {want}")
+    h0, h1 = (r["hist"] + r["resumed"] for r in ranks)
+    for h, w in zip(h0, one_run["hist"] + one_run["resumed"]):
+        log(f"[disp_train] step {h['step']}: loss {h['total']:.4f} (one process {w['total']:.4f}), grad norm "
+            f"{h['grad_norm']:.4f} ({w['grad_norm']:.4f}), epe {h['epe']:.4f} ({w['epe']:.4f})")
+    if [{k: h[k] for k in keys} for h in h0] != [{k: h[k] for k in keys} for h in h1]:
+        raise AssertionError("[disp_train] the ranks report different metrics")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("[disp_train] the ranks' parameters, BatchNorm buffers or Adam state differ at the end")
+    if ranks[1]["written"]:
+        raise AssertionError(f"[disp_train] rank 1 wrote {ranks[1]['written']}")
+    ckpts = sorted(p.name for p in (logdir / "ckpt").iterdir())
+    want_ckpts = [f"ckpt_{DISP_TRAIN_PAIRS * (e + 1):08d}.pt" for e in range(DISP_TRAIN_EPOCHS + 1)]
+    if ckpts != want_ckpts or len((logdir / "train_log.jsonl").read_text().splitlines()) != steps:
+        raise AssertionError(f"[disp_train] checkpoints {ckpts} (expected {want_ckpts}) or train_log rows")
+
+    def ms_per_step(res):
+        gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(res["hist"], res["hist"][1:])]
+        return statistics.median(gaps), min(gaps), max(gaps)
+
+    ms2, ms1 = ms_per_step(ranks[0]), ms_per_step(one_run)
+    peaks = [r["peak_bytes"] for r in ranks]
+    log(f"[disp_train] cli train --n-disp-shards {DISP_TRAIN_WORLD} (gloo, one card), DCANet(num_cva=3, "
+        f"maxdisp=192) f32, batch 1x3x256x512: {steps} steps per rank, gwc forward / backward launches per rank "
+        f"{[(r['fwd'], r['range_bwd']) for r in ranks]} of {half} planes each (one process {one_run['fwd']} / "
+        f"{one_run['bwd']} of {MAIN_D}); rank 0 median {ms2[0]:.3f} ms/step (range {ms2[1]:.3f}-{ms2[2]:.3f}), "
+        f"one process {ms1[0]:.3f} ({ms1[1]:.3f}-{ms1[2]:.3f}) (host clock between metric reads, steps 1-"
+        f"{DISP_TRAIN_PAIRS * DISP_TRAIN_EPOCHS - 1} of the first run); peak memory per rank "
+        f"{[round(p / 2**30, 4) for p in peaks]} GiB, one process {one_run['peak_bytes'] / 2**30:.4f} GiB "
+        f"({max(peaks) / one_run['peak_bytes']:.1%}); the ranks bit-equal at the end; rank 1 wrote nothing; "
+        f"the workers' wall time {wall:.1f} s")
+
+    two, two64 = ranks[0]["parity"], ranks[0]["parity64"]
+    for key in ("parity", "parity64"):
+        if ranks[1][key]["grads_digest"] != _grads_digest(ranks[0][key]["grads"]):
+            raise AssertionError(f"[disp_train] {key}: the ranks hold different summed gradients")
+        if ranks[0][key]["metrics"] != ranks[1][key]["metrics"]:
+            raise AssertionError(f"[disp_train] {key}: the ranks report different metrics")
+    rel, rel64 = _rel_metrics(two["metrics"], one["metrics"]), _rel_metrics(two64["metrics"], one64["metrics"])
+    stat_err = max(_scaled_err(two["stats"][k], one["stats"][k]) for k in one["stats"])
+    stat_err64 = max(_scaled_err(two64["stats"][k], one64["stats"][k]) for k in one64["stats"])
+    whole, each = _grad_rel(two["grads"], one["grads"])
+    whole64, each64 = _grad_rel(two64["grads"], one64["grads"])
+    step1, step2 = statistics.median(one["step_ms"]), statistics.median(two["step_ms"])
+    log(f"[disp_train] parity, one f32 step from the seeded weights on phase 10's global batch of 2 (cuDNN "
+        f"deterministic): 2 disp ranks vs one process: relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; BatchNorm statistics {stat_err:.3e} scaled (bounds: loss terms 1e-4, grad norm 1e-3, statistics "
+        f"1e-4); the whole gradient {whole:.2e} relative in L2, each parameter's worst {_worst(each)} (recorded)")
+    log(f"[disp_train] parity in float64 (the gwc volume by its plain version): relative "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel64.items()) + f"; BatchNorm statistics {stat_err64:.3e} scaled; "
+        f"the whole gradient {whole64:.2e}, each parameter's worst {_worst(each64)} (bounds: loss terms 1e-7, grad "
+        f"norm 1e-6, statistics 1e-10, each parameter 1e-7)")
+    log(f"[disp_train] the step alone at batch 2 (cuDNN defaults, median of {PARALLEL_TIMED} after "
+        f"{PARALLEL_WARMUP} warm-ups): one process {step1:.3f} ms, 2 disp ranks time-sharing the card {step2:.3f} ms")
+    if max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
+        raise AssertionError("[disp_train] the 2-rank f32 step disagrees with the one-process step")
+    if (max(v for k, v in rel64.items() if k != "grad_norm") > 1e-7 or rel64["grad_norm"] > 1e-6
+            or stat_err64 > 1e-10 or max(each64.values()) > 1e-7):
+        raise AssertionError("[disp_train] the float64 2-rank step disagrees with the one-process step")
+    log(f"[disp_train] card: {gpu_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(steps=steps, launches=[(r["fwd"], r["range_bwd"]) for r in ranks],
+                one_launches=(one_run["fwd"], one_run["bwd"]), ms_per_step=ms2[0], one_ms_per_step=ms1[0],
+                peak_bytes=peaks, one_peak_bytes=one_run["peak_bytes"],
+                parity=dict(rel=rel, stat_err=stat_err, whole_grad=whole, rel64=rel64, stat_err64=stat_err64,
+                            whole_grad64=whole64, worst_grad64=max(each64.values())),
+                step_ms={"one_process_batch2": step1, "two_disp_ranks": step2}, workers_s=wall)
+
+
+# `cli train` with its arguments, then the process's peak device memory on a
+# line of its own (`_train_on_cards`)
+_CLI_TRAIN_PEAK = ("import sys, torch; from dcanet_tpu_torch import cli; from dcanet_tpu_torch.parallel import "
+                   "shutdown; cli.main(sys.argv[1:]); "
+                   "print('PEAK_BYTES', torch.cuda.max_memory_allocated(), flush=True); shutdown()")
+
+
+def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pairs: int, n_disp: int = 1):
     """`cli train` as a user starts it on `world` cards: one process per card
-    with the DCANET_* variables (NCCL), the same arguments; rank 0's
-    metrics.jsonl rows (one per step)."""
+    with the DCANET_* variables (NCCL), the same arguments (`--n-disp-shards
+    n_disp`: a (world / n_disp, n_disp) grid); rank 0's metrics.jsonl rows
+    (one per step) and each rank's peak device memory."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    cmd = [sys.executable, "-m", "dcanet_tpu_torch.cli", "train", "--preset", "sceneflow", "--data-root", str(root),
+    cmd = [sys.executable, "-c", _CLI_TRAIN_PEAK, "train", "--preset", "sceneflow", "--data-root", str(root),
            "--logdir", str(logdir), "--batch-size", str(batch), "--dtype", "float32", "--seed", str(SEED),
-           "--print-freq", "1", "--num-workers", "4", "--epochs", "1", "--device", "cuda"]
+           "--print-freq", "1", "--num-workers", "4", "--epochs", "1", "--n-disp-shards", str(n_disp),
+           "--device", "cuda"]
     procs = []
     for rank in range(world):
         env = dict(os.environ)
@@ -2249,11 +2535,12 @@ def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pai
             env.update(DCANET_COORDINATOR=f"127.0.0.1:{port}", DCANET_NUM_PROCESSES=str(world),
                        DCANET_PROCESS_ID=str(rank))
         procs.append(subprocess.Popen(cmd, env=env, cwd=str(Path(__file__).resolve().parent),
-                                      stdout=subprocess.DEVNULL))
+                                      stdout=subprocess.PIPE, text=True))
     deadline = time.monotonic() + CARDS_TIMEOUT_S
+    outs = []
     try:
         for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1))
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2261,12 +2548,15 @@ def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pai
                 p.wait()
     codes = [p.returncode for p in procs]
     if codes != [0] * world:
-        raise AssertionError(f"[cards] {world} card(s), batch {batch}: exit codes {codes}")
+        raise AssertionError(f"[cards] {world} card(s), batch {batch}, disp {n_disp}: exit codes {codes}")
+    peaks = [int(line.split()[1]) for out in outs for line in out.splitlines() if line.startswith("PEAK_BYTES")]
     rows = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
     if len(rows) != epochs_pairs // batch or not all(math.isfinite(r["train/total"]) for r in rows):
         raise AssertionError(f"[cards] {world} card(s): {len(rows)} rows for {epochs_pairs // batch} steps, or a "
                              "loss that is not finite")
-    return rows
+    if len(peaks) != world:
+        raise AssertionError(f"[cards] {world} card(s): {len(peaks)} peak memory lines")
+    return rows, peaks
 
 
 def _eval_on_cards(world: int, root: Path, ckpt: Path, logdir: Path, dtype: str) -> dict:
@@ -2314,7 +2604,13 @@ def phase_cards(workdir: Path, flat) -> dict:
     Then the disparity-sharded `cli eval --dataset eth3d` on 1, 2, 4, ...
     cards (NCCL, cuDNN's defaults, as a user runs it), f32 and bf16, on
     CARDS_EVAL_PAIRS scenes: ms/pair (rank 0's host clock after the first
-    pair) and EPE, D1, >1/2/3 px against one card (5e-3 px, 1e-3)."""
+    pair) and EPE, D1, >1/2/3 px against one card (5e-3 px, 1e-3). Between
+    the two, on the training tree, the disparity-sharded `cli train`:
+    `--n-disp-shards 2` on 2 cards at --batch-size 1, and a data=2 x disp=2
+    grid on 4 cards at --batch-size 2, beside one card at the same batch:
+    ms/step, each card's peak memory (`max_memory_allocated` of its
+    process), and the first step's loss terms against one card (rtol
+    1e-4)."""
     import torch
 
     from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
@@ -2327,14 +2623,15 @@ def phase_cards(workdir: Path, flat) -> dict:
     root = write_sceneflow_tree(workdir / "cards_sceneflow", pairs, SCENEFLOW_HW, seed=SEED + 2)
     results = {}
     for world in worlds:
-        rows = _train_on_cards(world, world, root, workdir / f"cards_{world}", pairs)
+        rows, peaks = _train_on_cards(world, world, root, workdir / f"cards_{world}", pairs)
         gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])][CARDS_WARMUP:]
         ms = statistics.median(gaps)
-        results[world] = dict(ms=ms, pairs_per_s=1e3 * world / ms, first=rows[0])
+        results[world] = dict(ms=ms, pairs_per_s=1e3 * world / ms, first=rows[0], peaks=peaks)
         log(f"[cards] {world} card(s), 1 pair each: {len(rows)} steps, median {ms:.3f} ms/step over steps "
             f"{CARDS_WARMUP + 1}-{len(rows) - 1} (range {min(gaps):.3f}-{max(gaps):.3f}), "
             f"{1e3 * world / ms:.3f} pairs/s, {1e3 / ms:.3f} pairs/s per card")
-    one = _train_on_cards(1, 2, root, workdir / "cards_1_batch2", pairs)[0]
+    one_rows, one_peaks = _train_on_cards(1, 2, root, workdir / "cards_1_batch2", pairs)
+    one = one_rows[0]
     two = results[2]["first"]
     rel = {k: abs(two[k] - one[k]) / abs(one[k]) for k in ("train/total", "train/focal", "train/smooth_l1")}
     base = results[1]["pairs_per_s"]
@@ -2346,11 +2643,32 @@ def phase_cards(workdir: Path, flat) -> dict:
     if max(rel.values()) > 1e-4:
         raise AssertionError("[cards] the 2-card step disagrees with one card at batch 2")
 
-    root, ckpt, _ = _eth3d_tree_and_checkpoint(workdir, flat, CARDS_EVAL_PAIRS, "cards_eval")
+    one_card = {1: results[1], 2: dict(ms=statistics.median(
+        [1e3 * (b["time"] - a["time"]) for a, b in zip(one_rows, one_rows[1:])][CARDS_WARMUP:]),
+        first=one, peaks=one_peaks)}  # one card at batch 1 and 2, from the runs above
+    disp_train = {}
+    for world, n_disp, batch in ((2, 2, 1), (4, 2, 2)):
+        if world > cards:
+            continue
+        rows, peaks = _train_on_cards(world, batch, root, workdir / f"cards_disp_{world}x{batch}", pairs, n_disp)
+        gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])][CARDS_WARMUP:]
+        run = disp_train[world, batch] = dict(ms=statistics.median(gaps), peaks=peaks, first=rows[0])
+        base = one_card[batch]
+        drel = {k: abs(run["first"][k] - base["first"][k]) / abs(base["first"][k])
+                for k in ("train/total", "train/focal", "train/smooth_l1")}
+        log(f"[cards] cli train --n-disp-shards {n_disp} on {world} card(s) (data={world // n_disp}), batch {batch}: "
+            f"median {run['ms']:.3f} ms/step over steps {CARDS_WARMUP + 1}-{len(rows) - 1} (range {min(gaps):.3f}-"
+            f"{max(gaps):.3f}; one card at batch {batch} {base['ms']:.3f}); peak memory per card "
+            f"{[round(p / 2**30, 4) for p in peaks]} GiB (one card {base['peaks'][0] / 2**30:.4f}); the first step "
+            f"against one card, relative " + ", ".join(f"{k} {v:.2e}" for k, v in drel.items()) + " (bound 1e-4)")
+        if max(drel.values()) > 1e-4:
+            raise AssertionError(f"[cards] the disparity-sharded step on {world} cards disagrees with one card")
+
+    eth3d, ckpt, _ = _eth3d_tree_and_checkpoint(workdir, flat, CARDS_EVAL_PAIRS, "cards_eval")
     evals = {}
     for dtype in ("float32", "bfloat16"):
         for world in worlds:
-            res = evals[dtype, world] = _eval_on_cards(world, root, ckpt, workdir / f"cards_eval_{dtype}_{world}",
+            res = evals[dtype, world] = _eval_on_cards(world, eth3d, ckpt, workdir / f"cards_eval_{dtype}_{world}",
                                                        dtype)
             one = evals[dtype, 1]
             err = {k: abs(res[k] - one[k]) for k in ("epe", "d1", "thres1", "thres2", "thres3")}
@@ -2363,7 +2681,9 @@ def phase_cards(workdir: Path, flat) -> dict:
     log(f"[cards] card: {gpu_line()} x {cards}")
     return {"cards": cards, "runs": {w: {k: r[k] for k in ("ms", "pairs_per_s")} for w, r in results.items()},
             "first_step_rel": rel,
-            "eval_ms_per_pair": {f"{d} {w}": r["ms_per_pair"] for (d, w), r in evals.items()}}
+            "eval_ms_per_pair": {f"{d} {w}": r["ms_per_pair"] for (d, w), r in evals.items()},
+            "one_card_peaks": {b: r["peaks"] for b, r in one_card.items()},
+            "disp_train": {f"{w}x{b}": {k: r[k] for k in ("ms", "peaks")} for (w, b), r in disp_train.items()}}
 
 
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
@@ -2372,7 +2692,8 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
 
-PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp")
+PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp",
+          "disp_train")
 
 
 def main(argv=None) -> int:
@@ -2422,6 +2743,8 @@ def main(argv=None) -> int:
             parallel = phase_parallel(Path(tmp))
         if "disp" in phases:
             disp = phase_disp(Path(tmp), flat)
+        if "disp_train" in phases:
+            disp_train = phase_disp_train(Path(tmp))
         if "cards" in phases:
             phase_cards(Path(tmp), flat)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -2429,7 +2752,7 @@ def main(argv=None) -> int:
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
         return 0
 
-    gwc_t, bwd_t = timing["gwc"], timing["gwc_bwd"]
+    gwc_t, bwd_t, range_t = timing["gwc"], timing["gwc_bwd"], timing["gwc_bwd_range"]
     eval_launches = evaluation["launches"]["f32"] + evaluation["launches"]["bf16"]
     conv_t = timing["conv3d"]
     kernels = [
@@ -2440,6 +2763,8 @@ def main(argv=None) -> int:
              "parallel_train": sum(f for f, _ in parallel["launches"]),
              "disp_eval": sum(disp["f32"]["launches"]) + sum(disp["bf16"]["launches"]),
              "disp_eval_one_process": disp["f32"]["one_launches"] + disp["bf16"]["one_launches"],
+             "disp_train": sum(f for f, _ in disp_train["launches"]),
+             "disp_train_one_process": disp_train["one_launches"][0],
              **{k: v for k, v in family["launches"].items() if not k.startswith("family_train_backward")}},
             errs["gwc"]["main f32"],
             gwc_t["f32"],
@@ -2460,6 +2785,7 @@ def main(argv=None) -> int:
         kernel_entry(
             "gwc_volume_backward", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
             train["bwd"], {"train": train["bwd"], "parallel_train": sum(b for _, b in parallel["launches"]),
+                           "disp_train_one_process": disp_train["one_launches"][1],
                            **{k.replace("_backward", ""): v for k, v in family["launches"].items()
                               if k.startswith("family_train_backward")}},
             errs["gwc_bwd"]["train f32"], bwd_t["f32"],
@@ -2469,6 +2795,20 @@ def main(argv=None) -> int:
                               "float32": {"max_abs_err": errs["gwc_bwd"]["middlebury f32"], **bwd_t["middlebury f32"]},
                               "bfloat16": {"max_abs_err": errs["gwc_bwd"]["middlebury bf16"],
                                            **bwd_t["middlebury bf16"]}},
+        ),
+        # the backward of a plane range: rank 0 of the disparity-sharded train
+        # step takes [0, 24), rank 1 [24, 48) (the range arithmetic, d_lo > 0)
+        kernel_entry(
+            "gwc_volume_backward_range", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
+            sum(b for _, b in disp_train["launches"]), {"disp_train": sum(b for _, b in disp_train["launches"])},
+            errs["gwc_bwd"]["train [24,48) f32"], range_t["train [24,48) f32"],
+            dtype="float32", shape={"features": list(TRAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D,
+                                    "planes": [24, 48]},
+            bfloat16={"max_abs_err": errs["gwc_bwd"]["train [24,48) bf16"], **range_t["train [24,48) bf16"]},
+            plane_ranges={f"{name} {tag}": {"features": list(shape), "maxdisp": d, "planes": list(planes),
+                                            "max_abs_err": errs["gwc_bwd"][f"{name} {tag}"],
+                                            **range_t[f"{name} {tag}"]}
+                          for name, shape, _, d, planes in GWC_BWD_RANGES for tag in ("f32", "bf16")},
         ),
         kernel_entry(
             "conv3d", "dcanet_tpu_torch/csrc/conv3d.cu", "dcanet_tpu/kernels/conv3d.py:54", conv_launches["f32"],
@@ -2494,6 +2834,7 @@ def main(argv=None) -> int:
     log("[extras] summary: " + json.dumps(extras))
     log("[parallel] summary: " + json.dumps(parallel))
     log("[disp] summary: " + json.dumps(disp))
+    log("[disp_train] summary: " + json.dumps(disp_train))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@
          [--data-root2 DIR] [--model NAME] [--logdir DIR] [--epochs N] [--batch-size N]
          [--dtype float32|bfloat16] [--remat] [--resume] [--loadckpt PATH]
          [--seed N] [--maxdisp N] [--print-freq N] [--num-workers N]
-         [--n-data-shards N] [--device cuda|cpu]
+         [--n-data-shards N] [--n-disp-shards N] [--device cuda|cpu]
   eval   --preset P [--dataset D] --data-root DIR [--data-root2 DIR]
          [--model NAME] [--maxdisp N] [--dtype float32|bfloat16] [--logdir DIR]
          [--ckpt DIR] [--log-images N] [--vis-band lo:hi] [--seed N]
@@ -32,18 +32,19 @@ appends the same numbers to <logdir>/train_log.jsonl. `RunConfig.debug_nans` run
 `torch.autograd.set_detect_anomaly`, which raises at the first backward
 that returns NaN.
 
-`train` is data-parallel over processes, one per card, started with the
-JAX package's variables (`DCANET_COORDINATOR=host:port`,
+`train` runs over processes, one per card, started with the JAX
+package's variables (`DCANET_COORDINATOR=host:port`,
 `DCANET_NUM_PROCESSES`, `DCANET_PROCESS_ID`; NCCL on CUDA, gloo on the
-CPU), or inside a process group the caller formed. `--batch-size` is the
-global batch and must divide by the number of processes (each rank loads
-its share, `data/loader.py::shard_for_host`); BatchNorm statistics, loss
-means and gradients are those of the global batch, so W ranks take the
-steps of one process at the same `--batch-size`. `--n-data-shards`, when
-given, must equal the number of processes; `--n-disp-shards` above 1 raises
-(disparity-sharded training is ROADMAP Queue 1 item 4). Rank 0 alone
-prints, logs and writes checkpoints. `infer` and `export` run in one
-process.
+CPU), or inside a process group the caller formed, laid out as a (data,
+disp) grid: `--n-disp-shards N` (default 1) ranks split every cost
+volume's disparity planes (DCANet family only; `parallel/sharding.py`),
+and the processes over N make the data axis (`--n-data-shards`, when
+given, must equal that). `--batch-size` is the global batch over the data
+axis and must divide by it (the ranks of a data row load the same share,
+`data/loader.py::shard_for_host`); BatchNorm statistics, loss means and
+gradients are those of the global batch, so a grid takes the steps of one
+process at the same `--batch-size`. Process 0 alone prints, logs and
+writes checkpoints. `infer` and `export` run in one process.
 
 `eval` (dcanet_tpu/cli.py:228-358) scores the preset's test split the way
 the reference's test loops do: each benchmark's own test-time geometry
@@ -265,16 +266,21 @@ def build_dataset(cfg: RunConfig, training: bool):
     return StereoDataset(samples, training, "kitti")
 
 
-def build_train_state(cfg: RunConfig, steps_per_epoch: int, device: Optional[str] = None):
+def build_train_state(cfg: RunConfig, steps_per_epoch: int, device: Optional[str] = None, mesh=None):
     """The registry's cfg.model with a reference init from cfg.seed on
     `device`, Adam on the preset's LR schedule, autocast bf16 for dtype
-    bfloat16. `remat` reaches the model only when set: the DCANet family
-    takes it, the others refuse it."""
+    bfloat16. `remat`, and the disparity-sharding plan of a `mesh` with a
+    disp axis above 1, reach the model only when set: the DCANet family
+    takes them, the others refuse them (dcanet_tpu/cli.py:70-73)."""
+    from dcanet_tpu_torch.parallel import make_disp_constraint
     from dcanet_tpu_torch.train.schedule import epoch_decay_schedule, kitti_finetune_schedule
     from dcanet_tpu_torch.train.state import create_train_state
 
     dev = resolve_device(device)
-    model = make_model(cfg.model, maxdisp=cfg.maxdisp, **({"remat": True} if cfg.remat else {}))
+    kw = {"remat": True} if cfg.remat else {}
+    if mesh is not None and mesh.n_disp > 1:
+        kw["constrain_volume"] = make_disp_constraint(mesh)
+    model = make_model(cfg.model, maxdisp=cfg.maxdisp, **kw)
     reference_init_(model, torch.Generator().manual_seed(cfg.seed))
     model.to(dev)
     if cfg.lr_spec:
@@ -287,36 +293,34 @@ def build_train_state(cfg: RunConfig, steps_per_epoch: int, device: Optional[str
 
 def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, float]]:
     """Train per `cfg`; returns one record per step (epoch, step, the step's
-    metrics and the host time at which they were read). Under data
-    parallelism (`parallel.initialize`: one process per card) cfg.batch_size
-    is the global batch, each rank loads its share, and only rank 0 prints
-    and writes logs and checkpoints; every rank returns the same records."""
+    metrics and the host time at which they were read). Over processes
+    (`parallel.initialize`: one per card) on a (data, disp) grid,
+    cfg.batch_size is the global batch over the data axis, the ranks of a
+    data row load the same share of it, and the disp ranks split every cost
+    volume's planes (cfg.n_disp_shards); only process 0 prints and writes
+    logs and checkpoints; every rank returns the same records."""
     from dcanet_tpu_torch.data.loader import Loader, device_prefetch
-    from dcanet_tpu_torch.parallel import initialize, make_mesh, replicate
+    from dcanet_tpu_torch.parallel import initialize, make_mesh, process_index, replicate
     from dcanet_tpu_torch.train.checkpoint import CheckpointManager, load_params_only
     from dcanet_tpu_torch.train.loop import LossConfig, train_step
     from dcanet_tpu_torch.utils.experiment import AverageMeterDict, MetricLogger
     from dcanet_tpu_torch.utils.profiling import StepTimer
 
-    if cfg.n_disp_shards > 1:
-        raise NotImplementedError(
-            f"n_disp_shards={cfg.n_disp_shards}: disparity-sharded training is ROADMAP Queue 1 item 4 "
-            "(`eval --n-disp-shards` shards eval)"
-        )
     dev = initialize(device=resolve_device(device))
     mesh = make_mesh(cfg.n_data_shards, cfg.n_disp_shards)
     if cfg.batch_size % mesh.n_data != 0:
         raise ValueError(f"batch_size {cfg.batch_size} not divisible by n_data_shards {mesh.n_data}")
-    lead = mesh.rank == 0
+    lead = process_index() == 0
     say = _lead_printer(lead)
 
     if cfg.dtype == "float32":
         _no_tf32(dev)
     train_ds = build_dataset(cfg, training=True)
     say(f"train samples: {len(train_ds)}")
-    loader = Loader(train_ds, cfg.batch_size // mesh.n_data, seed=cfg.seed, num_workers=cfg.num_workers)
+    loader = Loader(train_ds, cfg.batch_size // mesh.n_data, seed=cfg.seed, num_workers=cfg.num_workers,
+                    shard=(mesh.rank, mesh.n_data))
     steps_per_epoch = max(len(loader), 1)
-    state = build_train_state(cfg, steps_per_epoch, str(dev))
+    state = build_train_state(cfg, steps_per_epoch, str(dev), mesh)
     say(f"model params: {sum(p.numel() for p in state.model.parameters()) / 1e6:.2f}M")
     say(f"device: {dev}, dtype {cfg.dtype}")
     say(f"mesh: data={mesh.n_data} disp={mesh.n_disp}")
@@ -547,9 +551,9 @@ def main(argv: Optional[Sequence[str]] = None):
     st.add_argument("--print-freq", type=int, default=None)
     st.add_argument("--num-workers", type=int, default=None)
     st.add_argument("--n-data-shards", type=int, default=None,
-                    help="data-parallel processes; must equal their number (default: their number)")
+                    help="the data axis; must equal the processes over --n-disp-shards (default: that)")
     st.add_argument("--n-disp-shards", type=int, default=None,
-                    help="must be 1: disparity-sharded training is ROADMAP Queue 1 item 4 (eval takes N)")
+                    help="processes that split the cost volumes' disparity planes (DCANet family; default 1)")
     st.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     se = sub.add_parser("eval", help="EPE / D1 / >1,2,3 px and DCA class scores on a preset's test split")
     se.add_argument("--preset", default="sceneflow", choices=sorted(PRESETS))

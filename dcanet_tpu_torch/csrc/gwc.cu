@@ -86,6 +86,18 @@
 // straddles d by hand. Staged rows span TW + halo columns (halo = D rounded
 // up to kND, at most kHalo); a pass whose rows end beyond the halo (D >
 // kHalo) stages twice, Gv from w0 for dL and from w0 + dc for dR.
+//
+// Plane range (gwc_volume_backward_* with d_lo > 0): Gv holds the planes
+// d_lo <= d < d_lo + D of the volume, plane k disparity d_lo + k (a rank of
+// the disparity-sharded train step holds only its own), and dL, dR are
+// that range's part of the sums above. The passes start at dbase = d_lo
+// rounded down to kND, so that every window of R, L and Gv starts on a
+// whole 16-byte vector as in the whole volume; the up to kND - 1 rows below
+// d_lo are staged as zeros, and the windows and the occlusion test take the
+// absolute disparity dbase + d. Gv's window for dR then no longer starts at
+// w0, so above dbase = 0 no pass serves dL and dR from one staging (every
+// pass stages twice). Launches from d_lo = 0, the whole volume's among
+// them, take an instantiation without that arithmetic (kRange = false).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -440,7 +452,10 @@ int bwd_tile_width(int W) {
 template <typename T>
 struct BwdPlan {
   int halo, pass, pitch, passes, joint;
-  __host__ __device__ BwdPlan(int D, int TW) {
+  // D: the rows the passes cover; dbase: the disparity of the first (a
+  // plane range's; above 0 no pass is joint, as dR's window of Gv then
+  // starts at w0 + dbase + dc)
+  __host__ __device__ BwdPlan(int D, int TW, int dbase = 0) {
     using F = BwdTile<T>;
     const int d = (D + F::kND - 1) / F::kND * F::kND;
     halo = d < F::kHalo ? d : F::kHalo;
@@ -450,6 +465,7 @@ struct BwdPlan {
     const int full = halo / pass;  // passes wholly inside the window
     joint = passes < full ? passes : full;
     if (passes > full && full * pass + rows(D, full * pass) <= halo) ++joint;
+    if (dbase) joint = 0;
   }
   // rows of Gv a pass at dc stages: up to D rounded up to kND
   __host__ __device__ int rows(int D, int dc) const {
@@ -462,7 +478,7 @@ struct BwdPlan {
 // Dynamic shared memory of the backward kernel: two buffers, each with
 // `pass` rows of Gv and the group's rows of L and R, `pitch` elements each;
 // then the f32 partial sums of all but the first of each set's kSplit
-// threads.
+// threads. D: the rows the passes cover (a plane range's D + d_lo % kND).
 template <typename T>
 long long bwd_smem_bytes(int cpg, int D, int TW) {
   const BwdPlan<T> plan(D, TW);
@@ -470,12 +486,19 @@ long long bwd_smem_bytes(int cpg, int D, int TW) {
          (bwd_split<T>(cpg, TW) - 1) * 2LL * cpg * TW * (long long)sizeof(float);
 }
 
-template <typename T, int CPG, int TW>
+// Rows the backward's passes cover for D planes from d_lo: D, and for a
+// range from d_lo > 0 the d_lo % kND zero rows below it.
+template <typename T>
+int bwd_rows(int D, int d_lo) {
+  return D + (d_lo ? d_lo % BwdTile<T>::kND : 0);
+}
+
+template <typename T, int CPG, int TW, bool kRange>
 __global__ void __launch_bounds__(BwdShape<T, CPG, TW>::kThreads)
 gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ left,
                            const T* __restrict__ right, T* __restrict__ dleft,
-                           T* __restrict__ dright, int H, int W, int D, int tiles, int items,
-                           bool vec) {
+                           T* __restrict__ dright, int H, int W, int D, int d_lo, int tiles,
+                           int items, bool vec) {
   using E = Elem<T>;
   using S = typename E::bits;
   using F = BwdTile<T>;
@@ -489,7 +512,11 @@ gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ lef
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* const smem = reinterpret_cast<S*>(smem_raw);
 
-  const BwdPlan<T> plan(D, TW);
+  // the passes cover the rows dbase + [0, DT), absolute disparities: Gv's
+  // planes from d_lo = dbase + off on, dbase aligned to kND, the rows below
+  // zeros; without kRange (d_lo = 0) the same code as a kernel with no range
+  const int off = kRange ? d_lo % ND : 0, dbase = kRange ? d_lo - off : 0, DT = D + off;
+  const BwdPlan<T> plan(DT, TW, dbase);
   const int P = plan.pitch, phases = plan.phases();
   const int buf_elems = (plan.pass + 2 * CPG) * P;
   // partial sums of threads e > 0: [dL, dR][e - 1][channel][column]
@@ -528,7 +555,8 @@ gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ lef
                 reinterpret_cast<S*>(dright) + fbase};
   };
   // An item's phases: pass p < joint for dL and dR; then each later pass
-  // once for dL and once for dR. a: Gv's window starts at w0 + a.
+  // once for dL and once for dR. a: Gv's window starts at w0 + a (for dR
+  // alone at the pass's first disparity, dbase + dc).
   struct Phase {
     int dc, rows, a;
     bool dl, dr;
@@ -544,8 +572,8 @@ gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ lef
       x.dl = k % 2 == 0;
       x.dr = !x.dl;
     }
-    x.rows = plan.rows(D, x.dc);
-    x.a = x.dl ? 0 : x.dc;
+    x.rows = plan.rows(DT, x.dc);
+    x.a = x.dl ? 0 : dbase + x.dc;
     return x;
   };
   // f(row, column) for the vectors of a rows x vecs region, the block's
@@ -563,24 +591,26 @@ gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ lef
       }
     }
   };
-  // A phase's windows into buffer buf, one commit group: Gv rows dc + [0,
-  // rows) over w0 + a + [0, TW), or + [0, TW + dc - a + rows) where dR reads
-  // them; for dL R[w0 - dc - rows + [0, TW + rows)), for dR L[w0 + dc +
-  // [0, TW + rows)). Zeros outside [0, W), and for dL in place of the
-  // vectors of Gv that lie wholly left of their row's d (occluded).
+  // A phase's windows into buffer buf, one commit group, with dca = dbase +
+  // dc the disparity of its first row: Gv rows dc + [0, rows) over w0 + a +
+  // [0, TW), or + [0, TW + dca - a + rows) where dR reads them; for dL
+  // R[w0 - dca - rows + [0, TW + rows)), for dR L[w0 + dca + [0, TW +
+  // rows)). Zeros outside [0, W), in place of the rows outside Gv's planes,
+  // and for dL in place of the vectors of Gv that lie wholly left of their
+  // row's disparity (occluded).
   auto stage = [&](const Item& it, const Phase& x, int buf) {
     S* gs = smem + buf * buf_elems;
     S* ls = gs + plan.pass * P;
     S* rs = ls + CPG * P;
-    const int ga = it.w0 + x.a;
-    for_each_vector(x.rows, (x.dr ? TW + x.dc - x.a + x.rows : TW) / V, [&](int row, int j) {
+    const int ga = it.w0 + x.a, dca = dbase + x.dc;
+    for_each_vector(x.rows, (x.dr ? TW + dca - x.a + x.rows : TW) / V, [&](int row, int j) {
       const int d = x.dc + row;
-      const bool live = d < D && !(x.dl && ga + j + V <= d);
-      stage_run<S, V>(it.g + (live ? d : 0) * plane, ga + j, live ? W : 0, vec, gs + row * P + j);
+      const bool live = (!kRange || d >= off) && d < DT && !(x.dl && ga + j + V <= dbase + d);
+      stage_run<S, V>(it.g + (live ? d - off : 0) * plane, ga + j, live ? W : 0, vec, gs + row * P + j);
     });
     for_each_vector(CPG, (TW + x.rows) / V, [&](int c, int j) {
-      if (x.dl) stage_run<S, V>(it.r + c * plane, it.w0 - x.dc - x.rows + j, W, vec, rs + c * P + j);
-      if (x.dr) stage_run<S, V>(it.l + c * plane, it.w0 + x.dc + j, W, vec, ls + c * P + j);
+      if (x.dl) stage_run<S, V>(it.r + c * plane, it.w0 - dca - x.rows + j, W, vec, rs + c * P + j);
+      if (x.dr) stage_run<S, V>(it.l + c * plane, it.w0 + dca + j, W, vec, ls + c * P + j);
     });
     cp_async_commit();
   };
@@ -614,23 +644,24 @@ gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ lef
     const Phase x = phase_of(phase);
     const int w = it.w0 + q * V;  // this thread's first column
     S* const gs = smem + buf * buf_elems;
-    if (x.dl && it.w0 < x.dc + x.rows - 1) {
+    if (x.dl && it.w0 < dbase + x.dc + x.rows - 1) {
       // the occluded Gv[d, u < d] never reach dL (dR reads only u >= d):
       // staging put zeros in place of whole vectors of them, here the rest
       for (int row = t; row < x.rows; row += NT) {
-        const int occluded = x.dc + row - it.w0;  // columns [0, occluded) of the row
+        const int occluded = dbase + x.dc + row - it.w0;  // columns [0, occluded) of the row
         if (occluded > 0 && occluded < TW)
           for (int u = occluded - occluded % V; u < occluded; ++u) gs[row * P + u] = S(0);
       }
       __syncthreads();
     }
     if (w < W && !is_dr && x.dl) {
-      // dL(c, w + v) += Gv[d0 + k, w + v] R[c, w + v - d0 - k]; the strip
-      // r[i] = R[c, w - d0 - kND + i] from rs[c][q*kV + rows - (j + 1)*kND]
+      // dL(c, w + v) += Gv[d0 + k, w + v] R[c, w + v - dbase - d0 - k]; the
+      // strip r[i] = R[c, w - dbase - d0 - kND + i] from rs[c][q*kV + rows -
+      // (j + 1)*kND]
       const S* rs = gs + (plan.pass + CPG) * P;
       for (int j = e; j * ND < x.rows; j += SPLIT) {
         const int d0 = x.dc + j * ND;
-        if (d0 >= D || d0 >= w + V) break;  // later d lie past D or right of every column (w < d)
+        if (d0 >= DT || dbase + d0 >= w + V) break;  // later d lie past D or right of every column (w < d)
         unsigned gw[ND][VW], rw[CH][SW];  // every load of the step first, then the products
 #pragma unroll
         for (int k = 0; k < ND; ++k) lds_words(gs + (j * ND + k) * P + q * V, gw[k]);
@@ -654,13 +685,13 @@ gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ lef
       }
     }
     if (w < W && is_dr && x.dr) {
-      // dR(c, w + v) += Gv[d0 + k, w + v + d0 + k] L[c, w + v + d0 + k]: row
-      // j*kND + k of Gv at column q*kV + d0 - dc + (dc - a) + k + v, and the
-      // strip l[i] = L[c, w + d0 + i] from ls[c][q*kV + j*kND]
+      // dR(c, w + v) += Gv[d0 + k, w + v + e0 + k] L[c, w + v + e0 + k], e0 =
+      // dbase + d0: row j*kND + k of Gv at column q*kV + e0 - a + k + v, and
+      // the strip l[i] = L[c, w + e0 + i] from ls[c][q*kV + j*kND]
       const S* ls = gs + plan.pass * P;
       for (int j = e; j * ND < x.rows; j += SPLIT) {
         const int d0 = x.dc + j * ND;
-        if (d0 >= D || w + d0 >= W) break;  // later d lie past D or read only zeros past W
+        if (d0 >= DT || w + dbase + d0 >= W) break;  // later d lie past D or read only zeros past W
         unsigned lw[CH][SW];
 #pragma unroll
         for (int c = 0; c < CH; ++c) lds_words(ls + (c0 + c) * P + q * V + j * ND, lw[c]);
@@ -668,7 +699,7 @@ gwc_volume_backward_kernel(const T* __restrict__ grad, const T* __restrict__ lef
 #pragma unroll
         for (int k = 0; k < ND; ++k) {
           const int o = k % V;  // known at compile time once unrolled
-          const S* row = gs + (j * ND + k) * P + q * V + d0 - x.a + (k - o);
+          const S* row = gs + (j * ND + k) * P + q * V + dbase + d0 - x.a + (k - o);
           if (o == 0) {
             unsigned y[VW];
             lds_words(row, y);
@@ -806,30 +837,30 @@ int launch(const void* left, const void* right, void* out, int B, int C, int H, 
 // measurable time).
 template <typename T, int CPG, int TW>
 cudaError_t launch_backward_tw(const T* gv, const T* l, const T* r, T* dl, T* dr, int B, int G, int H,
-                               int W, int D, int sms, bool vec, cudaStream_t s) {
-  auto kernel = gwc_volume_backward_kernel<T, CPG, TW>;
+                               int W, int D, int d_lo, int sms, bool vec, cudaStream_t s) {
+  auto kernel = d_lo ? gwc_volume_backward_kernel<T, CPG, TW, true> : gwc_volume_backward_kernel<T, CPG, TW, false>;
   constexpr int threads = BwdShape<T, CPG, TW>::kThreads;
   const long long tiles = (W + TW - 1) / TW;
   const long long items = (long long)B * G * H * tiles;
   if (items > 0x3fffffffLL) return cudaErrorInvalidValue;  // item + gridDim.x stays an int
-  const int smem = (int)bwd_smem_bytes<T>(CPG, D, TW);
+  const int smem = (int)bwd_smem_bytes<T>(CPG, bwd_rows<T>(D, d_lo), TW);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = grid_size(items, tiles, (long long)sms * std::max(per_sm, 1));
-  kernel<<<(unsigned)blocks, threads, smem, s>>>(gv, l, r, dl, dr, H, W, D, (int)tiles, (int)items, vec);
+  kernel<<<(unsigned)blocks, threads, smem, s>>>(gv, l, r, dl, dr, H, W, D, d_lo, (int)tiles, (int)items, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_backward(const void* grad, const void* left, const void* right, void* dleft,
-                    void* dright, int B, int C, int H, int W, int G, int D, int device,
+                    void* dright, int B, int C, int H, int W, int G, int D, int d_lo, int device,
                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (G <= 0 || C % G != 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  if (G <= 0 || C % G != 0 || D <= 0 || d_lo < 0) return (int)cudaErrorInvalidValue;
   if ((long long)B * G * H * W == 0) return 0;
   constexpr int TW = BwdTile<T>::kTW;
   constexpr unsigned kAlign = BwdTile<T>::kV * sizeof(T);
@@ -847,10 +878,11 @@ int launch_backward(const void* grad, const void* left, const void* right, void*
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  if (bwd_smem_bytes<T>(C / G, D, bwd_tile_width<T>(W)) > optin) return (int)cudaErrorInvalidConfiguration;
-#define GWC_BWD(CPG)                                                                                  \
-  err = narrow ? launch_backward_tw<T, CPG, TW / 2>(gv, l, r, dl, dr, B, G, H, W, D, sms, vec, s)    \
-               : launch_backward_tw<T, CPG, TW>(gv, l, r, dl, dr, B, G, H, W, D, sms, vec, s);       \
+  if (bwd_smem_bytes<T>(C / G, bwd_rows<T>(D, d_lo), bwd_tile_width<T>(W)) > optin)
+    return (int)cudaErrorInvalidConfiguration;
+#define GWC_BWD(CPG)                                                                                    \
+  err = narrow ? launch_backward_tw<T, CPG, TW / 2>(gv, l, r, dl, dr, B, G, H, W, D, d_lo, sms, vec, s) \
+               : launch_backward_tw<T, CPG, TW>(gv, l, r, dl, dr, B, G, H, W, D, d_lo, sms, vec, s);    \
   break;
   switch (C / G) {
     case 1: GWC_BWD(1)
@@ -869,7 +901,8 @@ int launch_backward(const void* grad, const void* left, const void* right, void*
 
 // Plain C interface for ctypes. Pointers and the stream are passed as
 // void*; the return value is the cudaError_t of the launch (0 = success).
-// The forward writes the D planes d_lo, ..., d_lo + D - 1 of the volume.
+// The forward writes the D planes d_lo, ..., d_lo + D - 1 of the volume;
+// the backward takes their grad and makes their part of dL and dR.
 extern "C" int gwc_volume_f32(const void* left, const void* right, void* out, int B, int C,
                               int H, int W, int G, int D, int d_lo, int device, void* stream) {
   return launch<float>(left, right, out, B, C, H, W, G, D, d_lo, device, stream);
@@ -882,8 +915,8 @@ extern "C" int gwc_volume_bf16(const void* left, const void* right, void* out, i
 
 extern "C" int gwc_volume_backward_f32(const void* grad, const void* left, const void* right,
                                        void* dleft, void* dright, int B, int C, int H, int W,
-                                       int G, int D, int device, void* stream) {
-  return launch_backward<float>(grad, left, right, dleft, dright, B, C, H, W, G, D, device,
+                                       int G, int D, int d_lo, int device, void* stream) {
+  return launch_backward<float>(grad, left, right, dleft, dright, B, C, H, W, G, D, d_lo, device,
                                 stream);
 }
 
@@ -891,16 +924,18 @@ extern "C" int gwc_volume_backward_f32(const void* grad, const void* left, const
 // card allows cudaDevAttrMaxSharedMemoryPerBlockOptin); -1 for a shape the
 // kernels do not take. A launch that would ask for more fails with
 // cudaErrorInvalidConfiguration.
-extern "C" long long gwc_volume_backward_smem_bytes(int C, int W, int G, int D, int elem_bytes) {
-  if (G <= 0 || C % G != 0 || D <= 0 || W <= 0) return -1;
-  if (elem_bytes == 4) return bwd_smem_bytes<float>(C / G, D, bwd_tile_width<float>(W));
-  if (elem_bytes == 2) return bwd_smem_bytes<__nv_bfloat16>(C / G, D, bwd_tile_width<__nv_bfloat16>(W));
+extern "C" long long gwc_volume_backward_smem_bytes(int C, int W, int G, int D, int d_lo, int elem_bytes) {
+  if (G <= 0 || C % G != 0 || D <= 0 || W <= 0 || d_lo < 0) return -1;
+  if (elem_bytes == 4) return bwd_smem_bytes<float>(C / G, bwd_rows<float>(D, d_lo), bwd_tile_width<float>(W));
+  if (elem_bytes == 2)
+    return bwd_smem_bytes<__nv_bfloat16>(C / G, bwd_rows<__nv_bfloat16>(D, d_lo),
+                                         bwd_tile_width<__nv_bfloat16>(W));
   return -1;
 }
 
 extern "C" int gwc_volume_backward_bf16(const void* grad, const void* left, const void* right,
                                         void* dleft, void* dright, int B, int C, int H, int W,
-                                        int G, int D, int device, void* stream) {
+                                        int G, int D, int d_lo, int device, void* stream) {
   return launch_backward<__nv_bfloat16>(grad, left, right, dleft, dright, B, C, H, W, G, D,
-                                        device, stream);
+                                        d_lo, device, stream);
 }

@@ -6,7 +6,9 @@ dcanet_tpu/data/loader.py).
     share of the global batch.
   * `Loader`: epoch-seeded shuffling, thread-pool decode, fixed-shape
     batches of numpy arrays, the next batch assembled while the current one
-    is consumed; each process iterates its `shard_for_host` share.
+    is consumed; each process iterates its `shard_for_host` share, by its
+    place on the data axis where it is given (`shard`: the disp ranks of a
+    row of a (data, disp) grid load the same rows).
   * `device_prefetch`: the torch twin of the JAX package's device_prefetch
     (loader.py:157-194): batches become tensors on the device `depth` steps
     ahead, copied from pinned host memory on a side CUDA stream, so the copy
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
-from typing import Dict, Iterable, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,14 +62,16 @@ class Loader:
     dataset: StereoDataset-like (len + __getitem__ -> dict of arrays). All
     samples of a batch must share shapes (training crops do; for eval use
     batch_size=1 or pre-padded datasets). Batches of `batch_size` are cut
-    from this process's `shard_for_host` share (with one process: the whole
-    epoch permutation).
+    from the `shard_for_host` share of `shard` = (index, count), by default
+    (process_index(), process_count()) (with one process: the whole epoch
+    permutation).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 num_workers: int = 8, drop_last: bool = True):
+                 num_workers: int = 8, drop_last: bool = True, shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = shard or (distributed.process_index(), distributed.process_count())
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
@@ -80,12 +84,12 @@ class Loader:
             self.dataset.reseed(self.seed + epoch)
 
     def __len__(self) -> int:
-        n, pc = len(self.dataset), distributed.process_count()
+        n, pc = len(self.dataset), self.shard[1]
         n = n // pc if self.drop_last else -(-n // pc)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        indices = shard_for_host(len(self.dataset), seed=self.seed + self.epoch, shuffle=self.shuffle)
+        indices = shard_for_host(len(self.dataset), *self.shard, seed=self.seed + self.epoch, shuffle=self.shuffle)
         # len(self) batches: with drop_last the padded tail of a share that
         # the JAX package would yield as one more batch is dropped, so every
         # global batch is a one-process batch

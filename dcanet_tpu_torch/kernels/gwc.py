@@ -6,7 +6,8 @@ linear transposes there). Layouts: features NCHW (B, C, H, W), volume NCDHW
 (B, G, D, H, W); f32 or bf16, accumulated in f32.
 
 - `gwc_volume_reference`: the plain PyTorch version (ops/cost_volume.py);
-  `gwc_volume_backward_reference`: autograd through it.
+  `gwc_volume_backward_reference`: autograd through it (of a plane range
+  too).
 - `gwc_volume_cuda`, `gwc_volume_backward_cuda`: launch the forward and
   backward kernels on the current stream of the tensors' device; raise on
   anything the kernels do not take.
@@ -15,12 +16,14 @@ linear transposes there). Layouts: features NCHW (B, C, H, W), volume NCDHW
   the kernels. There is no fallback: a CUDA input either launches the
   kernels or raises.
 
-The forwards take `planes=(d_lo, d_hi)`: the volume's planes d_lo <= d <
+Every entry takes `planes=(d_lo, d_hi)`: the volume's planes d_lo <= d <
 d_hi alone, (B, G, d_hi - d_lo, H, W), plane k holding disparity d_lo + k
-(a rank of the disparity-sharded eval builds only its own). The backward
-takes the whole volume; `GwcVolume` refuses a plane range's gradient.
+(a rank of the disparity-sharded eval and train step builds only its own);
+the backward of a range makes that range's part of dL and dR, which the
+ranks' parts sum to.
 
-`LAUNCHES` and `BACKWARD_LAUNCHES` count kernel launches and nothing else.
+`LAUNCHES` and `BACKWARD_LAUNCHES` count kernel launches and nothing else;
+`RANGE_BACKWARD_LAUNCHES` the backward's launches over a part of the planes.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from dcanet_tpu_torch.ops.cost_volume import build_gwc_volume as gwc_volume_refe
 
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+RANGE_BACKWARD_LAUNCHES = 0
 
 _SUPPORTED_CPG = (1, 2, 4, 8, 16, 32)  # channels per group the kernels are built for
 _FUNCS = {torch.float32: "gwc_volume_f32", torch.bfloat16: "gwc_volume_bf16"}
@@ -44,7 +48,7 @@ _BWD_FUNCS = {torch.float32: "gwc_volume_backward_f32", torch.bfloat16: "gwc_vol
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("gwc")
-    for names, n_ptr, n_int in ((_FUNCS, 3, 8), (_BWD_FUNCS, 5, 7)):
+    for names, n_ptr, n_int in ((_FUNCS, 3, 8), (_BWD_FUNCS, 5, 8)):
         for fname in names.values():
             fn = getattr(lib, fname)
             if fn.argtypes is None:
@@ -52,7 +56,7 @@ def _lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
     fn = lib.gwc_volume_backward_smem_bytes
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 5
+        fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_longlong
     return lib
 
@@ -103,16 +107,20 @@ def gwc_volume_cuda(
 
 
 def gwc_volume_backward_cuda(
-    grad: torch.Tensor, left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
+    grad: torch.Tensor, left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int,
+    planes: Optional[Tuple[int, int]] = None,
 ):
-    """The CUDA backward kernel: the volume's grad (B, G, D, H, W) and the
-    forward's features -> (dL, dR), each (B, C, H, W) in the features' type."""
-    global BACKWARD_LAUNCHES
+    """The CUDA backward kernel: the grad of the volume's planes [d_lo, d_hi)
+    (B, G, d_hi - d_lo, H, W; all D without `planes`) and the forward's
+    features -> their part of (dL, dR), each (B, C, H, W) in the features'
+    type."""
+    global BACKWARD_LAUNCHES, RANGE_BACKWARD_LAUNCHES
+    d_lo, d_hi = plane_range(maxdisp, planes)
     _check(left, right, maxdisp, num_groups)
     b, c, h, w = left.shape
-    if grad.shape != (b, num_groups, maxdisp, h, w) or grad.dtype != left.dtype:
+    if grad.shape != (b, num_groups, d_hi - d_lo, h, w) or grad.dtype != left.dtype:
         raise ValueError(
-            f"gwc backward needs a {left.dtype} grad of shape {(b, num_groups, maxdisp, h, w)}, "
+            f"gwc backward needs a {left.dtype} grad of shape {(b, num_groups, d_hi - d_lo, h, w)}, "
             f"got {grad.dtype} {tuple(grad.shape)}"
         )
     if grad.device != left.device or not grad.is_contiguous():
@@ -123,51 +131,52 @@ def gwc_volume_backward_cuda(
     stream = torch.cuda.current_stream(left.device).cuda_stream
     err = fn(
         grad.data_ptr(), left.data_ptr(), right.data_ptr(), dleft.data_ptr(), dright.data_ptr(),
-        b, c, h, w, num_groups, maxdisp, left.device.index, stream,
+        b, c, h, w, num_groups, d_hi - d_lo, d_lo, left.device.index, stream,
     )
     if err != 0:
-        smem = lib.gwc_volume_backward_smem_bytes(c, w, num_groups, maxdisp, left.element_size())
+        smem = lib.gwc_volume_backward_smem_bytes(c, w, num_groups, d_hi - d_lo, d_lo, left.element_size())
         limit = getattr(torch.cuda.get_device_properties(left.device), "shared_memory_per_block_optin", None)
         raise RuntimeError(
             f"gwc backward kernel launch failed with CUDA error {err}; it asks for {smem} bytes of shared "
-            f"memory per block (C/G={c // num_groups}, D={maxdisp}), the card allows {limit}"
+            f"memory per block (C/G={c // num_groups}, planes [{d_lo}, {d_hi})), the card allows {limit}"
         )
     BACKWARD_LAUNCHES += 1
+    if (d_lo, d_hi) != (0, maxdisp):
+        RANGE_BACKWARD_LAUNCHES += 1
     return dleft, dright
 
 
 def gwc_volume_backward_reference(
-    grad: torch.Tensor, left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int
+    grad: torch.Tensor, left: torch.Tensor, right: torch.Tensor, maxdisp: int, num_groups: int,
+    planes: Optional[Tuple[int, int]] = None,
 ):
-    """The plain backward: autograd through `gwc_volume_reference`."""
+    """The plain backward: autograd through `gwc_volume_reference` (of the
+    planes [d_lo, d_hi) with `planes`)."""
     with torch.enable_grad():
         l, r = left.detach().requires_grad_(), right.detach().requires_grad_()
-        vol = gwc_volume_reference(l, r, maxdisp, num_groups)
+        vol = gwc_volume_reference(l, r, maxdisp, num_groups, planes)
+        if not vol.requires_grad:  # every plane at or past W: all zeros, whatever the features
+            return torch.zeros_like(left), torch.zeros_like(right)
         dleft, dright = torch.autograd.grad(vol, (l, r), grad)
     return dleft, dright
 
 
 class GwcVolume(torch.autograd.Function):
-    """The gwc volume on CUDA tensors: forward and backward are the kernels.
-    The backward takes the whole volume's gradient: a plane range's raises
-    (the disparity-sharded train step is ROADMAP Queue 1 item 4)."""
+    """The gwc volume on CUDA tensors, of all planes or of a range: forward
+    and backward are the kernels."""
 
     @staticmethod
     def forward(ctx, left, right, maxdisp: int, num_groups: int, planes=None):
         ctx.save_for_backward(left, right)
-        ctx.maxdisp, ctx.num_groups = maxdisp, num_groups
-        ctx.partial = plane_range(maxdisp, planes) != (0, maxdisp)
+        ctx.maxdisp, ctx.num_groups, ctx.planes = maxdisp, num_groups, planes
         return gwc_volume_cuda(left, right, maxdisp, num_groups, planes)
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.partial:
-            raise NotImplementedError(
-                "the gwc backward takes the whole volume; a plane range's gradient (disparity-sharded "
-                "training) is ROADMAP Queue 1 item 4"
-            )
         left, right = ctx.saved_tensors
-        dleft, dright = gwc_volume_backward_cuda(grad.contiguous(), left, right, ctx.maxdisp, ctx.num_groups)
+        dleft, dright = gwc_volume_backward_cuda(
+            grad.contiguous(), left, right, ctx.maxdisp, ctx.num_groups, ctx.planes
+        )
         return dleft, dright, None, None, None
 
 

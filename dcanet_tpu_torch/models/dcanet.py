@@ -36,13 +36,15 @@ float32, also under bf16 autocast. Layouts: images (B, 3, H, W), disparity
 (B, D/8, H/8, W/8).
 
 `constrain_volume` (the JAX field's name) takes the plan of
-`parallel.make_disp_constraint(mesh)`: in eval, each rank of the mesh's
-disp axis builds (the gwc kernel's plane range), aggregates and holds only
-its planes of every volume, the 3x3x3 chain on halos; the CVA's class
-logits and the final cost are gathered whole, so that the softmax,
-soft-argmin and `prop` run replicated and every rank returns the unsharded
-forward's result. A train-mode forward with a plan that shards raises
-(ROADMAP Queue 1 item 4).
+`parallel.make_disp_constraint(mesh)`: in eval and in training, each rank
+of the mesh's disp axis builds (the gwc kernel's plane range), aggregates
+and holds only its planes of every volume, the 3x3x3 chain and the
+classif heads on halos; the CVA's class logits and every head's cost are
+gathered whole, so that the softmax, soft-argmin, `prop` and the losses
+run replicated and every rank returns the unsharded forward's result. In
+training the backward's exchanges mirror the forward's (parallel/
+sharding.py), the gwc volume's backward is the plane range's, and with
+`remat` each CVA block's recomputation repeats its exchanges.
 
 GwcNetBaseline (reference models/gwcnet.py:107-249): the same features and
 volumes, dres0/dres1, three stacked Hourglass3D aggregators (dres2-4) and
@@ -165,7 +167,7 @@ class DCANet(nn.Module):
     def _cva(self, i: int, x: torch.Tensor, post_residual, shard=None):
         block = getattr(self, f"cva{i}")
         if self.remat and self.training and torch.is_grad_enabled():
-            return checkpoint(block, x, post_residual, use_reentrant=False, context_fn=_remat_contexts)
+            return checkpoint(block, x, post_residual, shard, use_reentrant=False, context_fn=_remat_contexts)
         return block(x, post_residual, shard)
 
     def _head(self, i: int, x: torch.Tensor, shard=None) -> torch.Tensor:
@@ -176,10 +178,6 @@ class DCANet(nn.Module):
         """left, right: (B, 3, H, W) with H, W multiples of 16."""
         d4 = self.maxdisp // 4
         shard = None if self.constrain_volume is None else self.constrain_volume.split(d4)
-        if shard is not None and self.training:
-            raise NotImplementedError(
-                "a disparity-sharded forward is eval only; disparity-sharded training is ROADMAP Queue 1 item 4"
-            )
         feats_l, feats_r = stereo_features(self.feature_extraction, left, right, self.stacked_features)
         guidance = self.guidance(left)
         volume = cost_volume(feats_l, feats_r, d4, self.num_groups, self.use_concat_volume,
@@ -202,7 +200,7 @@ class DCANet(nn.Module):
         if not self.training:
             return DCANetEvalOutput(disparity=disparity, class_logits=tuple(cva_logits))
 
-        heads = {i: self._head(i, outs[i]) for i in range(self.num_cva)}
+        heads = {i: self._head(i, outs[i], shard) for i in range(self.num_cva)}
         with torch.autocast(device_type=final_cost.device.type, enabled=False):
             if self.full_res_supervision:
                 disparities = [_upsampled_disparity(lg, 8, self.maxdisp) for lg in cva_logits]

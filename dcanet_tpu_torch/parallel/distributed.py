@@ -10,9 +10,12 @@ explicit:
     `DCANET_PROCESS_ID`): NCCL for a CUDA device, gloo for the CPU;
   * `sync_hosts()` is a barrier (around checkpoints); `shutdown()` leaves
     the group at the end of a program;
-  * `all_reduce_sum(t)` sums over the ranks, and its gradient is summed
-    too (BatchNorm's statistics, the loss counts, the gradients and the
-    metrics go through it);
+  * `all_reduce_sum(t, group)` sums over the ranks, or over a subgroup's,
+    and its gradient is summed the same way (BatchNorm's statistics, the
+    loss counts, the gradients and the metrics over the world; the
+    disparity-sharded volume's exchanges over a disp subgroup);
+  * `new_subgroups(rows)` forms one subgroup per list of ranks, on every
+    rank in the same order, and returns this rank's;
   * `process_index()` / `process_count()` are jax.process_index() /
     jax.process_count(): 0 and 1 without a process group.
 """
@@ -20,7 +23,7 @@ explicit:
 from __future__ import annotations
 
 import os
-from typing import Optional, Union
+from typing import Iterable, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -96,24 +99,43 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def group_size(group=None) -> int:
+    """The ranks of `group` (the world for None); 1 without a process group."""
+    return dist.get_world_size(group) if dist.is_available() and dist.is_initialized() else 1
+
+
+def new_subgroups(rows: Iterable[Sequence[int]]):
+    """One process group for each list of ranks in `rows`, formed on every
+    rank in the same order (`dist.new_group` asks every rank to form every
+    group); the group that holds this rank, None if none does."""
+    mine, me = None, process_index()
+    for ranks in rows:
+        group = dist.new_group(ranks=list(ranks))
+        if me in ranks:
+            mine = group
+    return mine
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; the gradient of a sum over the ranks is the sum
-    of the ranks' gradients."""
+    """Sum over the ranks of a group; the gradient of a sum over the ranks
+    is the sum of the ranks' gradients, over the same group."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
-        return out
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over the ranks (a new tensor), differentiable; `t`
-    itself with one process. Every rank must call it in the same order."""
-    return _AllReduceSum.apply(t) if process_count() > 1 else t
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `t` over the ranks of `group` (the world for None), a new
+    tensor, differentiable; `t` itself with one rank. Every rank of the
+    group must call it in the same order."""
+    return _AllReduceSum.apply(t, group) if group_size(group) > 1 else t

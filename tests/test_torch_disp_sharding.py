@@ -25,9 +25,9 @@ CPU: ranks under gloo against one process and against the JAX package.
   >1/2/3 px within 1e-3, each pair's confusion within 1 % of its total in
   L1 (tests/test_torch_eval.py's bounds); rank 1 writes no file, and the
   ranks return the same results;
-- the refusals: a train-mode forward with a plan that shards, `gwcnet-gc`
-  with a plan, `cli train --n-disp-shards 2` over 2 ranks, a disp axis that
-  is not the number of processes.
+- the refusals: `gwcnet-gc` with a plan, a disp axis that is not the
+  number of processes; a (data, disp) grid gives a plan (its training is
+  tests/test_torch_disp_train.py's).
 
 The ranks are child processes (`_child`), each joined within
 CHILD_TIMEOUT_S and killed after it; a child's traceback fails the test.
@@ -76,8 +76,7 @@ METRIC_TOLS = {"epe": 5e-3, "d1": 1e-3, "thres1": 1e-3, "thres2": 1e-3, "thres3"
 
 # ---- the ranks ----
 
-_CHILD = ("import sys; sys.path[:0] = sys.argv[1:3]; import test_torch_disp_sharding as t; "
-          "t._child(*sys.argv[3:])")
+_CHILD = "import sys; sys.path[:0] = sys.argv[1:3]; import {} as t; t._child(*sys.argv[3:])"
 
 
 def _free_port() -> int:
@@ -86,8 +85,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _start_ranks(world: int, spec: dict, workdir) -> dict:
-    """Start `_child` as `world` processes; `_join_ranks` waits."""
+def _start_ranks(world: int, spec: dict, workdir, module: str = "test_torch_disp_sharding") -> dict:
+    """Start `module`'s `_child` as `world` processes, each given its rank,
+    the world, two free ports, the spec's path and its output's path;
+    `_join_ranks` waits."""
     workdir.mkdir(parents=True, exist_ok=True)
     spec_path = workdir / "spec.pt"
     torch.save(spec, spec_path)
@@ -98,8 +99,8 @@ def _start_ranks(world: int, spec: dict, workdir) -> dict:
     for rank in range(world):
         with open(workdir / f"rank{rank}.log", "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", _CHILD, TESTS, REPO, str(rank), str(world), *ports, str(spec_path),
-                 str(workdir / f"rank{rank}.pt")],
+                [sys.executable, "-c", _CHILD.format(module), TESTS, REPO, str(rank), str(world), *ports,
+                 str(spec_path), str(workdir / f"rank{rank}.pt")],
                 cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
             ))
     return {"procs": procs, "workdir": workdir, "deadline": time.monotonic() + CHILD_TIMEOUT_S}
@@ -242,19 +243,13 @@ def _record_confusions(mp, module, to_numpy):
 
 
 def _cli_job(spec):
-    """`cli train --n-disp-shards 2`'s refusal, then `cli eval --n-disp-shards 2`
-    with its confusions and the paths it writes."""
-    try:
-        cli.main(["train", "--preset", "sceneflow", "--data-root", str(spec["root"]), "--logdir",
-                  str(spec["logdir"]), "--maxdisp", str(MAXDISP), "--n-disp-shards", "2", "--device", "cpu"])
-        train_error = None
-    except NotImplementedError as e:
-        train_error = str(e)
+    """`cli eval --n-disp-shards 2` with its confusions and the paths it
+    writes."""
     with pytest.MonkeyPatch.context() as mp:
         calls = _record_confusions(mp, tmetrics, torch.Tensor.numpy)
         with writes_under(str(spec["logdir"]), []) as written:
             results = cli.main(_eval_args(spec["root"], spec["logdir"], spec["ckpt"], "--n-disp-shards", "2"))
-    return {"results": results, "confusions": calls, "written": written, "train_error": train_error}
+    return {"results": results, "confusions": calls, "written": written}
 
 
 def _jax_eth3d_canvas(item, preset):
@@ -507,26 +502,15 @@ def test_cli_eval_leaves_the_group_it_formed(runs):
 
 # ---- refusals ----
 
-def test_train_mode_with_a_sharding_plan_is_refused():
-    model = DCANet(maxdisp=MAXDISP, num_cva=1, constrain_volume=make_disp_constraint(Mesh(1, 2, 0, 0))).train()
-    x = torch.zeros(1, 3, 32, 64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        model(x, x)
-
-
 @pytest.mark.parametrize("name", ["gwcnet-gc", "gwcnet-g", "ganet"])
 def test_models_without_the_field_refuse_a_plan(name):
     with pytest.raises(TypeError, match="constrain_volume"):
         make_model(name, maxdisp=MAXDISP, constrain_volume=make_disp_constraint(Mesh(1, 2, 0, 0)))
 
 
-def test_cli_train_n_disp_shards_refused_over_two_ranks(runs):
-    for rank in runs["ranks"][2]:
-        assert "Queue 1 item 4" in rank["cli"]["train_error"]
-
-
 def test_disp_mesh_must_equal_the_processes():
     with pytest.raises(ValueError, match="disp axis must equal the number of processes"):
         make_mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_disp_constraint(Mesh(2, 2, 0, 0))
+    plan = make_disp_constraint(Mesh(2, 2, 1, 1))  # a (data, disp) grid: the plan of its disp axis
+    assert isinstance(plan, DispPlan) and (plan.n, plan.rank) == (2, 1)
+    assert plan.split(8).planes == (4, 8)

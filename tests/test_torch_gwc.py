@@ -263,8 +263,9 @@ def test_cuda_kernel_matches_plain_version(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_plane_ranges_match_plain_version(dtype):
-    """Plane ranges (the disparity-sharded eval's), one launch each; the
-    backward of a range raises."""
+    """Plane ranges (the disparity-sharded eval's and train step's), one
+    launch each; the backward of a range, one launch of the range backward,
+    against its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     rng = np.random.default_rng(1)
@@ -278,9 +279,17 @@ def test_cuda_kernel_plane_ranges_match_plain_version(dtype):
         want = G.gwc_volume_reference(left, right, maxdisp, groups, planes)
         rtol = 0.0 if dt == torch.float32 else 2.0**-7
         torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=rtol)
-    left.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        G.gwc_volume(left, right, maxdisp, groups, planes).sum().backward()
+        b, _, h, w = shape
+        grad = torch.from_numpy(_occluded_nan_grad(rng, (b, groups, planes[1] - planes[0], h, w), planes[0]))
+        grad = grad.cuda().to(dt)
+        l, r = left.clone().requires_grad_(), right.clone().requires_grad_()
+        before = (G.BACKWARD_LAUNCHES, G.RANGE_BACKWARD_LAUNCHES)
+        G.gwc_volume(l, r, maxdisp, groups, planes).backward(grad)
+        assert (G.BACKWARD_LAUNCHES, G.RANGE_BACKWARD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        want = G.gwc_volume_backward_reference(grad, left, right, maxdisp, groups, planes)
+        for got, w_ in zip((l.grad, r.grad), want):
+            atol = 1e-5 * max(1.0, float(w_.float().abs().max()))
+            torch.testing.assert_close(got.float(), w_.float(), atol=atol, rtol=rtol)
 
 
 # ---- backward ----
@@ -377,11 +386,11 @@ def _backward_tiles():
     return tiles
 
 
-def _occluded_nan_grad(rng, shape):
-    """A volume grad (B, G, D, H, W) with NaN at the occluded entries w < d,
-    which must reach neither dL nor dR."""
+def _occluded_nan_grad(rng, shape, d_lo=0):
+    """A volume grad (B, G, D, H, W) of the planes from d_lo on with NaN at
+    the occluded entries w < d, which must reach neither dL nor dR."""
     grad = rng.standard_normal(shape, dtype=np.float32)
-    d, w = np.arange(shape[2])[:, None, None], np.arange(shape[4])[None, None, :]
+    d, w = d_lo + np.arange(shape[2])[:, None, None], np.arange(shape[4])[None, None, :]
     return np.where(w < d, np.float32(np.nan), grad)
 
 
@@ -399,8 +408,9 @@ def _backward_split(cpg, tw, v, kch, ksplit):
     return ksplit if 2 * sums * ksplit <= 512 else 1
 
 
-def _backward_phases(maxdisp, nd, kpass, khalo):
-    """csrc/gwc.cu's BwdPlan: the halo, and per phase (dc, rows, dL?, dR?, a)."""
+def _backward_phases(maxdisp, nd, kpass, khalo, dbase=0):
+    """csrc/gwc.cu's BwdPlan over `maxdisp` rows from disparity dbase: the
+    halo, and per phase (dc, rows, dL?, dR?, a)."""
     up = lambda x: -(-x // nd) * nd  # noqa: E731
     halo = min(up(maxdisp), khalo)
     dpass = min(kpass, halo)
@@ -408,13 +418,15 @@ def _backward_phases(maxdisp, nd, kpass, khalo):
     rows = lambda dc: min(dpass, up(maxdisp - dc))  # noqa: E731
     full = halo // dpass
     joint = min(passes, full) + (passes > full and full * dpass + rows(full * dpass) <= halo)
+    joint = 0 if dbase else joint
     out = [(p * dpass, rows(p * dpass), True, True, 0) for p in range(joint)]
     for p in range(joint, passes):
-        out += [(p * dpass, rows(p * dpass), True, False, 0), (p * dpass, rows(p * dpass), False, True, p * dpass)]
+        out += [(p * dpass, rows(p * dpass), True, False, 0),
+                (p * dpass, rows(p * dpass), False, True, dbase + p * dpass)]
     return halo, dpass, out
 
 
-def _emulate_backward(grad, left, right, maxdisp, groups, tw, v, nd, kch, split, kpass, khalo):
+def _emulate_backward(grad, left, right, maxdisp, groups, tw, v, nd, kch, split, kpass, khalo, d_lo=0):
     """The backward kernel of csrc/gwc.cu in numpy at f32: item by item
     (b, g, h, W-tile), phase by phase (the passes that fit the window for dL
     and dR, every later pass once for dL and once for dR), the shared-memory
@@ -425,12 +437,19 @@ def _emulate_backward(grad, left, right, maxdisp, groups, tw, v, nd, kch, split,
     of Gv (dR: the diagonal, from the aligned loads the kernel makes) and
     the strips of R or L. Every shared read is checked to lie inside its
     window; the first thread of a set adds the others' sums and writes.
+    With d_lo > 0, `grad` holds the planes [d_lo, d_lo + D) alone: the
+    passes cover the rows from dbase = d_lo rounded down to kND, those
+    below d_lo staged as zeros, in absolute disparities dbase + row.
     Returns (dL, dR), NaN where nothing was written, and the number of
     writes per element of each."""
     b_, c_, h_, w_ = left.shape
     cpg = c_ // groups
     ch = min(cpg, kch)
-    halo, dpass, phases = _backward_phases(maxdisp, nd, kpass, khalo)
+    n_planes = grad.shape[2]
+    off = d_lo % nd
+    dbase, rows_total = d_lo - off, n_planes + off  # the rows the passes cover
+    assert d_lo + n_planes <= maxdisp
+    halo, dpass, phases = _backward_phases(rows_total, nd, kpass, khalo, dbase)
     pitch = tw + halo
     q, s = (a.ravel() for a in np.meshgrid(np.arange(tw // v), np.arange(cpg // ch), indexing="ij"))
     c0 = s * ch
@@ -454,35 +473,38 @@ def _emulate_backward(grad, left, right, maxdisp, groups, tw, v, nd, kch, split,
                     w = w0 + q * v  # each thread's first column
                     acc = np.zeros((2, split, len(q), ch, v), np.float32)  # [dL, dR][thread of the set]
                     for dc, rows, do_dl, do_dr, a in phases:
-                        gcols = tw + dc - a + rows if do_dr else tw
+                        dca = dbase + dc  # the disparity of the phase's first row
+                        gcols = tw + dca - a + rows if do_dr else tw
                         gs = np.full((dpass, pitch), np.nan, np.float32)  # stale where nothing is staged
                         d = dc + np.arange(rows)
-                        gv = np.where((d < maxdisp)[:, None], grad[b, g, np.minimum(d, maxdisp - 1), h], 0)
+                        live = (d >= off) & (d < rows_total)
+                        gv = np.where(live[:, None], grad[b, g, np.clip(d - off, 0, n_planes - 1), h], 0)
                         gs[:rows, :gcols] = staged(gv, w0 + a, gcols)
                         if do_dl:  # the occluded Gv[d, u < d]: whole vectors zero at staging, the rest after
-                            occluded = (d - w0)[:, None]
+                            occluded = (dbase + d - w0)[:, None]
                             col = np.arange(gcols)[None, :]
                             gs[:rows, :gcols][(col - col % v + v <= occluded)] = 0
                             gs[:rows, :gcols][(col < occluded) & (occluded < tw)] = 0
                         rs, ls = np.full((2, cpg, pitch), np.nan, np.float32)
                         if do_dl:
                             rs = np.full((cpg, pitch), np.nan, np.float32)
-                            rs[:, : tw + rows] = staged(right[b, chans, h], w0 - dc - rows, tw + rows)
+                            rs[:, : tw + rows] = staged(right[b, chans, h], w0 - dca - rows, tw + rows)
                         if do_dr:
                             ls = np.full((cpg, pitch), np.nan, np.float32)
-                            ls[:, : tw + rows] = staged(left[b, chans, h], w0 + dc, tw + rows)
+                            ls[:, : tw + rows] = staged(left[b, chans, h], w0 + dca, tw + rows)
                         for j in range(rows // nd):
                             d0 = dc + j * nd
                             cs = (c0[:, None] + np.arange(ch))[:, :, None]  # (threads, kCh, 1)
-                            if do_dl:  # dL(c, w + v) += Gv[d0 + k, w + v] R[c, w + v - d0 - k]
-                                on = (w < w_) & (d0 < maxdisp) & (d0 < w + v)
+                            if do_dl:  # dL(c, w + v) += Gv[d0 + k, w + v] R[c, w + v - dbase - d0 - k]
+                                on = (w < w_) & (d0 < rows_total) & (dbase + d0 < w + v)
                                 gval = read(gs, (j * nd + k)[None], (q * v)[:, None, None] + vv)
                                 strip = read(rs, cs, (q * v + rows - (j + 1) * nd)[:, None, None] + np.arange(nd + v))
                                 terms = gval[:, None] * strip[:, :, vv - k + nd]  # (threads, kCh, kND, kV)
                                 acc[0, j % split][on] += terms[on].sum(axis=2)
-                            if do_dr:  # dR(c, w + v) += Gv[d0 + k, w + v + d0 + k] L[c, w + v + d0 + k]
-                                on = (w < w_) & (d0 < maxdisp) & (w + d0 < w_)
-                                base = (q * v + d0 - a)[:, None, None] + (k - k % v)  # aligned loads
+                            if do_dr:  # dR(c, w + v) += Gv[d0 + k, w + v + e0 + k] L[c, w + v + e0 + k]
+                                e0 = dbase + d0
+                                on = (w < w_) & (d0 < rows_total) & (w + e0 < w_)
+                                base = (q * v + e0 - a)[:, None, None] + (k - k % v)  # aligned loads
                                 width = np.where(k % v == 0, v, 2 * v)
                                 read(gs, (j * nd + k)[None], base + width - 1)
                                 gval = read(gs, (j * nd + k)[None], base + k % v + vv)
@@ -530,6 +552,44 @@ def test_backward_index_map_emulation(tile, shape, groups, maxdisp):
         assert (n == 1).all(), f"{int((n == 0).sum())} elements unwritten, {int((n > 1).sum())} more than once"
     want = G.gwc_volume_backward_reference(
         torch.from_numpy(grad), torch.from_numpy(left), torch.from_numpy(right), maxdisp, groups
+    )
+    np.testing.assert_allclose(dl, want[0].numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(dr, want[1].numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("tile", ["float", "__nv_bfloat16"])
+@pytest.mark.parametrize(
+    "shape,groups,maxdisp,planes",
+    [
+        ((1, 16, 2, 128), 4, 48, (0, 24)),  # the train shape's two ranks, cut in C and H
+        ((1, 16, 2, 128), 4, 48, (24, 48)),
+        ((1, 16, 2, 128), 4, 48, (16, 32)),  # a middle rank of three
+        ((1, 16, 2, 176), 4, 60, (54, 60)),  # the Middlebury width, the last of 8 ranks: d_lo % kND != 0
+        ((1, 16, 2, 176), 4, 60, (0, 8)),
+        ((1, 16, 2, 45), 4, 60, (6, 58)),  # odd W, a range that starts inside a step and passes W
+        ((2, 8, 2, 150), 8, 140, (10, 130)),  # CPG = 1, more rows than the halo: several split passes
+        ((1, 64, 1, 130), 2, 48, (40, 48)),  # CPG = 32 on two tiles
+        ((2, 16, 3, 7), 4, 12, (8, 12)),  # every plane at or past W
+    ],
+)
+def test_backward_plane_range_index_map_emulation(tile, shape, groups, maxdisp, planes):
+    """The backward kernel over the planes [d_lo, d_hi): every output element
+    written once, equal to the plain version's range backward (integer
+    inputs, as above)."""
+    ktw, v, nd, kch, ksplit, kpass, khalo = _backward_tiles()[tile]
+    tw = _backward_tile_width(shape[3], ktw)
+    split = _backward_split(shape[1] // groups, tw, v, kch, ksplit)
+    rng = np.random.default_rng(7)
+    left, right = (rng.integers(-4, 5, shape).astype(np.float32) for _ in range(2))
+    b, _, h, w = shape
+    d_lo, d_hi = planes
+    grad = np.round(_occluded_nan_grad(rng, (b, groups, d_hi - d_lo, h, w), d_lo) * 2)
+    (dl, dr), (nl, nr) = _emulate_backward(grad, left, right, maxdisp, groups, tw, v, nd, kch, split, kpass, khalo,
+                                           d_lo)
+    for n in (nl, nr):
+        assert (n == 1).all(), f"{int((n == 0).sum())} elements unwritten, {int((n > 1).sum())} more than once"
+    want = G.gwc_volume_backward_reference(
+        torch.from_numpy(grad), torch.from_numpy(left), torch.from_numpy(right), maxdisp, groups, planes
     )
     np.testing.assert_allclose(dl, want[0].numpy(), atol=1e-6, rtol=0)
     np.testing.assert_allclose(dr, want[1].numpy(), atol=1e-6, rtol=0)

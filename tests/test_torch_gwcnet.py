@@ -341,8 +341,8 @@ def test_debug_nans_raises_at_the_first_nan_backward(tmp_path, monkeypatch):
     root = _tiny_sceneflow(tmp_path, monkeypatch)
     build = cli.build_train_state
 
-    def poisoned(cfg, steps_per_epoch, device=None):
-        state = build(cfg, steps_per_epoch, device)
+    def poisoned(*args, **kwargs):
+        state = build(*args, **kwargs)
         with torch.no_grad():
             state.model.classif3[2].weight[0, 0, 0, 0, 0] = float("nan")
         return state

@@ -765,7 +765,7 @@ def test_cli_train_errors_over_two_ranks(cli_runs):
 
 
 @pytest.mark.parametrize("cmd,extra,error", [
-    ("train", ["--n-disp-shards", "2"], NotImplementedError),
+    ("train", ["--n-disp-shards", "2"], ValueError),  # one process, a disp axis of 2
     ("train", ["--n-data-shards", "2"], ValueError),
     ("eval", ["--n-disp-shards", "2"], ValueError),  # one process, a disp axis of 2
 ])
