@@ -33,9 +33,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      and its error, which misses the f32 tolerance).
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
      weights from `weights.from_jax_variables` on seeded numpy arrays, in bf16
-     autocast and in f32; output shape, finiteness, one gwc launch per forward,
-     ms/pair, pairs/s, peak memory; and the GPU model against the CPU model
-     (plain gwc) on a small input.
+     autocast with the eval BatchNorm folded into its conv (the default, as
+     the JAX package does at bf16), in bf16 with it literal
+     (DCANET_FOLD_EVAL_BN=0) and in f32; output shape, finiteness, one gwc
+     launch per forward, the BatchNorm module forwards (folded: Guidance's
+     10 alone), ms/pair (the two bf16 forms timed twice, alternating),
+     pairs/s, peak memory, a profile each (device busy share, launches,
+     BatchNorm kernels' share); the GPU model against the CPU model (plain
+     gwc) on a small input in f32, and folded bf16 on both (BatchNorm
+     statistics of one train-mode forward of the small pair): one
+     MultiAggregation within 2e-2 scaled, the disparity closer than the
+     CPU's own bf16 forward is to its f32 one.
   4. serving: three `cli infer --submission` requests on a synthetic
      KITTI-sized PNG pair; the gwc launches of this phase are counted.
   5. conv3d path: the counterpart of the JAX package's run_pallas
@@ -72,7 +80,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      arrays: `dcanet-g`, `gwcnet-g`, `gwcnet-gc` and `ganet` eval on one
      1x3x384x1248 pair in bf16 autocast and in f32 (shape, finiteness,
      exactly one gwc launch per forward, ms/pair, pairs/s, peak memory, one
-     profile each: device busy share and kernel launches), each GPU model
+     profile each: device busy share, kernel launches, BatchNorm kernels;
+     `gwcnet-gc` and `ganet` also in bf16 with the BatchNorm literal,
+     DCANET_FOLD_EVAL_BN=0), each GPU model
      against its CPU model on a small pair (disparity 5e-3 px, the final
      head's logits 1e-4 scaled); `cli train --preset sceneflow --model
      gwcnet-gc` and `--model ganet` for 4 steps at the 256x512 crop, f32
@@ -191,6 +201,11 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 TF32_TC_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
 BF16_TC_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense
 SEED = 0
+# BatchNorm modules that DCANet(num_cva=3)'s eval forward runs: all 116 but
+# those of the train-only heads classif0-2; in bf16 with the fold on only
+# Guidance's `norm1` and its four ResidualBlocks' (norm1, norm2; the strided
+# one's downsample BN), literal in the JAX package too
+N_EVAL_BN, N_GUIDANCE_BN = 113, 10
 MAIN_SHAPE = (1, 320, 96, 312)  # gwc features of a 384x1248 pair
 # gwc features of the KITTI eval protocol's 368x1232 crop: W % 8 != 0, the
 # bf16 forward's scalar route
@@ -244,6 +259,8 @@ EVAL_PAIRS, EVAL_LIST = 6, ("000000_10.png", "000002_10.png", "000004_10.png")
 # steps per model on FAMILY_TRAIN_PAIRS pairs, pairs of its `cli eval`
 FAMILY = ("dcanet-g", "gwcnet-g", "gwcnet-gc", "ganet")
 FAMILY_ITERS = {"dcanet-g": 10, "gwcnet-g": 10, "gwcnet-gc": 10, "ganet": 5}
+# family models whose bf16 eval is timed with the BatchNorm folded and literal
+FAMILY_FOLD_AB = ("gwcnet-gc", "ganet")
 FAMILY_HEAD = {"dcanet-g": "classif3", "gwcnet-g": "classif3", "gwcnet-gc": "classif3", "ganet": "classif_final"}
 FAMILY_TRAIN, FAMILY_TRAIN_PAIRS, FAMILY_EVAL_PAIRS = ("gwcnet-gc", "ganet"), 4, 2
 # extras phase: a stacked left+right pair at the submission shape; a CVA-sized
@@ -806,8 +823,9 @@ def synthetic_pair(seed: int):
 
 def profile_call(fn, tag: str, top: int = 6):
     """One profiled call of `fn`: the sum of kernel time against the call's
-    wall time (the device's busy share), and the kernels that take most.
-    Returns {busy_ms, wall_ms, launches}, or None without device time."""
+    wall time (the device's busy share), BatchNorm's kernels' share of it,
+    and the kernels that take most. Returns {busy_ms, wall_ms, launches,
+    bn_ms, bn_launches}, or None without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -824,22 +842,68 @@ def profile_call(fn, tag: str, top: int = 6):
         log(f"[profile {tag}] the profiler recorded no device time")
         return None
     launches = sum(e.count for e in kernels)
+    bn = [e for e in kernels if any(k in e.key for k in ("batch_norm", "bn_fw", "bn_bw"))]  # PyTorch's, cuDNN's
+    bn_ms = sum(e.self_device_time_total for e in bn) / 1e3
+    bn_launches = sum(e.count for e in bn)
     log(f"[profile {tag}] kernels {busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled call "
-        f"(device busy {busy_ms / wall_ms:.1%}), {launches} kernel launches")
+        f"(device busy {busy_ms / wall_ms:.1%}), {launches} kernel launches; BatchNorm kernels {bn_ms:.3f} ms "
+        f"({bn_ms / busy_ms:.1%}), {bn_launches} launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"[profile {tag}]   {ms:8.3f} ms {ms / busy_ms:6.1%} x{e.count:<4d} {e.key[:110]}")
-    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches)
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches, bn_ms=bn_ms, bn_launches=bn_launches)
+
+
+@contextlib.contextmanager
+def fold_eval_bn(enabled: bool):
+    """DCANET_FOLD_EVAL_BN at "1" (the eval BatchNorm folded into its conv in
+    bf16, the default) or "0" (literal) for the duration."""
+    prev = os.environ.get("DCANET_FOLD_EVAL_BN")
+    os.environ["DCANET_FOLD_EVAL_BN"] = "1" if enabled else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("DCANET_FOLD_EVAL_BN")
+        else:
+            os.environ["DCANET_FOLD_EVAL_BN"] = prev
+
+
+def batch_norm_forwards(model, fn):
+    """fn()'s result, and the BatchNorm modules of `model` that ran in it
+    outside Guidance (whose ResidualBlocks and `norm1` keep their BN in a
+    folded eval, as in the JAX package), and the count of all BN forwards."""
+    from torch import nn
+
+    ran, total = set(), [0]
+
+    def hook(name):
+        def count(*_):
+            total[0] += 1
+            if not name.startswith("guidance."):
+                ran.add(name)
+        return count
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
+               if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    try:
+        out = fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return out, ran, total[0]
 
 
 def phase_model(flat):
     """DCANet(num_cva=3) eval at 384x1248 in bf16 and f32; GPU vs CPU model."""
     import torch
+    from torch import nn
 
     from dcanet_tpu_torch import weights
     from dcanet_tpu_torch.data.submission import to_submission_shape, whiten_per_channel
     from dcanet_tpu_torch.kernels import gwc
     from dcanet_tpu_torch.models import DCANet
+    from dcanet_tpu_torch.nn import layers
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -854,38 +918,67 @@ def phase_model(flat):
     )
     gpu = model.cuda()
     tl, tr = tl.cuda(), tr.cuda()
-    disp, results = {}, {}
-    for tag, bf16 in (("bf16", True), ("f32", False)):
-        def fwd():
+    n_bn = sum(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in gpu.modules())
+    if n_bn != 116:
+        raise AssertionError(f"[model] DCANet(num_cva=3) holds {n_bn} BatchNorm modules, not 116")
+    disp, results, fwds = {}, {}, {}
+    # bf16 with the eval BatchNorm folded into its conv (the default, as the
+    # JAX package does at bf16), bf16 with it literal, then f32 (literal)
+    for tag, bf16, fold in (("bf16", True, True), ("bf16 literal", True, False), ("f32", False, True)):
+        def fwd(bf16=bf16):
             with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=bf16):
                 return gpu(tl, tr)
 
-        gwc.LAUNCHES = 0
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        out = fwd()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        if gwc.LAUNCHES != 1:
-            raise AssertionError(f"[model {tag}] gwc kernel launched {gwc.LAUNCHES} times in one forward")
-        d = out.disparity
-        if d.shape != (1, 384, 1248) or d.dtype != torch.float32 or not bool(torch.isfinite(d).all()):
-            raise AssertionError(f"[model {tag}] disparity {tuple(d.shape)} {d.dtype}, finite={bool(torch.isfinite(d).all())}")
-        for lg in out.class_logits:
-            if lg.shape != (1, 24, 48, 156) or not bool(torch.isfinite(lg).all()):
-                raise AssertionError(f"[model {tag}] class logits {tuple(lg.shape)} not finite or misshapen")
-        disp[tag] = d.cpu().numpy()[0]
-        iters = 10
-        ms = time_cuda(fwd, iters)
-        if gwc.LAUNCHES != 1 + 2 + iters:
-            raise AssertionError(f"[model {tag}] {gwc.LAUNCHES} gwc launches for {3 + iters} forwards")
-        results[tag] = dict(ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak)
-        log(f"[model] DCANet(num_cva=3, maxdisp=192) eval {tag} 1x3x384x1248: {ms:.3f} ms/pair, "
-            f"{1e3 / ms:.3f} pairs/s, peak memory {peak / 2**30:.3f} GiB above weights, "
-            f"disparity range [{disp[tag].min():.3f}, {disp[tag].max():.3f}], 1 gwc launch per forward")
-        profile_call(fwd, tag)
-    diff = np.abs(disp["bf16"] - disp["f32"])
-    log(f"[model] bf16 vs f32 disparity: mean |diff| {diff.mean():.4f} px, max {diff.max():.4f} px")
+        fwds[tag] = fwd
+        with fold_eval_bn(fold):
+            gwc.LAUNCHES = 0
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out, ran, n_fwd = batch_norm_forwards(gpu, fwd)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            if gwc.LAUNCHES != 1:
+                raise AssertionError(f"[model {tag}] gwc kernel launched {gwc.LAUNCHES} times in one forward")
+            folded = tag == "bf16"
+            if (folded and (ran or n_fwd != N_GUIDANCE_BN)) or (not folded and n_fwd != N_EVAL_BN):
+                raise AssertionError(f"[model {tag}] {n_fwd} BatchNorm forwards, outside Guidance "
+                                     f"{sorted(ran)[:4]}...")
+            d = out.disparity
+            if d.shape != (1, 384, 1248) or d.dtype != torch.float32 or not bool(torch.isfinite(d).all()):
+                raise AssertionError(f"[model {tag}] disparity {tuple(d.shape)} {d.dtype}, finite={bool(torch.isfinite(d).all())}")
+            for lg in out.class_logits:
+                if lg.shape != (1, 24, 48, 156) or not bool(torch.isfinite(lg).all()):
+                    raise AssertionError(f"[model {tag}] class logits {tuple(lg.shape)} not finite or misshapen")
+            disp[tag] = d.cpu().numpy()[0]
+            iters = 10
+            ms = time_cuda(fwd, iters)
+            if gwc.LAUNCHES != 1 + 2 + iters:
+                raise AssertionError(f"[model {tag}] {gwc.LAUNCHES} gwc launches for {3 + iters} forwards")
+            results[tag] = dict(ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, bn_forwards=n_fwd)
+            log(f"[model] DCANet(num_cva=3, maxdisp=192) eval {tag} 1x3x384x1248: {ms:.3f} ms/pair, "
+                f"{1e3 / ms:.3f} pairs/s, peak memory {peak / 2**30:.3f} GiB above weights, "
+                f"disparity range [{disp[tag].min():.3f}, {disp[tag].max():.3f}], 1 gwc launch per forward, "
+                f"{n_fwd} BatchNorm module forwards of the {N_EVAL_BN} an eval forward holds")
+            results[tag]["profile"] = profile_call(fwd, tag)
+    # the two bf16 forwards again, alternating, for their spread in this call
+    for tag, fold in (("bf16 literal", False), ("bf16", True)):
+        with fold_eval_bn(fold):
+            results[tag]["ms_again"] = time_cuda(fwds[tag], 10)
+    # the fold computed at each call instead of cached: its launches and time
+    cached = layers._folded
+    layers._folded = layers._fold
+    try:
+        with fold_eval_bn(True):
+            results["bf16 uncached"] = dict(ms=time_cuda(fwds["bf16"], 10),
+                                            profile=profile_call(fwds["bf16"], "bf16 fold uncached"))
+    finally:
+        layers._folded = cached
+    f, lit, unc = results["bf16"], results["bf16 literal"], results["bf16 uncached"]
+    log(f"[model] bf16 folded {f['ms']:.3f} / {f['ms_again']:.3f} ms/pair against literal {lit['ms']:.3f} / "
+        f"{lit['ms_again']:.3f} (first / second round); the fold uncached {unc['ms']:.3f}; card: {gpu_line()}")
+    for tag, other in (("bf16", "f32"), ("bf16", "bf16 literal"), ("bf16 literal", "f32")):
+        diff = np.abs(disp[tag] - disp[other])
+        log(f"[model] {tag} vs {other} disparity: mean |diff| {diff.mean():.4f} px, max {diff.max():.4f} px")
 
     # the GPU model (gwc kernel, cuDNN) against the CPU model (plain gwc) on a
     # small pair; tolerance as the JAX package's eval parity (5e-3 px)
@@ -900,7 +993,48 @@ def phase_model(flat):
     if not small_err <= 5e-3:
         raise AssertionError("GPU model disagrees with the CPU model on the small pair")
     results["small_err"] = small_err
+    results["small_bf16"] = folded_gpu_vs_cpu(model, sl, sr)
     return results, disp["f32"]
+
+
+def folded_gpu_vs_cpu(model, sl, sr) -> dict:
+    """The folded bf16 eval on the card (cuDNN) against the folded bf16 eval
+    on the CPU (oneDNN), in a copy of `model` with the BatchNorm statistics
+    of one train-mode forward of the small pair (with the seeded ones the
+    activations are unnormalised). One block, `cva1.cost_agg` (a
+    MultiAggregation with its deconv fold), on a bf16-representable volume:
+    max |diff| / max(max |CPU|, 1e-3) <= 2e-2, the block bound of
+    tests/test_torch_fold_eval.py. The model on the pair: random weights
+    make its bf16 disparity at maxdisp 192 turn on rounding order, so the
+    bound is the CPU's own folded bf16 distance to its f32 forward (mean
+    |diff|). No BatchNorm outside Guidance may run on either device."""
+    import copy
+
+    import torch
+
+    calibrated = calibrate_batch_norm(copy.deepcopy(model).cuda(), sl.cuda(), sr.cuda())
+    vol = torch.randn(1, 32, 48, 16, 64, generator=torch.Generator().manual_seed(SEED + 8)).bfloat16().float()
+    out = {}
+    with fold_eval_bn(True):
+        for dev in ("cuda", "cpu"):
+            m = calibrated.to(dev)
+            with torch.inference_mode(), torch.autocast(dev, torch.bfloat16):
+                res, ran, _ = batch_norm_forwards(m, lambda: m(sl.to(dev), sr.to(dev)))
+                block = m.cva1.cost_agg(vol.to(dev))
+            if ran:
+                raise AssertionError(f"[model] folded bf16 on {dev}: BatchNorm modules ran: {sorted(ran)[:4]}")
+            out[dev] = res.disparity.float().cpu(), block.float().cpu()
+        with torch.inference_mode():
+            f32 = calibrated(sl, sr).disparity
+    (gd, gb), (cd, cb) = out["cuda"], out["cpu"]
+    block_err = float((gb - cb).abs().max()) / max(float(cb.abs().max()), 1e-3)
+    err, noise = float((gd - cd).abs().mean()), float((cd - f32).abs().mean())
+    log(f"[model] folded bf16, GPU vs CPU, calibrated BatchNorm statistics: cva1.cost_agg on (1, 32, 48, 16, 64) "
+        f"scaled max |diff| {block_err:.3e} (bound 2e-2); the model on 1x3x64x256 mean |diff| {err:.4f} px (bound: "
+        f"the CPU's folded bf16 - its f32, {noise:.4f} px), max {float((gd - cd).abs().max()):.4f} px")
+    if not (block_err <= 2e-2 and err < noise):
+        raise AssertionError("[model] the folded bf16 GPU model disagrees with the folded bf16 CPU model")
+    return dict(block_err=block_err, disparity_err=err, cpu_bf16_vs_f32=noise)
 
 
 def phase_serving(flat, ref_disp, workdir: Path):
@@ -1419,38 +1553,47 @@ def family_eval(name: str, tl, tr) -> dict:
     model.load_state_dict(weights.from_jax_variables(seeded_flax_variables(model, SEED), model), strict=True)
     gpu = model.eval().cuda()
     out, launches = {}, 0
-    for tag, bf16 in (("bf16", True), ("f32", False)):
+    runs = [("bf16", True, True)] + ([("bf16 literal", True, False)] if name in FAMILY_FOLD_AB else [])
+    for tag, bf16, fold in runs + [("f32", False, True)]:
         def fwd():
             with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=bf16):
                 return gpu(tl, tr)
 
-        gwc.LAUNCHES = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        res = fwd()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        d = res.disparity
-        if gwc.LAUNCHES != 1:
-            raise AssertionError(f"[family {name} {tag}] gwc kernel launched {gwc.LAUNCHES} times in one forward")
-        if d.shape != (1, 384, 1248) or d.dtype != torch.float32 or not bool(torch.isfinite(d).all()):
-            raise AssertionError(f"[family {name} {tag}] disparity {tuple(d.shape)} {d.dtype}, "
-                                 f"finite={bool(torch.isfinite(d).all())}")
-        if name != "dcanet-g" and res.class_logits != ():
-            raise AssertionError(f"[family {name} {tag}] class logits from a model that has none")
-        iters = FAMILY_ITERS[name]
-        ms = time_cuda(fwd, iters)
-        if gwc.LAUNCHES != 3 + iters:
-            raise AssertionError(f"[family {name} {tag}] {gwc.LAUNCHES} gwc launches for {3 + iters} forwards")
-        prof = profile_call(fwd, f"family {name} {tag}")
-        if gwc.LAUNCHES != 4 + iters:
-            raise AssertionError(f"[family {name} {tag}] {gwc.LAUNCHES} gwc launches for {4 + iters} forwards")
-        launches += gwc.LAUNCHES
-        out[tag] = dict(ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, profile=prof)
-        log(f"[family] {name} eval {tag} 1x3x384x1248: {ms:.3f} ms/pair (median of {iters}), {1e3 / ms:.3f} "
-            f"pairs/s, peak memory {peak / 2**30:.3f} GiB above weights, disparity range "
-            f"[{float(d.min()):.3f}, {float(d.max()):.3f}], 1 gwc launch per forward")
+        with fold_eval_bn(fold):
+            gwc.LAUNCHES = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            res = fwd()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            d = res.disparity
+            if gwc.LAUNCHES != 1:
+                raise AssertionError(f"[family {name} {tag}] gwc kernel launched {gwc.LAUNCHES} times in one forward")
+            if d.shape != (1, 384, 1248) or d.dtype != torch.float32 or not bool(torch.isfinite(d).all()):
+                raise AssertionError(f"[family {name} {tag}] disparity {tuple(d.shape)} {d.dtype}, "
+                                     f"finite={bool(torch.isfinite(d).all())}")
+            if name != "dcanet-g" and res.class_logits != ():
+                raise AssertionError(f"[family {name} {tag}] class logits from a model that has none")
+            iters = FAMILY_ITERS[name]
+            ms = time_cuda(fwd, iters)
+            if gwc.LAUNCHES != 3 + iters:
+                raise AssertionError(f"[family {name} {tag}] {gwc.LAUNCHES} gwc launches for {3 + iters} forwards")
+            prof = profile_call(fwd, f"family {name} {tag}")
+            if gwc.LAUNCHES != 4 + iters:
+                raise AssertionError(f"[family {name} {tag}] {gwc.LAUNCHES} gwc launches for {4 + iters} forwards")
+            launches += gwc.LAUNCHES
+            out[tag] = dict(ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, profile=prof)
+            log(f"[family] {name} eval {tag} 1x3x384x1248: {ms:.3f} ms/pair (median of {iters}), {1e3 / ms:.3f} "
+                f"pairs/s, peak memory {peak / 2**30:.3f} GiB above weights, disparity range "
+                f"[{float(d.min()):.3f}, {float(d.max()):.3f}], 1 gwc launch per forward")
+    if name in FAMILY_FOLD_AB and out["bf16"]["profile"] and out["bf16 literal"]["profile"]:
+        f, lit = out["bf16"], out["bf16 literal"]
+        log(f"[family] {name} bf16 eval, BatchNorm folded against literal: {f['ms']:.3f} against {lit['ms']:.3f} "
+            f"ms/pair, launches {f['profile']['launches']} against {lit['profile']['launches']}, device busy "
+            f"{f['profile']['busy_ms'] / f['profile']['wall_ms']:.1%} against "
+            f"{lit['profile']['busy_ms'] / lit['profile']['wall_ms']:.1%}, BatchNorm kernels "
+            f"{f['profile']['bn_ms']:.3f} against {lit['profile']['bn_ms']:.3f} ms; card: {gpu_line()}")
 
     # the disparity (5e-3 px) and, since random weights saturate the softmax
     # and the disparity alone would not see a difference below it, the final

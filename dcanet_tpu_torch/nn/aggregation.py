@@ -12,12 +12,15 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dcanet_tpu_torch.nn.layers import ConvBN, ConvBNAct, batch_norm, run_sharded, torch_conv_transpose3d
+from dcanet_tpu_torch.nn.layers import (
+    ConvBN, ConvBNAct, ConvBNSequential, batch_norm, run_sharded, torch_conv_transpose3d,
+)
 
 
 class MultiAggregation(nn.Module):
-    """conv(s2) -> conv -> deconv(2x)+BN, residual 1x1x1 redir, relu, then the
-    optional `post_residual` (the model-level `cost0 + agg`). With a
+    """conv(s2) -> conv -> deconv(2x)+BN (folded in a bf16 eval, as the JAX
+    `_deconv_bn`), residual 1x1x1 redir, relu, then the optional
+    `post_residual` (the model-level `cost0 + agg`). With a
     `DispShard` (parallel/sharding.py) on this rank's planes: conv1, conv2
     and the deconv on halos, redir plane-local."""
 
@@ -26,7 +29,7 @@ class MultiAggregation(nn.Module):
         c = channels
         self.conv1 = ConvBNAct(c, 2 * c, 3, 2, 1, dims=3)
         self.conv2 = ConvBNAct(2 * c, 2 * c, 3, 1, 1, dims=3)
-        self.conv3 = nn.Sequential(torch_conv_transpose3d(2 * c, c), batch_norm(c, 3))
+        self.conv3 = ConvBNSequential(torch_conv_transpose3d(2 * c, c), batch_norm(c, 3))
         self.redir = ConvBN(c, c, 1, 1, 0, dims=3)
 
     def forward(self, x: torch.Tensor, post_residual: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
@@ -49,8 +52,8 @@ class Hourglass3D(nn.Module):
         self.conv2 = ConvBNAct(2 * c, 2 * c, 3, 1, 1, dims=3)
         self.conv3 = ConvBNAct(2 * c, 4 * c, 3, 2, 1, dims=3)
         self.conv4 = ConvBNAct(4 * c, 4 * c, 3, 1, 1, dims=3)
-        self.conv5 = nn.Sequential(torch_conv_transpose3d(4 * c, 2 * c), batch_norm(2 * c, 3))
-        self.conv6 = nn.Sequential(torch_conv_transpose3d(2 * c, c), batch_norm(c, 3))
+        self.conv5 = ConvBNSequential(torch_conv_transpose3d(4 * c, 2 * c), batch_norm(2 * c, 3))
+        self.conv6 = ConvBNSequential(torch_conv_transpose3d(2 * c, c), batch_norm(c, 3))
         self.redir1 = ConvBN(c, c, 1, 1, 0, dims=3)
         self.redir2 = ConvBN(2 * c, 2 * c, 1, 1, 0, dims=3)
 

@@ -11,17 +11,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from dcanet_tpu_torch.nn.layers import batch_norm
+from dcanet_tpu_torch.nn.layers import ConvBNSequential, batch_norm
 
 
-class Projection(nn.Sequential):
+class Projection(ConvBNSequential):
     """`buildproject` (SelfAttention_bn.py:136-160), normed flavour:
-    num_convs of [1x1x1 conv (no bias) -> BN -> LeakyReLU(0.1)]. With one conv
-    the Sequential holds (conv, bn, act) itself, as the reference nests it."""
+    num_convs of [1x1x1 conv (no bias) -> BN -> LeakyReLU(0.1)], each BN
+    folded into its conv in a bf16 eval as in the JAX Projection. With one
+    conv the Sequential holds (conv, bn, act) itself, as the reference nests
+    it."""
 
     def __init__(self, in_channels: int, features: int, num_convs: int = 1):
         blocks = [
-            nn.Sequential(
+            ConvBNSequential(
                 nn.Conv3d(in_channels if i == 0 else features, features, 1, bias=False),
                 batch_norm(features, 3),
                 nn.LeakyReLU(0.1, inplace=True),

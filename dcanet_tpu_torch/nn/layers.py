@@ -6,17 +6,26 @@ are the reference's (models/submodule.py):
   ConvBN     = Sequential(Conv{2,3}d(bias=False), BatchNorm{2,3}d)  -> .0 / .1
   ConvBNAct  = Sequential(ConvBN, ReLU)                             -> .0.0 / .0.1
 
+  ConvBNSequential: a Sequential whose (conv, BatchNorm) pairs run through
+  `conv_bn` (ConvBN, the deconv + BN pairs of nn/aggregation.py, the
+  projections of nn/attention.py)
+
 BatchNorm uses eps 1e-5 and torch momentum 0.1 (flax decay 0.9), and in
-train mode flax's statistics (see `BatchNorm2d`). The JAX package's TPU
-layout paths (folded-BN `epilogue=`, `fold_params`, `packed_out`, kd-fold,
-packed dialect, subpixel deconv) are not ported; its `residual=` is a plain
-add in the callers.
+train mode flax's statistics (see `BatchNorm2d`). In a bf16 eval the BN of
+each site where the JAX package passes `epilogue=bn(..., fold=True)` is
+folded into its conv as there (`fold_eval_bn_enabled`, `conv_bn`); at f32
+and float64, in train mode and with DCANET_FOLD_EVAL_BN=0 it runs as a
+module. Guidance's ResidualBlock and the extras keep their BN, as their
+JAX counterparts do. The JAX package's TPU layout paths (`fold_params`,
+`packed_out`, kd-fold, packed dialect, subpixel deconv) are not ported;
+its `residual=` is a plain add in the callers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 import threading
 
 import torch
@@ -175,7 +184,86 @@ def reference_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-class ConvBN(nn.Sequential):
+# ---- eval BatchNorm folded into its conv at bf16 (dcanet_tpu/nn/layers.py:48-59, 149-156, 259-262) ----
+
+_CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
+
+
+def fold_eval_bn_enabled(x: torch.Tensor) -> bool:
+    """The JAX package's `fold_eval_bn_enabled`: the compute dtype is bfloat16
+    (bf16 autocast on x's device, or a bf16 x) and DCANET_FOLD_EVAL_BN is
+    unset or "1", read at each call. f32 and float64 keep the literal BN."""
+    dev = x.device.type
+    bf16 = x.dtype == torch.bfloat16 or (
+        torch.is_autocast_enabled(dev) and torch.get_autocast_dtype(dev) == torch.bfloat16)
+    return bf16 and os.environ.get("DCANET_FOLD_EVAL_BN", "1") == "1"
+
+
+def _fold(conv: nn.Module, bn: nn.Module):
+    """(bf16(w * s), bf16(b)) in f32 arithmetic, s = gamma * rsqrt(var + eps)
+    along the output channels (dim 0 of a conv's weight, dim 1 of a
+    transposed conv's), b = beta - mean * s shaped to add to the output."""
+    s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    b = bn.bias.float() - bn.running_mean.float() * s
+    ones = [1] * (conv.weight.dim() - 2)
+    axis = [1, -1] if isinstance(conv, (nn.ConvTranspose2d, nn.ConvTranspose3d)) else [-1, 1]
+    w = conv.weight.float() * s.view(*axis, *ones)
+    return w.to(torch.bfloat16), b.view(1, -1, *ones).to(torch.bfloat16)
+
+
+def _folded(conv: nn.Module, bn: nn.Module):
+    """`_fold(conv, bn)`, cached on `bn` while the five source tensors keep
+    their storage (the cache holds them, so an address is not reused) and
+    version counter: `load_state_dict`, an optimizer step, an in-place
+    change of a statistic and `.to()` each rebuild it. The cached tensors are
+    built outside autograd and inference mode. With grad enabled and a
+    source requiring it, or a source made in inference mode (no version
+    counter), the fold is computed at each call."""
+    if conv.bias is not None:
+        raise ValueError(f"no folded form of a biased {conv}")
+    src = (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    if any(t.is_inference() for t in src) or (torch.is_grad_enabled() and any(t.requires_grad for t in src)):
+        return _fold(conv, bn)
+    key = tuple((t.data_ptr(), t._version) for t in src)
+    cache = bn.__dict__.get("_fold_cache")
+    if cache is None or cache[0] != key:
+        with torch.inference_mode(False), torch.no_grad():
+            w, b = _fold(conv, bn)
+        # the detached aliases keep the source storages alive, so that no
+        # new tensor can take their addresses while the entry stands
+        cache = bn.__dict__["_fold_cache"] = (key, tuple(t.detach() for t in src), w, b)
+    return cache[2], cache[3]
+
+
+def conv_bn(conv: nn.Module, bn: nn.Module, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """bn(conv(x)), or with a `DispShard` its D-sharded form on this rank's
+    slab. In eval at bf16 (`fold_eval_bn_enabled`) as the JAX package's
+    `epilogue=`: one conv with the folded weight (cast to bf16 once, from
+    f32), then + b in the output's dtype; the BN module does not run."""
+    if bn.training or not fold_eval_bn_enabled(x):
+        return bn(run_sharded(conv, x, shard))
+    w, b = _folded(conv, bn)
+    y = _conv_with_weight(conv, x, w, shard)
+    return y + b.to(y.dtype)
+
+
+class ConvBNSequential(nn.Sequential):
+    """A Sequential that starts with a conv and its BatchNorm, which run
+    through `conv_bn` (folded in a bf16 eval), then its other children (an
+    activation); or a Sequential of such Sequentials. With a `DispShard`,
+    each on this rank's slab. nn.Sequential's keys."""
+
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        mods = list(self)
+        if isinstance(mods[0], _CONVS):
+            x = conv_bn(mods[0], mods[1], x, shard)
+            mods = mods[2:]
+        for m in mods:
+            x = run_sharded(m, x, shard)
+        return x
+
+
+class ConvBN(ConvBNSequential):
     """Conv (no bias) + BatchNorm, 2D or 3D (reference convbn / convbn_3d)."""
 
     def __init__(self, in_channels, features, kernel, stride=1, padding=0, dilation=1, dims=2):
@@ -208,9 +296,7 @@ class BasicBlock(nn.Module):
         self.conv2 = ConvBN(planes, planes, 3, 1, pad, dilation)
         self.downsample = None
         if stride != 1 or in_planes != planes:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, planes, 1, stride, bias=False), batch_norm(planes, 2)
-            )
+            self.downsample = ConvBN(in_planes, planes, 1, stride)
 
     def forward(self, x):
         out = self.conv2(self.conv1(x))
@@ -228,7 +314,7 @@ class BasicConv(nn.Module):
         self.bn = batch_norm(features, dims)
 
     def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+        return torch.relu(conv_bn(self.conv, self.bn, x))
 
 
 class ResidualBlock(nn.Module):
@@ -280,13 +366,15 @@ def avg_pool3d_torch() -> nn.AvgPool3d:
 # [2 p0, 2 p1) and the half-resolution planes [p0, p1).
 
 
-def _conv3d_sharded(conv: nn.Conv3d, x: torch.Tensor, shard) -> torch.Tensor:
-    """A 3x3x3 pad-1 conv: stride 1 takes one plane each side; stride 2 (out
-    plane o reads in planes 2o - 1 .. 2o + 1) one plane below."""
+def _conv3d_sharded(conv: nn.Conv3d, x: torch.Tensor, shard, weight=None) -> torch.Tensor:
+    """A 3x3x3 pad-1 conv (with `weight` in place of its own, when given):
+    stride 1 takes one plane each side; stride 2 (out plane o reads in
+    planes 2o - 1 .. 2o + 1) one plane below."""
     if conv.kernel_size[0] != 3 or conv.padding[0] != 1 or conv.dilation[0] != 1 or conv.stride[0] not in (1, 2):
         raise ValueError(f"no D-sharded form of {conv}")
     xp = shard.halo(x, 1, 1 if conv.stride[0] == 1 else 0)
-    return F.conv3d(xp, conv.weight, conv.bias, conv.stride, (0,) + tuple(conv.padding[1:]), conv.dilation, conv.groups)
+    return F.conv3d(xp, conv.weight if weight is None else weight, conv.bias, conv.stride,
+                    (0,) + tuple(conv.padding[1:]), conv.dilation, conv.groups)
 
 
 def _avg_pool3d_sharded(pool: nn.AvgPool3d, x: torch.Tensor, shard) -> torch.Tensor:
@@ -298,25 +386,43 @@ def _avg_pool3d_sharded(pool: nn.AvgPool3d, x: torch.Tensor, shard) -> torch.Ten
     return F.avg_pool3d(shard.halo(x, 1, 0), 3, 2, (0, 1, 1), count_include_pad=True)
 
 
-def _conv_transpose3d_sharded(deconv: nn.ConvTranspose3d, x: torch.Tensor, shard) -> torch.Tensor:
-    """The k3 s2 p1 op1 transposed conv: out planes [2 p0, 2 p1) read in
-    planes [p0, p1], one plane above. With no D padding in the call, out
-    plane j of the padded slab is global plane 2 p0 + j - 1."""
+def _conv_transpose3d_sharded(deconv: nn.ConvTranspose3d, x: torch.Tensor, shard, weight=None) -> torch.Tensor:
+    """The k3 s2 p1 op1 transposed conv (with `weight` in place of its own,
+    when given): out planes [2 p0, 2 p1) read in planes [p0, p1], one plane
+    above. With no D padding in the call, out plane j of the padded slab is
+    global plane 2 p0 + j - 1."""
     if (deconv.kernel_size[0], deconv.stride[0], deconv.padding[0], deconv.output_padding[0]) != (3, 2, 1, 1):
         raise ValueError(f"no D-sharded form of {deconv}")
-    y = F.conv_transpose3d(shard.halo(x, 0, 1), deconv.weight, deconv.bias, deconv.stride,
+    w = deconv.weight if weight is None else weight
+    y = F.conv_transpose3d(shard.halo(x, 0, 1), w, deconv.bias, deconv.stride,
                            (0,) + tuple(deconv.padding[1:]), (0,) + tuple(deconv.output_padding[1:]),
                            deconv.groups, deconv.dilation)
     return y.narrow(2, 1, 2 * x.shape[2])
 
 
+def _conv_with_weight(conv: nn.Module, x: torch.Tensor, weight: torch.Tensor, shard=None) -> torch.Tensor:
+    """conv(x) with `weight` in place of its own (a folded one), with a
+    `DispShard` on this rank's slab as `run_sharded` runs the conv."""
+    if shard is not None and isinstance(conv, nn.Conv3d) and conv.kernel_size[0] > 1:
+        return _conv3d_sharded(conv, x, shard, weight)
+    if shard is not None and isinstance(conv, nn.ConvTranspose3d):
+        return _conv_transpose3d_sharded(conv, x, shard, weight)
+    if isinstance(conv, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+        fn = F.conv_transpose3d if isinstance(conv, nn.ConvTranspose3d) else F.conv_transpose2d
+        return fn(x, weight, conv.bias, conv.stride, conv.padding, conv.output_padding, conv.groups, conv.dilation)
+    return conv._conv_forward(x, weight, conv.bias)
+
+
 def run_sharded(module: nn.Module, x: torch.Tensor, shard=None) -> torch.Tensor:
     """module(x), or with a `DispShard` its D-sharded form on this rank's slab:
-    Sequentials element by element, the 3x3x3 convs, the CVA's pool and the
-    transposed conv on halos; 1x1x1 convs, eval BatchNorm and activations
-    are plane-local and run as they are."""
+    Sequentials element by element (a ConvBNSequential's (conv, BN) pairs
+    through `conv_bn`), the 3x3x3 convs, the CVA's pool and the transposed
+    conv on halos; 1x1x1 convs, eval BatchNorm and activations are
+    plane-local and run as they are."""
     if shard is None:
         return module(x)
+    if isinstance(module, ConvBNSequential):
+        return module(x, shard)
     if isinstance(module, nn.Sequential):
         for m in module:
             x = run_sharded(m, x, shard)

@@ -16,7 +16,9 @@ CPU: ranks under gloo against one process and against the JAX package.
   forward, disparity 1e-9 px and class logits 1e-10 after scaling by
   max(|logits|, 1); in float32 against the JAX DCANet eval forward on the
   same variables, 5e-3 px and 1e-4 scaled (the eval parity of
-  tests/test_torch_dcanet.py);
+  tests/test_torch_dcanet.py); in bf16 autocast (BatchNorm folded, none
+  outside Guidance's runs on any rank) against the port's unsharded bf16
+  forward, mean |diff| < 0.25 px (tests/test_torch_fold_eval.py's bound);
 - `cli eval --n-disp-shards 2` over 2 ranks (the group formed by
   `initialize` from the DCANET_* variables, and left at the end) on a
   synthetic ETH3D tree, the protocol's 768x1024 canvas cut to 64x128,
@@ -205,20 +207,36 @@ def _pair(dtype):
 
 
 def _model(spec, num_cva, dtype, plan=None):
+    """DCANet in `dtype`; float32 weights for bf16, which runs under autocast."""
     model = DCANet(maxdisp=MAXDISP, num_cva=num_cva, constrain_volume=plan)
     model.load_state_dict(W.from_jax_variables(spec["flat"][num_cva], num_cva), strict=True)
-    return model.to(dtype).eval()
+    return model.to(torch.float32 if dtype == torch.bfloat16 else dtype).eval()
 
 
 def _forward(model, dtype):
-    with torch.inference_mode():
-        out = model(*_pair(dtype))
-    return {"disparity": out.disparity.clone(), "logits": [lg.clone() for lg in out.class_logits]}
+    """The eval forward in `dtype` (bf16: under bf16 autocast, BatchNorm
+    folded), and the BatchNorm modules outside Guidance that ran (Guidance's
+    ResidualBlocks and `norm1` keep their BN, as in the JAX package)."""
+    ran = set()
+    handles = [m.register_forward_hook(lambda *_, n=n: ran.add(n)) for n, m in model.named_modules()
+               if isinstance(m, nn.modules.batchnorm._BatchNorm) and not n.startswith("guidance.")]
+    bf16 = dtype == torch.bfloat16
+    try:
+        with torch.inference_mode(), torch.autocast("cpu", torch.bfloat16, enabled=bf16):
+            out = model(*_pair(torch.float32 if bf16 else dtype))
+    finally:
+        for h in handles:
+            h.remove()
+    return {"disparity": out.disparity.clone(), "logits": [lg.clone() for lg in out.class_logits],
+            "bn_ran": sorted(ran)}
+
+
+MODEL_DTYPES = (("f64", torch.float64), ("f32", torch.float32), ("bf16", torch.bfloat16))
 
 
 def _models_job(spec, plan):
     return {(num_cva, tag): _forward(_model(spec, num_cva, dtype, plan), dtype)
-            for num_cva in NUM_CVAS for tag, dtype in (("f64", torch.float64), ("f32", torch.float32))}
+            for num_cva in NUM_CVAS for tag, dtype in MODEL_DTYPES}
 
 
 # ---- cli eval ----
@@ -342,8 +360,7 @@ def runs(tmp_path_factory):
     handles = {world: _start_ranks(world, dict(spec, logdir=tmp / f"ranks{world}"), tmp / f"w{world}")
                for world in WORLDS}
 
-    one = {(n, tag): _forward(_model(spec, n, dtype), dtype)
-           for n in NUM_CVAS for tag, dtype in (("f64", torch.float64), ("f32", torch.float32))}
+    one = {(n, tag): _forward(_model(spec, n, dtype), dtype) for n in NUM_CVAS for tag, dtype in MODEL_DTYPES}
     jax_fwd = {n: _jax_forward(flat[n], n) for n in NUM_CVAS}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tprotocol, "ETH3D_H", ETH3D_CANVAS[0])
@@ -457,6 +474,23 @@ def test_sharded_dcanet_matches_jax_float32(runs, num_cva, world):
         for g, w in zip(got["logits"], want["logits"]):
             scale = max(float(np.abs(w).max()), 1.0)
             np.testing.assert_allclose(g.numpy() / scale, w / scale, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("num_cva", NUM_CVAS)
+def test_sharded_bf16_eval_folds_and_matches_one_process(runs, num_cva, world):
+    """bf16 autocast: on every rank and in one process, no BatchNorm outside
+    Guidance runs (`run_sharded` folds each into its conv on the halo-padded
+    slab), and the disparity is within 0.25 px mean of one process's (the
+    bound of tests/test_torch_fold_eval.py)."""
+    want = runs["one"][num_cva, "bf16"]
+    assert want["bn_ran"] == [] and len(runs["one"][num_cva, "f32"]["bn_ran"]) > 40
+    for r, rank in enumerate(runs["ranks"][world]):
+        got = rank["models"][num_cva, "bf16"]
+        assert got["bn_ran"] == []
+        err = float((got["disparity"] - want["disparity"]).abs().mean())
+        print(f"[disp] bf16 eval, num_cva {num_cva}, rank {r} of {world}: mean |diff| {err:.3e} px from one process")
+        assert got["disparity"].dtype == torch.float32 and err < 0.25
 
 
 # ---- cli eval ----
