@@ -41,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      pairs/s, peak memory, a profile each (device busy share, launches,
      BatchNorm kernels' share); the GPU model against the CPU model (plain
      gwc) on a small input in f32, and folded bf16 on both (BatchNorm
-     statistics of one train-mode forward of the small pair): one
+     statistics of one train-mode forward of the small pair): their dtype
+     plans op by op equal (`dtype_record`; ops/precision.py), one
      MultiAggregation within 2e-2 scaled, the disparity closer than the
      CPU's own bf16 forward is to its f32 one.
   4. serving: three `cli infer --submission` requests on a synthetic
@@ -84,7 +85,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      `gwcnet-gc` and `ganet` also in bf16 with the BatchNorm literal,
      DCANET_FOLD_EVAL_BN=0), each GPU model
      against its CPU model on a small pair (disparity 5e-3 px, the final
-     head's logits 1e-4 scaled); `cli train --preset sceneflow --model
+     head's logits 1e-4 scaled) and, folded bf16 with calibrated BatchNorm
+     statistics, their dtype plans equal op by op and the disparity's
+     distance logged; `cli train --preset sceneflow --model
      gwcnet-gc` and `--model ganet` for 4 steps at the 256x512 crop, f32
      (finite loss, one gwc forward and one backward launch per step,
      ms/step, peak memory), each with one GPU train step against the CPU
@@ -894,6 +897,106 @@ def batch_norm_forwards(model, fn):
     return out, ran, total[0]
 
 
+# ops whose dtype bf16 autocast may decide on the eval path
+# (dcanet_tpu_torch/ops/precision.py, rule (c)): the convolutions and
+# transposed convolutions, matmuls and einsums, which both devices run in
+# bf16, and `cat` / `stack`, which promote as they do without autocast
+AUTOCAST_DECIDES = ("aten.convolution.default", "aten.bmm.default", "aten.mm.default", "aten.cat.default",
+                    "aten.stack.default")
+# the batch norm kernel's name depends on the device (Guidance's literal BN)
+_BATCH_NORM_OPS = ("aten.native_batch_norm.default", "aten.cudnn_batch_norm.default",
+                   "aten._native_batch_norm_legit_no_training.default")
+
+
+def dtype_record(model, left, right, autocast: bool = True) -> list:
+    """The dtype plan of one bf16-autocast eval forward of `model` on the
+    device of `left` (with `autocast` False: in the model's dtype), under no_grad, after a warm-up forward (which fills the
+    fold cache): one entry per op that the dispatcher runs below autocast
+    and that returns a floating tensor, views aside, as (op, module, input
+    dtypes, output dtype, autocast on at the call). The gwc volume is one
+    entry ("gwc_volume", ...): the kernel on the card, its plain version on
+    the CPU. The batch norm kernel is named "batch_norm". Equal records of
+    the CPU and the card mean the two devices ran one plan."""
+    import torch
+    from torch.nn.modules import module as nn_module
+    from torch.overrides import TorchFunctionMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from dcanet_tpu_torch.models import dcanet as dcanet_module
+
+    dev = left.device.type
+    names = {m: n for n, m in model.named_modules()}
+    stack, record, state = [""], [], {"autocast": False, "skip": 0}
+
+    def dtypes(tree):
+        return tuple(str(t.dtype).removeprefix("torch.") for t in tree_leaves(tree)
+                     if isinstance(t, torch.Tensor) and t.is_floating_point())
+
+    class Calls(TorchFunctionMode):  # the autocast state of each torch call, above autocast
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            state["autocast"] = torch.is_autocast_enabled(dev)
+            return func(*args, **(kwargs or {}))
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = dtypes(out)
+            if outs and not state["skip"] and not func.is_view:
+                op = "batch_norm" if str(func) in _BATCH_NORM_OPS else str(func)
+                record.append((op, stack[-1], dtypes((args, kwargs)), outs[0], state["autocast"]))
+            return out
+
+    gwc_volume = dcanet_module.gwc_volume
+
+    def recorded_gwc_volume(fl, fr, *args, **kwargs):
+        state["skip"] += 1
+        try:
+            out = gwc_volume(fl, fr, *args, **kwargs)
+        finally:
+            state["skip"] -= 1
+        record.append(("gwc_volume", stack[-1], dtypes((fl, fr)), dtypes(out)[0], torch.is_autocast_enabled(dev)))
+        return out
+
+    def forward():
+        with torch.no_grad(), torch.autocast(dev, torch.bfloat16, enabled=autocast):
+            return model(left, right)
+
+    def enter(module, args):
+        stack.append(names.get(module, stack[-1]))
+
+    def leave(module, args, out):
+        stack.pop()
+
+    model.eval()
+    forward()
+    hooks = [nn_module.register_module_forward_pre_hook(enter), nn_module.register_module_forward_hook(leave)]
+    dcanet_module.gwc_volume = recorded_gwc_volume
+    try:
+        with Calls(), Ops():
+            forward()
+    finally:
+        dcanet_module.gwc_volume = gwc_volume
+        for h in hooks:
+            h.remove()
+    return record
+
+
+def same_dtype_plan(tag: str, cuda: list, cpu: list) -> None:
+    """Raises unless the card's dtype record equals the CPU's; logs its length
+    and the dtypes it holds."""
+    counts = {}
+    for _, _, ins, out, _ in cuda:
+        counts[out] = counts.get(out, 0) + 1
+    log(f"[{tag}] dtype plan of the folded bf16 eval, 1x3x64x256: {len(cuda)} ops on the card, {len(cpu)} on the "
+        f"CPU, {'equal' if cuda == cpu else 'NOT equal'}; outputs by dtype {counts}")
+    if cuda != cpu:
+        i = next((k for k, (a, b) in enumerate(zip(cuda, cpu)) if a != b), min(len(cuda), len(cpu)))
+        for k in range(max(i - 2, 0), i + 3):
+            log(f"[{tag}]   op {k}: card {cuda[k] if k < len(cuda) else None} | CPU {cpu[k] if k < len(cpu) else None}")
+        raise AssertionError(f"[{tag}] the card's bf16 eval runs another dtype plan than the CPU's (op {i})")
+
+
 def phase_model(flat):
     """DCANet(num_cva=3) eval at 384x1248 in bf16 and f32; GPU vs CPU model."""
     import torch
@@ -993,48 +1096,60 @@ def phase_model(flat):
     if not small_err <= 5e-3:
         raise AssertionError("GPU model disagrees with the CPU model on the small pair")
     results["small_err"] = small_err
-    results["small_bf16"] = folded_gpu_vs_cpu(model, sl, sr)
+    results["small_bf16"] = folded_gpu_vs_cpu(model, sl, sr, "model", block=lambda m: m.cva1.cost_agg)
     return results, disp["f32"]
 
 
-def folded_gpu_vs_cpu(model, sl, sr) -> dict:
+def folded_gpu_vs_cpu(model, sl, sr, tag: str, block=None) -> dict:
     """The folded bf16 eval on the card (cuDNN) against the folded bf16 eval
     on the CPU (oneDNN), in a copy of `model` with the BatchNorm statistics
     of one train-mode forward of the small pair (with the seeded ones the
-    activations are unnormalised). One block, `cva1.cost_agg` (a
-    MultiAggregation with its deconv fold), on a bf16-representable volume:
-    max |diff| / max(max |CPU|, 1e-3) <= 2e-2, the block bound of
-    tests/test_torch_fold_eval.py. The model on the pair: random weights
-    make its bf16 disparity at maxdisp 192 turn on rounding order, so the
-    bound is the CPU's own folded bf16 distance to its f32 forward (mean
-    |diff|). No BatchNorm outside Guidance may run on either device."""
+    activations are unnormalised). The dtype plans of the two (`dtype_record`)
+    must be equal. With `block` (a module of the model, phase 3's
+    `cva1.cost_agg`: a MultiAggregation with its deconv fold), the block on
+    a bf16-representable volume: max |diff| / max(max |CPU|, 1e-3) <= 2e-2,
+    the block bound of tests/test_torch_fold_eval.py, and the model on the
+    pair closer than the CPU's own folded bf16 forward is to its f32 one
+    (mean |diff|; random weights make a bf16 disparity at maxdisp 192 turn
+    on rounding order). No BatchNorm outside Guidance may run on either
+    device."""
     import copy
 
     import torch
 
     calibrated = calibrate_batch_norm(copy.deepcopy(model).cuda(), sl.cuda(), sr.cuda())
     vol = torch.randn(1, 32, 48, 16, 64, generator=torch.Generator().manual_seed(SEED + 8)).bfloat16().float()
-    out = {}
+    out, records = {}, {}
     with fold_eval_bn(True):
         for dev in ("cuda", "cpu"):
             m = calibrated.to(dev)
             with torch.inference_mode(), torch.autocast(dev, torch.bfloat16):
                 res, ran, _ = batch_norm_forwards(m, lambda: m(sl.to(dev), sr.to(dev)))
-                block = m.cva1.cost_agg(vol.to(dev))
+                blk = None if block is None else block(m)(vol.to(dev)).float().cpu()
             if ran:
-                raise AssertionError(f"[model] folded bf16 on {dev}: BatchNorm modules ran: {sorted(ran)[:4]}")
-            out[dev] = res.disparity.float().cpu(), block.float().cpu()
+                raise AssertionError(f"[{tag}] folded bf16 on {dev}: BatchNorm modules ran: {sorted(ran)[:4]}")
+            d = res.disparity
+            if d.shape != (1, 64, 256) or d.dtype != torch.float32 or not bool(torch.isfinite(d).all()):
+                raise AssertionError(f"[{tag}] folded bf16 on {dev}: disparity {tuple(d.shape)} {d.dtype}")
+            out[dev] = d.cpu(), blk
+            records[dev] = dtype_record(m, sl.to(dev), sr.to(dev))
         with torch.inference_mode():
             f32 = calibrated(sl, sr).disparity
+    same_dtype_plan(tag, records["cuda"], records["cpu"])
     (gd, gb), (cd, cb) = out["cuda"], out["cpu"]
-    block_err = float((gb - cb).abs().max()) / max(float(cb.abs().max()), 1e-3)
     err, noise = float((gd - cd).abs().mean()), float((cd - f32).abs().mean())
-    log(f"[model] folded bf16, GPU vs CPU, calibrated BatchNorm statistics: cva1.cost_agg on (1, 32, 48, 16, 64) "
-        f"scaled max |diff| {block_err:.3e} (bound 2e-2); the model on 1x3x64x256 mean |diff| {err:.4f} px (bound: "
-        f"the CPU's folded bf16 - its f32, {noise:.4f} px), max {float((gd - cd).abs().max()):.4f} px")
-    if not (block_err <= 2e-2 and err < noise):
-        raise AssertionError("[model] the folded bf16 GPU model disagrees with the folded bf16 CPU model")
-    return dict(block_err=block_err, disparity_err=err, cpu_bf16_vs_f32=noise)
+    result = dict(disparity_err=err, disparity_max_err=float((gd - cd).abs().max()), cpu_bf16_vs_f32=noise,
+                  dtype_ops=len(records["cuda"]))
+    log(f"[{tag}] folded bf16, GPU vs CPU, calibrated BatchNorm statistics, 1x3x64x256: mean |diff| {err:.4f} px, "
+        f"max {result['disparity_max_err']:.4f} px; the CPU's folded bf16 - its f32 {noise:.4f} px; card: "
+        f"{gpu_line()}")
+    if block is not None:
+        result["block_err"] = float((gb - cb).abs().max()) / max(float(cb.abs().max()), 1e-3)
+        log(f"[{tag}] the block on (1, 32, 48, 16, 64): scaled max |diff| {result['block_err']:.3e} (bound 2e-2); "
+            f"the model's bound: the CPU's folded bf16 - its f32")
+        if not (result["block_err"] <= 2e-2 and err < noise):
+            raise AssertionError(f"[{tag}] the folded bf16 GPU model disagrees with the folded bf16 CPU model")
+    return result
 
 
 def phase_serving(flat, ref_disp, workdir: Path):
@@ -1619,6 +1734,7 @@ def family_eval(name: str, tl, tr) -> dict:
     if not (err <= 5e-3 and logit_err <= 1e-4):
         raise AssertionError(f"[family {name}] GPU model disagrees with the CPU model on the small pair")
     out["small_err"], out["small_logit_err"] = err, logit_err
+    out["small_bf16"] = folded_gpu_vs_cpu(model, sl, sr, f"family {name}")
     del model, gpu
     torch.cuda.empty_cache()
     return out, launches

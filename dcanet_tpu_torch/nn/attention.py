@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from dcanet_tpu_torch.nn.layers import ConvBNSequential, batch_norm
+from dcanet_tpu_torch.ops.precision import in_model_dtype
 
 
 class Projection(ConvBNSequential):
@@ -74,6 +75,7 @@ class DisparityAttentionBlock(nn.Module):
         k = key.view(b, tc // hd, hd, dk, h, w)
         v = value.view(b, tc // hd, hd, dk, h, w)
         sim = torch.einsum("bneihw,bnejhw->bnhwij", q, k)
-        attn = sim.softmax(dim=-1)  # over the key disparity j
+        # over the key disparity j, in the model's dtype in eval (ops/precision.py)
+        attn = in_model_dtype(lambda s: s.softmax(dim=-1), sim, enabled=not self.training)
         ctx = torch.einsum("bnhwij,bnejhw->bneihw", attn.to(v.dtype), v)
         return self.out_project(ctx.reshape(b, tc, d, h, w))

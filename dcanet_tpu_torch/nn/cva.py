@@ -28,6 +28,7 @@ from torch import nn
 from dcanet_tpu_torch.nn.aggregation import MultiAggregation
 from dcanet_tpu_torch.nn.attention import DisparityAttentionBlock
 from dcanet_tpu_torch.nn.layers import ConvBN, avg_pool3d_torch, run_sharded
+from dcanet_tpu_torch.ops.precision import at_least_f32, in_model_dtype
 from dcanet_tpu_torch.ops.slc import slc_pool
 from dcanet_tpu_torch.ops.upsample import resize_trilinear
 
@@ -39,8 +40,14 @@ class SemanticLevelContext(nn.Module):
 
     def forward(self, x: torch.Tensor, logits: torch.Tensor, shard=None) -> torch.Tensor:
         """x: (B, C, D, H, W) cost volume; logits: (B, D, H, W) class logits
-        (with a `shard`, x is this rank's planes and the logits are whole)."""
-        return self.cross_attention(x, slc_pool(x, logits, shard) + x, shard)
+        (with a `shard`, x is this rank's planes and the logits are whole).
+        The pooling computes in the model's dtype in eval, with float32
+        statistics in training (ops/precision.py)."""
+        if self.training:
+            pooled = slc_pool(x, at_least_f32(logits), shard)
+        else:
+            pooled = in_model_dtype(lambda v, lg: slc_pool(v, lg, shard), x, logits)
+        return self.cross_attention(x, pooled + x, shard)
 
 
 class CVA(nn.Module):
@@ -66,6 +73,7 @@ class CVA(nn.Module):
         logits = run_sharded(self.classify, cost_down, shard)[:, 0]
         if shard is not None:
             logits = shard.gather(logits, 1)
-        augmented = resize_trilinear(self.slc_net(cost_down, logits, shard), 2, shard)
+        context = self.slc_net(cost_down, logits, shard)
+        augmented = in_model_dtype(lambda t: resize_trilinear(t, 2, shard), context, enabled=not self.training)
         fused = self.fuse(torch.cat([augmented.to(cost_volume.dtype), cost_volume], dim=1))
         return logits, self.cost_agg(fused, post_residual, shard)

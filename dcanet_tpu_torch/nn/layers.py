@@ -32,7 +32,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from dcanet_tpu_torch.ops.precision import at_least_f32
+from dcanet_tpu_torch.ops.precision import at_least_f32, in_model_dtype
 from dcanet_tpu_torch.parallel import distributed
 
 _FROZEN = threading.local()
@@ -352,10 +352,26 @@ def torch_conv_transpose2d(in_channels: int, features: int) -> nn.ConvTranspose2
     return nn.ConvTranspose2d(in_channels, features, 3, 2, 1, output_padding=1, bias=False)
 
 
-def avg_pool3d_torch() -> nn.AvgPool3d:
+class AvgPool3dTorch(nn.AvgPool3d):
     """AvgPool3d(3, stride 2, padding 1), count_include_pad=True: the JAX
-    package's AvgPool3dTorch."""
-    return nn.AvgPool3d(3, 2, 1, count_include_pad=True)
+    package's AvgPool3dTorch; with a `DispShard` on this rank's slab. In
+    eval it returns the model's dtype, the mean taken in at least float32
+    and rounded once, with autocast off (ops/precision.py): CPU autocast
+    would return float32 (the CPU has no bf16 kernel), CUDA's bf16.
+    Training keeps autocast's choice."""
+
+    def __init__(self):
+        super().__init__(3, 2, 1, count_include_pad=True)
+
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        pool = super().forward if shard is None else (lambda t: _avg_pool3d_sharded(self, t, shard))
+        if self.training:
+            return pool(x)
+        return in_model_dtype(lambda t: pool(at_least_f32(t)).to(t.dtype), x)
+
+
+def avg_pool3d_torch() -> AvgPool3dTorch:
+    return AvgPool3dTorch()
 
 
 # ---- the ops that mix planes along D, on a rank's slab of a D-sharded volume ----
@@ -429,8 +445,8 @@ def run_sharded(module: nn.Module, x: torch.Tensor, shard=None) -> torch.Tensor:
         return x
     if isinstance(module, nn.Conv3d) and module.kernel_size[0] > 1:
         return _conv3d_sharded(module, x, shard)
-    if isinstance(module, nn.AvgPool3d):
-        return _avg_pool3d_sharded(module, x, shard)
+    if isinstance(module, AvgPool3dTorch):
+        return module(x, shard)
     if isinstance(module, nn.ConvTranspose3d):
         return _conv_transpose3d_sharded(module, x, shard)
     return module(x)

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from dcanet_tpu_torch.nn.layers import ConvBN
-from dcanet_tpu_torch.ops.precision import at_least_f32
+from dcanet_tpu_torch.ops.precision import in_model_dtype
 from dcanet_tpu_torch.ops.upsample import convex_upsample
 
 
@@ -26,7 +26,9 @@ class PropagationNet(nn.Module):
 
     def forward(self, guidance: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
         """guidance: (B, base_channels, H, W); disp: (B, H, W) coarse.
-        Returns (B, H*scale, W*scale). The blend runs in float32, also under
-        bf16 autocast: a bf16 disparity above 128 would round to whole pixels."""
+        Returns (B, H*scale, W*scale). The blend runs in float32 with
+        autocast off, also in a bf16 model: a bf16 disparity above 128 would
+        round to whole pixels (ops/precision.py, rule (a))."""
         mask_logits = self.conv(guidance)
-        return convex_upsample(at_least_f32(disp), at_least_f32(mask_logits), self.scale)
+        return in_model_dtype(lambda d, m: convex_upsample(d, m, self.scale), disp, mask_logits,
+                              at_least=torch.float32)

@@ -10,16 +10,16 @@ P = softmax(logits, D), class a_p = argmax_D P and score s_p = max_D P:
   weight_p     = e_p / Z_{a_p}
   out[:, d, p] = onehot[p, d] * weight_p * x[:, a_p, p]
 
-Every sum and max here is a broadcast against the one-hot mask, so the
-statistics stay in float32 under bf16 autocast (which would round an einsum).
+Every sum and max here is a broadcast against the one-hot mask. The
+statistics are computed in the logits' dtype, which the caller chooses
+(nn/cva.py: the model's dtype in eval, as the JAX package; float32 in
+training).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-
-from dcanet_tpu_torch.ops.precision import at_least_f32
 
 
 def slc_pool(x: torch.Tensor, logits: torch.Tensor, shard=None) -> torch.Tensor:
@@ -40,7 +40,7 @@ def slc_pool(x: torch.Tensor, logits: torch.Tensor, shard=None) -> torch.Tensor:
     if logits.shape != (b, d, h, w) or hi - lo != planes:
         raise ValueError(f"logits {tuple(logits.shape)} do not fit volume {tuple(x.shape)}")
 
-    p = at_least_f32(logits).softmax(dim=1)
+    p = logits.softmax(dim=1)
     a = p.argmax(dim=1)  # (B, H, W), first maximum on ties, as jnp.argmax
     s = p.amax(dim=1)  # (B, H, W)
     onehot = F.one_hot(a, d).to(p.dtype)  # (B, H, W, D)
