@@ -27,8 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      version), conv3d (with scale, bias and ReLU) and conv3d_fast's
      backward; CUDA-event times of kernel, plain version and, for conv3d,
      F.conv3d (cuDNN) beside the card's bound for the same work (the gwc
-     forward also at the train and the KITTI eval shape, the backward at
-     the train and the Middlebury shape); the gwc kernels
+     forward also at the train shape, at batch 1 and at the bf16 train
+     leg's batch 4, and at the KITTI eval shape, the backward at the train
+     shape at batch 1 and 4 and at the Middlebury shape); the gwc kernels
      retimed at the end; for context only, F.conv3d f32 with TF32 on (time,
      and its error, which misses the f32 tolerance).
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
@@ -58,9 +59,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      step (the counts of this phase), ms/step, pairs/s, peak memory, the
      checkpoints, a resumed epoch, and one `cli infer --submission --logdir`
      request served from the run's newest checkpoint (its gwc launch
-     counted, its PNG against the checkpoint's weights run in-process); then
-     one GPU train step against the CPU train step from the same weights on
-     a small input.
+     counted, its PNG against the checkpoint's weights run in-process). Then
+     the bf16 leg: `cli train --dtype bfloat16 --batch-size 4` for one epoch
+     on 24 procedural scenes at 320x640 (`write_procedural_sceneflow_tree`):
+     every metric finite, one bf16 gwc forward and one bf16 backward launch
+     per step and no f32 one (the counts of this leg, per dtype), ms/step,
+     pairs/s, peak memory; the train step alone at batch 1, 2 and 4 in f32
+     and bf16: peak memory, the memory held between steps and what holds
+     the memory at a step's peak (the allocator's history). Then one GPU
+     train step against the CPU train step from the same weights on a small
+     input, in f32 and in bf16 (the bf16 step within the CPU's own
+     bf16-vs-f32 distance), and the dtype plan of the bf16 step's forward
+     and loss op by op (`dtype_record`), equal on the card and the CPU.
   7. eval: `cli eval --preset kitti --dataset kitti2015` with DCANet(num_cva=3,
      maxdisp=192) on a synthetic KITTI 2015 tree of 6 pairs at 375x1242
      (sparse gt, one pair that the per-image skip rule drops), in f32 and in
@@ -174,6 +184,14 @@ one card. Between the two, `cli train --n-disp-shards 2` on 2 cards and on
 a data=2 x disp=2 grid of 4: ms/step, each card's peak memory, the first
 step's loss against one card.
 
+`--phases curve`, a manual measurement outside the smoke's phases (never
+run by default; ~30 min): the port's training curve (`phase_curve`,
+`dcanet_tpu_torch/traincurve.py`) on 1600 + 40 procedural scenes at
+320x640, 5 epochs at batch 4 in bf16, `cli eval` on the held-out scenes
+after each epoch, then f32, literal bf16 and folded bf16 `cli eval` of the
+trained checkpoint and its folded bf16 forward on the card against the CPU;
+its JSON goes to `chiprun_out/traincurve.json` beside the script.
+
 `--phases` runs a subset (for iterating on one part); the summary lines are
 printed only for the full run.
 
@@ -214,6 +232,8 @@ MAIN_SHAPE = (1, 320, 96, 312)  # gwc features of a 384x1248 pair
 # bf16 forward's scalar route
 KITTI_EVAL_SHAPE = (1, 320, 92, 308)
 TRAIN_SHAPE = (1, 320, 64, 128)  # gwc features of a 256x512 SceneFlow crop
+# ... of a batch of 4 such crops: the bf16 train leg's and the curve's
+TRAIN_B4_SHAPE = (4,) + TRAIN_SHAPE[1:]
 MAIN_GROUPS, MAIN_D = 40, 48
 # the gwc backward at the Middlebury preset's 320x704 crop, maxdisp 240
 MIDDLEBURY_SHAPE, MIDDLEBURY_D = (1, 320, 80, 176), 60
@@ -253,6 +273,16 @@ CONV_SHAPE_64 = (1, 64, 48, 96, 312)
 # preset's 256x512 crop, TRAIN_EPOCHS epochs, then one resumed epoch
 SCENEFLOW_HW = (540, 960)
 TRAIN_PAIRS, TRAIN_EPOCHS, TRAIN_WARMUP = 5, 2, 2
+# the bf16 leg of the train phase: `cli train --dtype bfloat16` at batch
+# BF16_TRAIN_BATCH on BF16_TRAIN_SCENES procedural scenes at PROCEDURAL_HW
+# (TRAINCURVE.md's size), one epoch; the train step's peak memory at each of
+# MEMORY_BATCHES in f32 and bf16, over MEMORY_STEPS steps
+PROCEDURAL_HW, BF16_TRAIN_SCENES, BF16_TRAIN_BATCH = (320, 640), 24, 4
+MEMORY_BATCHES, MEMORY_STEPS = (1, 2, 4), 2
+# curve phase (manual): TRAINCURVE.md's run, CURVE_TRAIN + CURVE_TEST scenes,
+# CURVE_EPOCHS epochs at batch CURVE_BATCH in bf16; GPU vs CPU on
+# CURVE_CPU_SCENES TEST scenes
+CURVE_TRAIN, CURVE_TEST, CURVE_EPOCHS, CURVE_BATCH, CURVE_CPU_SCENES = 1600, 40, 5, 4, 2
 KITTI_HW = (375, 1242)  # a KITTI 2015 image, padded to 384x1248 by --submission
 # eval phase: a synthetic KITTI 2015 tree at KITTI_HW, the last pair's gt
 # almost all at maxdisp, so that the per-image skip rule drops it
@@ -511,6 +541,8 @@ def phase_kernels():
         ("kitti eval bf16", KITTI_EVAL_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("train f32", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("train bf16", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train b4 f32", TRAIN_B4_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train b4 bf16", TRAIN_B4_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("D=60 f32", MAIN_SHAPE, MAIN_GROUPS, 60, torch.float32),
         ("D=60 bf16", MAIN_SHAPE, MAIN_GROUPS, 60, torch.bfloat16),
         ("D>W f32", (2, 16, 5, 7), 4, 12, torch.float32),
@@ -556,6 +588,8 @@ def phase_kernels():
     bwd_cases = [
         ("train f32", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("train bf16", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train b4 f32", TRAIN_B4_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train b4 bf16", TRAIN_B4_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("D>W f32", (2, 16, 5, 7), 4, 12, torch.float32),
         ("D>W bf16", (2, 16, 5, 7), 4, 12, torch.bfloat16),
         # the backward kernel's edges: odd W (scalar loads and stores), one
@@ -693,7 +727,7 @@ def phase_kernels():
         log(f"[kernels] gwc main {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
 
-        for shape_tag, xs in (("train", TRAIN_SHAPE), ("kitti eval", KITTI_EVAL_SHAPE)):
+        for shape_tag, xs in (("train", TRAIN_SHAPE), ("kitti eval", KITTI_EVAL_SHAPE), ("train b4", TRAIN_B4_SHAPE)):
             left, right = randn(xs, dtype), randn(xs, dtype)
             ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
             plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, MAIN_D, MAIN_GROUPS), 5, flush=flush)
@@ -702,7 +736,8 @@ def phase_kernels():
                                                        library_ms=None)
             log(f"[kernels] gwc {shape_tag} {tag} x{tuple(xs)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
-        for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("middlebury", MIDDLEBURY_SHAPE, MIDDLEBURY_D)):
+        for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("middlebury", MIDDLEBURY_SHAPE, MIDDLEBURY_D),
+                                 ("train b4", TRAIN_B4_SHAPE, MAIN_D)):
             b, c, h, w = xs
             left, right = randn(xs, dtype), randn(xs, dtype)
             grad = randn((b, MAIN_GROUPS, d, h, w), dtype)
@@ -908,15 +943,20 @@ _BATCH_NORM_OPS = ("aten.native_batch_norm.default", "aten.cudnn_batch_norm.defa
                    "aten._native_batch_norm_legit_no_training.default")
 
 
-def dtype_record(model, left, right, autocast: bool = True) -> list:
+def dtype_record(model, left, right, autocast: bool = True, disparity=None) -> list:
     """The dtype plan of one bf16-autocast eval forward of `model` on the
-    device of `left` (with `autocast` False: in the model's dtype), under no_grad, after a warm-up forward (which fills the
-    fold cache): one entry per op that the dispatcher runs below autocast
-    and that returns a floating tensor, views aside, as (op, module, input
-    dtypes, output dtype, autocast on at the call). The gwc volume is one
-    entry ("gwc_volume", ...): the kernel on the card, its plain version on
-    the CPU. The batch norm kernel is named "batch_norm". Equal records of
-    the CPU and the card mean the two devices ran one plan."""
+    device of `left` (with `autocast` False: in the model's dtype), under
+    no_grad, after a warm-up forward (which fills the fold cache): one entry
+    per op that the dispatcher runs below autocast and that returns a
+    floating tensor, views aside, as (op, module, input dtypes, output dtype,
+    autocast on at the call). With a `disparity` (the gt), one train-mode
+    forward with grad on and its loss (`train.loop.compute_loss`, the
+    sceneflow preset, outside autocast as `train_step` takes it), after a
+    warm-up one: the forward a bf16 train step runs, whose backward follows
+    its casts (the backward is not recorded). The gwc volume is one entry
+    ("gwc_volume", ...): the kernel on the card, its plain version on the
+    CPU. The batch norm kernel is named "batch_norm". Equal records of the
+    CPU and the card mean the two devices ran one plan."""
     import torch
     from torch.nn.modules import module as nn_module
     from torch.overrides import TorchFunctionMode
@@ -924,6 +964,7 @@ def dtype_record(model, left, right, autocast: bool = True) -> list:
     from torch.utils._pytree import tree_leaves
 
     from dcanet_tpu_torch.models import dcanet as dcanet_module
+    from dcanet_tpu_torch.train.loop import LossConfig, compute_loss, valid_mask
 
     dev = left.device.type
     names = {m: n for n, m in model.named_modules()}
@@ -959,8 +1000,12 @@ def dtype_record(model, left, right, autocast: bool = True) -> list:
         return out
 
     def forward():
-        with torch.no_grad(), torch.autocast(dev, torch.bfloat16, enabled=autocast):
-            return model(left, right)
+        if disparity is None:
+            with torch.no_grad(), torch.autocast(dev, torch.bfloat16, enabled=autocast):
+                return model(left, right)
+        with torch.autocast(dev, torch.bfloat16, enabled=autocast):
+            out = model(left, right)
+        return compute_loss(out, disparity, valid_mask(disparity, model.maxdisp), LossConfig(max_disp=model.maxdisp))
 
     def enter(module, args):
         stack.append(names.get(module, stack[-1]))
@@ -968,7 +1013,7 @@ def dtype_record(model, left, right, autocast: bool = True) -> list:
     def leave(module, args, out):
         stack.pop()
 
-    model.eval()
+    model.train(disparity is not None)
     forward()
     hooks = [nn_module.register_module_forward_pre_hook(enter), nn_module.register_module_forward_hook(leave)]
     dcanet_module.gwc_volume = recorded_gwc_volume
@@ -982,19 +1027,19 @@ def dtype_record(model, left, right, autocast: bool = True) -> list:
     return record
 
 
-def same_dtype_plan(tag: str, cuda: list, cpu: list) -> None:
+def same_dtype_plan(tag: str, cuda: list, cpu: list, what: str = "the folded bf16 eval, 1x3x64x256") -> None:
     """Raises unless the card's dtype record equals the CPU's; logs its length
     and the dtypes it holds."""
     counts = {}
     for _, _, ins, out, _ in cuda:
         counts[out] = counts.get(out, 0) + 1
-    log(f"[{tag}] dtype plan of the folded bf16 eval, 1x3x64x256: {len(cuda)} ops on the card, {len(cpu)} on the "
+    log(f"[{tag}] dtype plan of {what}: {len(cuda)} ops on the card, {len(cpu)} on the "
         f"CPU, {'equal' if cuda == cpu else 'NOT equal'}; outputs by dtype {counts}")
     if cuda != cpu:
         i = next((k for k, (a, b) in enumerate(zip(cuda, cpu)) if a != b), min(len(cuda), len(cpu)))
         for k in range(max(i - 2, 0), i + 3):
             log(f"[{tag}]   op {k}: card {cuda[k] if k < len(cuda) else None} | CPU {cpu[k] if k < len(cpu) else None}")
-        raise AssertionError(f"[{tag}] the card's bf16 eval runs another dtype plan than the CPU's (op {i})")
+        raise AssertionError(f"[{tag}] the card runs another dtype plan of {what} than the CPU (op {i})")
 
 
 def phase_model(flat):
@@ -1293,8 +1338,150 @@ def phase_train(workdir: Path):
     resumed_fwd, resumed_bwd = gwc.LAUNCHES, gwc.BACKWARD_LAUNCHES
     infer_launches = serve_from_logdir(logdir, workdir)
     alone = profile_train_step(root)
+    bf16 = train_bf16_leg(workdir)
+    memory = train_memory(bf16.pop("root"))
     return dict(alone=alone, steps=steps, ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, fwd=fwd, bwd=bwd,
-                resumed_fwd=resumed_fwd, resumed_bwd=resumed_bwd, infer=infer_launches)
+                resumed_fwd=resumed_fwd, resumed_bwd=resumed_bwd, infer=infer_launches, bf16=bf16, memory=memory)
+
+
+def train_bf16_leg(workdir: Path) -> dict:
+    """`cli train --preset sceneflow --dtype bfloat16 --batch-size 4` at full
+    width on BF16_TRAIN_SCENES procedural scenes at 320x640, one epoch: every
+    metric finite, one bf16 gwc forward and one bf16 backward launch per step
+    and no f32 one (the counts of this leg), ms/step (host clock between the
+    steps' metric reads, median after TRAIN_WARMUP steps), pairs/s, peak
+    memory. Returns them and the tree's root."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.data.synthetic import write_procedural_sceneflow_tree
+    from dcanet_tpu_torch.kernels import gwc
+
+    t0 = time.perf_counter()
+    root = write_procedural_sceneflow_tree(workdir / "procedural", BF16_TRAIN_SCENES, 0, PROCEDURAL_HW, seed=SEED)
+    log(f"[train bf16] wrote {BF16_TRAIN_SCENES} procedural SceneFlow scenes at {PROCEDURAL_HW} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    args = ["train", "--preset", "sceneflow", "--data-root", str(root), "--logdir", str(workdir / "run_bf16"),
+            "--batch-size", str(BF16_TRAIN_BATCH), "--dtype", "bfloat16", "--seed", str(SEED), "--print-freq", "1",
+            "--num-workers", "4", "--epochs", "1", "--device", "cuda"]
+    gwc.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    hist = cli.main(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = dict(gwc.LAUNCHES_BY_DTYPE), dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE)
+    steps = len(hist)
+    if steps != BF16_TRAIN_SCENES // BF16_TRAIN_BATCH:
+        raise AssertionError(f"[train bf16] {steps} steps, expected {BF16_TRAIN_SCENES // BF16_TRAIN_BATCH}")
+    keys = ("total", "focal", "smooth_l1", "grad_norm", "epe")
+    for rec in hist:
+        log(f"[train bf16] step {rec['step']}: " + ", ".join(f"{k} {rec[k]:.4f}" for k in keys))
+        if not all(math.isfinite(rec[k]) for k in keys):
+            raise AssertionError(f"[train bf16] step {rec['step']} is not finite: {rec}")
+    if fwd != {"float32": 0, "bfloat16": steps} or bwd != {"float32": 0, "bfloat16": steps}:
+        raise AssertionError(f"[train bf16] gwc launches by dtype: forward {fwd}, backward {bwd} in {steps} steps")
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])][TRAIN_WARMUP - 1:]
+    ms = statistics.median(step_ms)
+    log(f"[train bf16] cli train --dtype bfloat16 --batch-size {BF16_TRAIN_BATCH}, DCANet(num_cva=3, maxdisp=192), "
+        f"{BF16_TRAIN_BATCH}x3x256x512 crops: {steps} steps, gwc launches forward {fwd}, backward {bwd}; median "
+        f"{ms:.3f} ms/step over steps {TRAIN_WARMUP}-{steps - 1} (range {min(step_ms):.3f}-{max(step_ms):.3f}), "
+        f"{1e3 * BF16_TRAIN_BATCH / ms:.3f} pairs/s, peak memory {peak / 2**30:.4f} GiB")
+    return dict(root=root, steps=steps, ms=ms, pairs_per_s=1e3 * BF16_TRAIN_BATCH / ms, peak_bytes=peak,
+                fwd=fwd, bwd=bwd)
+
+
+def memory_at_peak(fn, top: int = 6) -> dict:
+    """What holds the device memory at the peak of one call of `fn`, among
+    the blocks allocated during it (the allocator's history): the live bytes
+    at the peak by the innermost frame in dcanet_tpu_torch/ of each block's
+    allocation (with the innermost Python frame), largest first, and the
+    largest blocks."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+
+    def where(frames):
+        """The three innermost frames in the port (the call and its callers),
+        and the innermost Python frame; no Python frame: the backward."""
+        port = [f"{f['filename'].split('dcanet_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+                for f in frames if "dcanet_tpu_torch" in f["filename"]][:3]
+        inner = next((f"{f['filename'].rsplit('/', 1)[-1]}:{f['line']} {f['name']}" for f in frames
+                      if f["filename"].endswith(".py")), None)
+        if inner is None:
+            return "no Python frame (the backward)"
+        return f"{' < '.join(port) or 'outside the port'} ({inner})"
+
+    live, total, peak, at_peak = {}, 0, 0, {}
+    for ev in snap["device_traces"][torch.cuda.current_device()]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = (ev["size"], ev.get("frames", []))
+            total += ev["size"]
+            if total > peak:
+                peak, at_peak = total, dict(live)
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            total -= live.pop(ev["addr"])[0]
+    by_site = {}
+    for size, frames in at_peak.values():
+        by_site[where(frames)] = by_site.get(where(frames), 0) + size
+    sites = sorted(by_site.items(), key=lambda kv: -kv[1])[:top]
+    blocks = sorted(((size, where(frames)) for size, frames in at_peak.values()), reverse=True)[:top]
+    return dict(peak_bytes=peak, blocks=len(at_peak), sites=sites, largest=blocks)
+
+
+def train_memory(root: Path) -> dict:
+    """The train step alone (the batch on the card, no loader) of
+    DCANet(num_cva=3, maxdisp=192) on 256x512 crops of the procedural tree,
+    at each batch of MEMORY_BATCHES in f32 and in bf16: the peak device
+    memory over MEMORY_STEPS steps and the memory held between steps (the
+    parameters, gradients and Adam's state); what holds the memory at the
+    peak of one step (`memory_at_peak`) in f32 at batch 2 (PERF.md §7's
+    question: 22.17 GiB against 3.70 at batch 1) and in bf16 at the largest
+    batch."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.train.loop import LossConfig, train_step
+
+    base = preset("sceneflow", data_root=str(root), seed=SEED)
+    ds = cli.build_dataset(base, training=True)
+    samples = [ds[i] for i in range(max(MEMORY_BATCHES))]
+    loss_cfg = LossConfig(max_disp=base.maxdisp)
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        for b in MEMORY_BATCHES:
+            batch = {k: torch.from_numpy(np.stack([s[k] for s in samples[:b]])).cuda() for k in samples[0]}
+            state = cli.build_train_state(preset("sceneflow", seed=SEED, dtype=dtype), 1, "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            for _ in range(MEMORY_STEPS):
+                loss = float(train_step(state, batch, loss_cfg)["total"])
+            torch.cuda.synchronize()
+            peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+            entry = dict(peak_bytes=peak, held_bytes=held, before_bytes=before, batch_bytes=sum(
+                t.numel() * t.element_size() for t in batch.values()))
+            if (dtype, b) in (("float32", 2), ("bfloat16", max(MEMORY_BATCHES))):
+                entry["at_peak"] = memory_at_peak(lambda: train_step(state, batch, loss_cfg))
+            results[f"{dtype} b{b}"] = entry
+            log(f"[train memory] {dtype} batch {b}: peak {peak / 2**30:.4f} GiB, held between steps "
+                f"{held / 2**30:.4f} GiB (before the first step {before / 2**30:.4f}), loss {loss:.4f}")
+            for site, size in entry.get("at_peak", {}).get("sites", []):
+                log(f"[train memory]   at the peak of one step: {size / 2**30:8.4f} GiB {site}")
+            for size, site in entry.get("at_peak", {}).get("largest", [])[:3]:
+                log(f"[train memory]   largest block: {size / 2**20:10.1f} MiB {site}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"[train memory] {dtype} batch {b}: the loss is not finite")
+            del state, batch
+            torch.cuda.empty_cache()
+    return results
 
 
 def serve_from_logdir(logdir: Path, workdir: Path) -> int:
@@ -1389,7 +1576,14 @@ def phase_train_parity(name: str = "dcanet"):
     """One GPU train step (CUDA kernels, cuDNN) against one CPU train step
     (plain versions) of the registry's model `name` from the same weights on
     a small input: loss terms, grad norm and the updated BatchNorm
-    statistics."""
+    statistics, in f32. For DCANet also in bf16 autocast (the bf16 train
+    step): the GPU's bf16 step against the CPU's, within the CPU's own
+    bf16-vs-f32 distance on the step, for the loss terms and EPE (relative,
+    the CPU distance the largest over them: one scalar's distance is one
+    draw of its rounding noise), the whole gradient and the BatchNorm
+    statistics (relative L2), the grad norm within the gradient's
+    bf16-vs-f32 distance (|a| - |b| <= |a - b|); and the dtype plan of the
+    bf16 step's forward and loss (`dtype_record`) equal on both."""
     import copy
 
     import torch
@@ -1410,13 +1604,16 @@ def phase_train_parity(name: str = "dcanet"):
     }
     cfg = LossConfig(max_disp=192)
     results = {}
-    for dev in ("cpu", "cuda"):
-        m = copy.deepcopy(model).to(dev)
-        state = create_train_state(m, lambda step: 1e-3)
-        metrics = train_step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg)
-        stats = {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}
-        results[dev] = ({k: float(v) for k, v in metrics.items()}, stats)
-    (mc, sc), (mg, sg) = results["cpu"], results["cuda"]
+    amps = (None, torch.bfloat16) if name == "dcanet" else (None,)
+    for amp in amps:
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(model).to(dev)
+            state = create_train_state(m, lambda step: 1e-3, amp)
+            metrics = train_step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg)
+            stats = {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}
+            grad = torch.cat([p.grad.detach().float().cpu().reshape(-1) for p in m.parameters()])
+            results[dev, amp] = ({k: float(v) for k, v in metrics.items()}, stats, grad)
+    (mc, sc, _), (mg, sg, _) = results["cpu", None], results["cuda", None]
     stat_err = max(float((sc[k] - sg[k]).abs().max()) for k in sc)
     rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12)
            for k in ("total", "focal", "smooth_l1", "grad_norm") if k in mc}
@@ -1427,7 +1624,50 @@ def phase_train_parity(name: str = "dcanet"):
         "statistics 1e-4)")
     if max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
         raise AssertionError("[train parity] the GPU train step disagrees with the CPU train step")
-    return dict(rel=rel, stat_err=stat_err)
+    out = dict(rel=rel, stat_err=stat_err)
+    if name == "dcanet":
+        out["bf16"] = _bf16_step_parity(results)
+        gt = torch.from_numpy(batch["disparity"])
+        left, right = (torch.from_numpy(batch[k]) for k in ("left", "right"))
+        cpu_rec = dtype_record(copy.deepcopy(model), left, right, disparity=gt)
+        cuda_rec = dtype_record(copy.deepcopy(model).cuda(), left.cuda(), right.cuda(), disparity=gt.cuda())
+        same_dtype_plan("train parity", cuda_rec, cpu_rec, "a bf16 train step's forward and loss, 1x3x64x128")
+        out["bf16"]["dtype_plan_ops"] = len(cuda_rec)
+    return out
+
+
+def _bf16_step_parity(results: dict) -> dict:
+    """The GPU bf16 step against the CPU bf16 step (phase_train_parity)."""
+    import torch
+
+    (mf, sf, gf), (mb, sb, gb), (mgb, sgb, ggb) = (results["cpu", None], results["cpu", torch.bfloat16],
+                                                 results["cuda", torch.bfloat16])
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def cat(d):
+        return torch.cat([d[k].double().reshape(-1) for k in sorted(d)])
+
+    losses = ("total", "focal", "smooth_l1", "epe")
+    cpu_scale = max(abs(mb[k] - mf[k]) / abs(mb[k]) for k in losses)
+    cross = {k: abs(mgb[k] - mb[k]) / abs(mb[k]) for k in losses}
+    grad_cross, grad_own = rel_l2(ggb, gb), rel_l2(gf, gb)
+    stat_cross, stat_own = rel_l2(cat(sgb), cat(sb)), rel_l2(cat(sf), cat(sb))
+    norm_cross, norm_bound = abs(mgb["grad_norm"] - mb["grad_norm"]), float((gf - gb).norm())
+    log(f"[train parity] dcanet: GPU vs CPU bf16 train step, 1x3x64x128: loss {mgb['total']:.6f} vs {mb['total']:.6f} "
+        f"(CPU f32 {mf['total']:.6f}), grad norm {mgb['grad_norm']:.6f} vs {mb['grad_norm']:.6f} (f32 "
+        f"{mf['grad_norm']:.6f}); relative: " + ", ".join(f"{k} {v:.3e}" for k, v in cross.items())
+        + f" against the CPU's own bf16-vs-f32 {cpu_scale:.3e} (the largest over them); whole gradient "
+        f"{grad_cross:.4f} against {grad_own:.4f}; BatchNorm statistics {stat_cross:.3e} against {stat_own:.3e}; "
+        f"grad norm {norm_cross:.4f} against the CPU's bf16-vs-f32 gradient distance {norm_bound:.4f} "
+        "(bound: the CPU's own distance)")
+    if (max(cross.values()) > cpu_scale or grad_cross > grad_own or stat_cross > stat_own
+            or norm_cross > norm_bound):
+        raise AssertionError("[train parity] the GPU's bf16 train step sits farther from the CPU's than the CPU's "
+                             "own bf16-vs-f32 distance")
+    return dict(rel=cross, cpu_scale=cpu_scale, grad=(grad_cross, grad_own), stats=(stat_cross, stat_own),
+                grad_norm=(norm_cross, norm_bound))
 
 
 def _eval_reference(model, ds, bf16: bool, maxdisp: int = 192):
@@ -2945,6 +3185,87 @@ def phase_cards(workdir: Path, flat) -> dict:
             "disp_train": {f"{w}x{b}": {k: r[k] for k in ("ms", "peaks")} for (w, b), r in disp_train.items()}}
 
 
+def phase_curve(workdir: Path, out_path: Path) -> dict:
+    """The port's training curve (manual: `--phases curve`; the default run
+    never starts it): CURVE_TRAIN + CURVE_TEST procedural scenes at 320x640
+    (`write_procedural_sceneflow_tree`, seed SEED), then
+    `traincurve.run_curve`: `cli train --preset sceneflow --dtype bfloat16
+    --batch-size CURVE_BATCH` for CURVE_EPOCHS epochs, each resumed from the
+    last checkpoint, `cli eval` on the TEST split after each (epoch 0: the
+    random init). On the trained checkpoint (ROADMAP Queue 3 item 13): `cli
+    eval` on the TEST split in f32, in bf16 with the BatchNorm literal
+    (DCANET_FOLD_EVAL_BN=0) and folded, each EPE, D1 and >1 px against the
+    ground truth; then the folded bf16 forward on the card against the same
+    forward on the CPU on CURVE_CPU_SCENES TEST scenes (mean |GPU - CPU|
+    beside the CPU's own bf16-vs-f32 distance). Raises unless every score is
+    finite and the last epoch's EPE is below the random init's; writes the
+    results to `out_path`."""
+    import copy
+
+    import torch
+
+    from dcanet_tpu_torch import cli, traincurve
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.data.eval_protocol import eval_transform
+    from dcanet_tpu_torch.data.submission import unpad
+    from dcanet_tpu_torch.data.synthetic import write_procedural_sceneflow_tree
+
+    t0 = time.perf_counter()
+    root = write_procedural_sceneflow_tree(workdir / "curve_tree", CURVE_TRAIN, CURVE_TEST, PROCEDURAL_HW, seed=SEED)
+    log(f"[curve] wrote {CURVE_TRAIN} TRAIN + {CURVE_TEST} TEST procedural scenes at {PROCEDURAL_HW} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    logdir = workdir / "curve_run"
+    curve = traincurve.run_curve(str(root), CURVE_EPOCHS, CURVE_BATCH, "bfloat16", str(logdir), "cuda",
+                                 print_freq=100, num_workers=6, say=log)
+    if not all(math.isfinite(r[k]) for r in curve for k in ("val_epe", "val_d1", "val_thres1")):
+        raise AssertionError("[curve] a score is not finite")
+    if not curve[-1]["val_epe"] < curve[0]["val_epe"]:
+        raise AssertionError(f"[curve] val EPE {curve[0]['val_epe']} -> {curve[-1]['val_epe']} did not fall")
+
+    item13 = {}
+    for tag, dtype, fold in (("f32", "float32", True), ("bf16 literal", "bfloat16", False),
+                             ("bf16 folded", "bfloat16", True)):
+        cfg = preset("sceneflow", data_root=str(root), dtype=dtype, logdir=str(workdir / f"curve_eval_{dtype}"),
+                     seed=SEED)
+        with fold_eval_bn(fold):
+            r = cli.cmd_eval(cfg, ckpt=str(logdir / "ckpt"), device="cuda")
+        item13[tag] = {k: float(r[k]) for k in ("epe", "d1", "thres1")} | {"ms_per_pair": r.get("ms_per_pair")}
+        log(f"[curve] trained checkpoint, cli eval {tag}: EPE {r['epe']:.4f} px, D1 {r['d1']:.5f}, "
+            f">1px {r['thres1']:.5f}")
+    for a, b in (("bf16 folded", "f32"), ("bf16 folded", "bf16 literal")):
+        log(f"[curve] EPE {a} - {b}: {item13[a]['epe'] - item13[b]['epe']:+.4f} px (the JAX package's bound 0.05 px)")
+
+    newest = sorted((logdir / "ckpt").iterdir())[-1]
+    model = cli.build_model("dcanet", 192, newest, torch.device("cpu"), SEED)
+    ds = cli.build_dataset(preset("sceneflow", data_root=str(root)), training=False)
+    gpu_model = copy.deepcopy(model).cuda()
+    distances = []
+    for i in range(CURVE_CPU_SCENES):
+        left, right, gt, pads = eval_transform(ds[i], "sceneflow")
+        tl, tr = (torch.from_numpy(np.ascontiguousarray(x[None])) for x in (left, right))
+        disp = {}
+        for dev, m, bf16 in (("cuda", gpu_model, True), ("cpu", model, True), ("cpu f32", model, False)):
+            d = dev.split()[0]
+            with torch.inference_mode(), torch.autocast(d, torch.bfloat16, enabled=bf16):
+                disp[dev] = unpad(m(tl.to(d), tr.to(d)).disparity[0].float().cpu(), pads).numpy()
+        mask = (gt > 0) & (gt < 192)
+        row = {"gpu_vs_cpu_mean": float(np.abs(disp["cuda"] - disp["cpu"]).mean()),
+               "gpu_vs_cpu_max": float(np.abs(disp["cuda"] - disp["cpu"]).max()),
+               "cpu_bf16_vs_f32_mean": float(np.abs(disp["cpu"] - disp["cpu f32"]).mean()),
+               **{f"epe_{k.replace(' ', '_')}": float(np.abs(v - gt)[mask].mean()) for k, v in disp.items()}}
+        distances.append(row)
+        log(f"[curve] TEST scene {i}, folded bf16 GPU vs CPU: mean {row['gpu_vs_cpu_mean']:.4f} px, max "
+            f"{row['gpu_vs_cpu_max']:.4f} (the CPU's bf16 vs f32: {row['cpu_bf16_vs_f32_mean']:.4f}); EPE GPU "
+            f"{row['epe_cuda']:.4f}, CPU {row['epe_cpu']:.4f}, CPU f32 {row['epe_cpu_f32']:.4f}")
+    result = {"card": gpu_line(), "scenes": [CURVE_TRAIN, CURVE_TEST], "hw": list(PROCEDURAL_HW),
+              "batch": CURVE_BATCH, "dtype": "bfloat16", "curve": curve, "item13": item13,
+              "gpu_vs_cpu": distances}
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(result, indent=2))
+    log(f"[curve] summary: {json.dumps(result)}")
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -2953,18 +3274,19 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
 
 PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp",
           "disp_train")
+MANUAL_PHASES = {"cards", "curve"}  # measurements that the default run never starts
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of %(default)s to run after the build, or `cards` (two or more "
-                         "cards: `cli train` across them); the summary lines are printed only when all of "
-                         "the default run")
+                    help="comma-separated subset of %(default)s to run after the build, or a manual "
+                         "measurement: `cards` (two or more cards: `cli train` across them) or `curve` (the "
+                         "training curve, ~30 min); the summary lines are printed only when all of the default run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    if not phases <= set(PHASES) | {"cards"}:
-        ap.error(f"unknown phases {sorted(phases - set(PHASES) - {'cards'})}")
+    if not phases <= set(PHASES) | MANUAL_PHASES:
+        ap.error(f"unknown phases {sorted(phases - set(PHASES) - MANUAL_PHASES)}")
 
     import torch
 
@@ -3006,6 +3328,8 @@ def main(argv=None) -> int:
             disp_train = phase_disp_train(Path(tmp))
         if "cards" in phases:
             phase_cards(Path(tmp), flat)
+        if "curve" in phases:
+            phase_curve(Path(tmp), Path(__file__).resolve().parent / "chiprun_out" / "traincurve.json")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
@@ -3018,6 +3342,7 @@ def main(argv=None) -> int:
         kernel_entry(
             "gwc_volume", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:51", eval_launches,
             {"eval": eval_launches, "infer_list": evaluation["launches"]["infer_list"], "train": train["fwd"],
+             "train_bf16": train["bf16"]["fwd"]["bfloat16"],
              "serving": serving, "train_infer": train["infer"],
              "parallel_train": sum(f for f, _ in parallel["launches"]),
              "disp_eval": sum(disp["f32"]["launches"]) + sum(disp["bf16"]["launches"]),
@@ -3031,6 +3356,11 @@ def main(argv=None) -> int:
             bfloat16={"max_abs_err": errs["gwc"]["main bf16"], **gwc_t["bf16"]},
             train_shape={"features": list(TRAIN_SHAPE), "float32": gwc_t["train f32"],
                          "bfloat16": gwc_t["train bf16"]},
+            # the bf16 train leg's launches (train_bf16), batch 4
+            train_b4_shape={"features": list(TRAIN_B4_SHAPE),
+                            "float32": {"max_abs_err": errs["gwc"]["train b4 f32"], **gwc_t["train b4 f32"]},
+                            "bfloat16": {"max_abs_err": errs["gwc"]["train b4 bf16"], **gwc_t["train b4 bf16"],
+                                         "launches": train["bf16"]["fwd"]["bfloat16"]}},
             kitti_eval_shape={"features": list(KITTI_EVAL_SHAPE),
                               "float32": {"max_abs_err": errs["gwc"]["kitti eval f32"], **gwc_t["kitti eval f32"]},
                               "bfloat16": {"max_abs_err": errs["gwc"]["kitti eval bf16"],
@@ -3043,13 +3373,18 @@ def main(argv=None) -> int:
         ),
         kernel_entry(
             "gwc_volume_backward", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
-            train["bwd"], {"train": train["bwd"], "parallel_train": sum(b for _, b in parallel["launches"]),
+            train["bwd"], {"train": train["bwd"], "train_bf16": train["bf16"]["bwd"]["bfloat16"],
+                           "parallel_train": sum(b for _, b in parallel["launches"]),
                            "disp_train_one_process": disp_train["one_launches"][1],
                            **{k.replace("_backward", ""): v for k, v in family["launches"].items()
                               if k.startswith("family_train_backward")}},
             errs["gwc_bwd"]["train f32"], bwd_t["f32"],
             dtype="float32", shape={"features": list(TRAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D},
             bfloat16={"max_abs_err": errs["gwc_bwd"]["train bf16"], **bwd_t["bf16"]},
+            train_b4_shape={"features": list(TRAIN_B4_SHAPE),
+                            "float32": {"max_abs_err": errs["gwc_bwd"]["train b4 f32"], **bwd_t["train b4 f32"]},
+                            "bfloat16": {"max_abs_err": errs["gwc_bwd"]["train b4 bf16"], **bwd_t["train b4 bf16"],
+                                         "launches": train["bf16"]["bwd"]["bfloat16"]}},
             middlebury_shape={"features": list(MIDDLEBURY_SHAPE), "maxdisp": MIDDLEBURY_D,
                               "float32": {"max_abs_err": errs["gwc_bwd"]["middlebury f32"], **bwd_t["middlebury f32"]},
                               "bfloat16": {"max_abs_err": errs["gwc_bwd"]["middlebury bf16"],
@@ -3086,8 +3421,9 @@ def main(argv=None) -> int:
                           **conv_t["64->32 bf16"]}},
         ),
     ]
-    log("[train] summary: " + json.dumps({k: train[k] for k in ("ms", "pairs_per_s", "peak_bytes", "alone")}
+    log("[train] summary: " + json.dumps({k: train[k] for k in ("ms", "pairs_per_s", "peak_bytes", "alone", "bf16")}
                                          | {"parity": parity}))
+    log("[train memory] summary: " + json.dumps(train["memory"]))
     log("[eval] summary: " + json.dumps(evaluation))
     log("[family] summary: " + json.dumps(family))
     log("[extras] summary: " + json.dumps(extras))

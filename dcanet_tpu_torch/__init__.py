@@ -21,8 +21,9 @@ nothing here imports it, JAX or flax.
             family), reference checkpoint loader
   data/     PNG/PFM IO (numpy + zlib), the KITTI submission protocol,
             per-benchmark eval geometry, datasets, list files,
-            augmentation, loader with CUDA prefetch, synthetic SceneFlow
-            and KITTI 2015 trees
+            augmentation, loader with CUDA prefetch, synthetic SceneFlow,
+            KITTI 2015 and ETH3D trees, procedural scenes
   utils/    meters, metric logger (JSONL, CSV, PNG panels), error colormap
   cli.py    `python -m dcanet_tpu_torch.cli {train,eval,infer,export} ...`
+  traincurve.py  `python -m dcanet_tpu_torch.traincurve`: a training curve
 """

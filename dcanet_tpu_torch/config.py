@@ -65,7 +65,8 @@ class RunConfig:
     remat: bool = False
 
     # parallel
-    # disparity-axis shards; only 1 is ported (ROADMAP Queue 1 item 3)
+    # disparity-axis shards: the processes of a data row split every cost
+    # volume's planes (parallel/sharding.py; eval and train)
     n_disp_shards: int = 1
     # data-axis size: must equal the number of processes, one per card (the
     # JAX package's None picks the largest divisor of batch_size that fits

@@ -16,10 +16,24 @@ LiDAR gt is: none in the top quarter of the image, and 40 % of the pixels
 below it; the ETH3D gt leaves a random tenth of the pixels without a value,
 as ETH3D's does. For smoke tests of the training path (`cli train`) and of
 the eval path (`cli eval`, `cli infer --list`).
+
+`procedural_scene` draws a scene to learn from, with exact ground truth:
+multi-octave value-noise textures on fronto-parallel planes composed
+back-to-front in both views in disparity order (consistent occlusions),
+fractional disparities between `dmin` and `dmax` rendered by linear column
+interpolation; the background shifts with wrap-around, so the right view
+has no invalid band. `write_procedural_sceneflow_tree` writes a TRAIN and
+a TEST split of them in the SceneFlow layout (`<seq:04d>` = index // 100,
+`<frame:04d>` = index % 100), scene i of TRAIN from the seed
+seed * 1_000_000 + i and of TEST from seed * 1_000_000 + 500_000 + i. Both
+are the port's copy of the JAX package's generator
+(tools/gen_synthetic_sceneflow.py), equal to it bit for bit; its training
+curve ran on 1600 + 40 such scenes at 320x640 (TRAINCURVE.md).
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 from pathlib import Path
 from typing import Optional, Tuple, Union
@@ -121,4 +135,138 @@ def write_eth3d_tree(
         write_png(scene / "im0.png", left)
         write_png(scene / "im1.png", right)
         write_pfm(scene / "disp0GT.pfm", gt)
+    return root
+
+
+# ---- procedural scenes ----
+
+
+def _resize_bilinear(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    gh, gw = a.shape[:2]
+    ys = np.linspace(0, gh - 1, h, dtype=np.float32)
+    xs = np.linspace(0, gw - 1, w, dtype=np.float32)
+    y0 = np.floor(ys).astype(np.int64)
+    x0 = np.floor(xs).astype(np.int64)
+    y1 = np.minimum(y0 + 1, gh - 1)
+    x1 = np.minimum(x0 + 1, gw - 1)
+    fy = (ys - y0)[:, None, None]
+    fx = (xs - x0)[None, :, None]
+    top = a[y0][:, x0] * (1 - fx) + a[y0][:, x1] * fx
+    bot = a[y1][:, x0] * (1 - fx) + a[y1][:, x1] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _value_noise(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """Multi-octave value noise, (h, w, 3) in [0, 1], colourised by a random
+    channel mix (the texture stays correlated across RGB)."""
+    img = np.zeros((h, w, 3), np.float32)
+    amp = 1.0
+    for g in (4, 8, 16, 32, 64):
+        grid = rng.random((g, g, 3), dtype=np.float32)
+        img += amp * _resize_bilinear(grid, h, w)
+        amp *= 0.55
+    img -= img.min()
+    img /= max(float(img.max()), 1e-6)
+    mix = 0.5 * np.eye(3, dtype=np.float32) + 0.5 * rng.random((3, 3), dtype=np.float32)
+    return np.clip(img @ mix.T, 0.0, 1.0)
+
+
+def _shift_x(img: np.ndarray, d: float, wrap: bool) -> np.ndarray:
+    """img sampled at (x + d) along axis 1 (the right view, d >= 0)."""
+    i0 = int(np.floor(d))
+    f = np.float32(d - i0)
+    if wrap:
+        a = np.roll(img, -i0, axis=1)
+        b = np.roll(img, -(i0 + 1), axis=1)
+    else:
+        pad = [(0, 0)] * img.ndim
+        pad[1] = (0, i0 + 1)
+        padded = np.pad(img, pad)
+        a = padded[:, i0: i0 + img.shape[1]]
+        b = padded[:, i0 + 1: i0 + 1 + img.shape[1]]
+    return a * (1 - f) + b * f
+
+
+def _shape_mask(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """A rotated ellipse or rectangle, (h, w) float 0/1."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cy = rng.uniform(0.1 * h, 0.9 * h)
+    cx = rng.uniform(0.1 * w, 0.9 * w)
+    ry = rng.uniform(0.06 * h, 0.28 * h)
+    rx = rng.uniform(0.04 * w, 0.22 * w)
+    th = rng.uniform(0, np.pi)
+    u = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
+    v = -(xx - cx) * np.sin(th) + (yy - cy) * np.cos(th)
+    if rng.random() < 0.5:
+        m = (u / rx) ** 2 + (v / ry) ** 2 <= 1.0
+    else:
+        m = (np.abs(u) <= rx) & (np.abs(v) <= ry)
+    return m.astype(np.float32)
+
+
+def procedural_scene(seed: int, h: int, w: int, dmin: float = 4.0, dmax: float = 88.0):
+    """One procedural scene: (left (h, w, 3) uint8, right (h, w, 3) uint8,
+    disparity (h, w) float32): a background at a disparity in [dmin,
+    dmin + 18) and 4-8 textured shapes at disparities in [dmin + 6, dmax),
+    nearer shapes drawn over farther ones in both views."""
+    rng = np.random.default_rng(seed)
+    d_bg = float(rng.uniform(dmin, dmin + 18.0))
+    left = _value_noise(rng, h, w)
+    right = _shift_x(left, d_bg, wrap=True)
+    disp = np.full((h, w), d_bg, np.float32)
+    n_obj = int(rng.integers(4, 9))
+    for d in np.sort(rng.uniform(dmin + 6.0, dmax, n_obj)):  # back to front
+        d = float(d)
+        tex = _value_noise(rng, h, w)
+        mask = _shape_mask(rng, h, w)
+        m3 = mask[..., None]
+        rm = _shift_x(m3, d, wrap=False)
+        rt = _shift_x(tex, d, wrap=False)
+        left = np.where(m3 > 0.5, tex, left)
+        right = np.where(rm > 0.5, rt, right)
+        disp = np.where(mask > 0.5, d, disp)
+
+    def to_u8(x):
+        return (np.clip(x, 0, 1) * 255.0 + 0.5).astype(np.uint8)
+
+    return to_u8(left), to_u8(right), disp
+
+
+def procedural_seed(seed: int, split: str, index: int) -> int:
+    """The scene seed of `index` in `split` ("TRAIN" or "TEST") of the tree of `seed`."""
+    return seed * 1_000_000 + (500_000 if split == "TEST" else 0) + index
+
+
+def _write_procedural_scene(job) -> None:
+    root, split, index, (h, w), scene_seed = job
+    left, right, disp = procedural_scene(scene_seed, h, w)
+    seq, frame = f"{index // 100:04d}", f"{index % 100:04d}"
+    img_dir = Path(root) / "frames_finalpass" / split / "A" / seq
+    disp_dir = Path(root) / "frames_disparity" / split / "A" / seq / "left"
+    for d in (img_dir / "left", img_dir / "right", disp_dir):
+        os.makedirs(d, exist_ok=True)
+    write_png(img_dir / "left" / f"{frame}.png", left)
+    write_png(img_dir / "right" / f"{frame}.png", right)
+    write_pfm(disp_dir / f"{frame}.pfm", disp)
+
+
+def write_procedural_sceneflow_tree(
+    root: Union[str, Path], n_train: int, n_test: int, hw: Tuple[int, int] = (320, 640), seed: int = 0,
+    workers: Optional[int] = None,
+) -> Path:
+    """Write `n_train` TRAIN and `n_test` TEST procedural scenes of size `hw`
+    under `root` in the SceneFlow layout, over `workers` spawned processes
+    (default: the host's cores, at most 16; 1 writes in this process);
+    returns `root`."""
+    root = Path(root)
+    jobs = [(str(root), split, i, tuple(hw), procedural_seed(seed, split, i))
+            for split, n in (("TRAIN", n_train), ("TEST", n_test)) for i in range(n)]
+    workers = min(os.cpu_count() or 1, 16) if workers is None else workers
+    if workers <= 1:
+        for job in jobs:
+            _write_procedural_scene(job)
+        return root
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for _ in pool.imap_unordered(_write_procedural_scene, jobs, chunksize=4):
+            pass
     return root

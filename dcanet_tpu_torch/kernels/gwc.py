@@ -23,7 +23,10 @@ the backward of a range makes that range's part of dL and dR, which the
 ranks' parts sum to.
 
 `LAUNCHES` and `BACKWARD_LAUNCHES` count kernel launches and nothing else;
-`RANGE_BACKWARD_LAUNCHES` the backward's launches over a part of the planes.
+`RANGE_BACKWARD_LAUNCHES` the backward's launches over a part of the planes;
+`LAUNCHES_BY_DTYPE` and `BACKWARD_LAUNCHES_BY_DTYPE` the same launches by
+the features' dtype ("float32", "bfloat16"). `reset_launch_counts` sets
+every count to 0.
 """
 
 from __future__ import annotations
@@ -40,6 +43,16 @@ from dcanet_tpu_torch.ops.cost_volume import build_gwc_volume as gwc_volume_refe
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 RANGE_BACKWARD_LAUNCHES = 0
+LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0}
+BACKWARD_LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0}
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES, BACKWARD_LAUNCHES, RANGE_BACKWARD_LAUNCHES
+    LAUNCHES = BACKWARD_LAUNCHES = RANGE_BACKWARD_LAUNCHES = 0
+    for counts in (LAUNCHES_BY_DTYPE, BACKWARD_LAUNCHES_BY_DTYPE):
+        for k in counts:
+            counts[k] = 0
 
 _SUPPORTED_CPG = (1, 2, 4, 8, 16, 32)  # channels per group the kernels are built for
 _FUNCS = {torch.float32: "gwc_volume_f32", torch.bfloat16: "gwc_volume_bf16"}
@@ -103,6 +116,7 @@ def gwc_volume_cuda(
     if err != 0:
         raise RuntimeError(f"gwc kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[str(left.dtype).removeprefix("torch.")] += 1
     return out
 
 
@@ -141,6 +155,7 @@ def gwc_volume_backward_cuda(
             f"memory per block (C/G={c // num_groups}, planes [{d_lo}, {d_hi})), the card allows {limit}"
         )
     BACKWARD_LAUNCHES += 1
+    BACKWARD_LAUNCHES_BY_DTYPE[str(left.dtype).removeprefix("torch.")] += 1
     if (d_lo, d_hi) != (0, maxdisp):
         RANGE_BACKWARD_LAUNCHES += 1
     return dleft, dright

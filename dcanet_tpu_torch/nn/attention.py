@@ -75,7 +75,7 @@ class DisparityAttentionBlock(nn.Module):
         k = key.view(b, tc // hd, hd, dk, h, w)
         v = value.view(b, tc // hd, hd, dk, h, w)
         sim = torch.einsum("bneihw,bnejhw->bnhwij", q, k)
-        # over the key disparity j, in the model's dtype in eval (ops/precision.py)
-        attn = in_model_dtype(lambda s: s.softmax(dim=-1), sim, enabled=not self.training)
+        # over the key disparity j, in the model's dtype (ops/precision.py)
+        attn = in_model_dtype(lambda s: s.softmax(dim=-1), sim)
         ctx = torch.einsum("bnhwij,bnejhw->bneihw", attn.to(v.dtype), v)
         return self.out_project(ctx.reshape(b, tc, d, h, w))

@@ -41,12 +41,10 @@ class SemanticLevelContext(nn.Module):
     def forward(self, x: torch.Tensor, logits: torch.Tensor, shard=None) -> torch.Tensor:
         """x: (B, C, D, H, W) cost volume; logits: (B, D, H, W) class logits
         (with a `shard`, x is this rank's planes and the logits are whole).
-        The pooling computes in the model's dtype in eval, with float32
-        statistics in training (ops/precision.py)."""
-        if self.training:
-            pooled = slc_pool(x, at_least_f32(logits), shard)
-        else:
-            pooled = in_model_dtype(lambda v, lg: slc_pool(v, lg, shard), x, logits)
+        The pooling computes in the model's dtype, its statistics in float32
+        in training (ops/precision.py)."""
+        widen = at_least_f32 if self.training else (lambda lg: lg)
+        pooled = in_model_dtype(lambda v, lg: slc_pool(v, widen(lg), shard), x, logits)
         return self.cross_attention(x, pooled + x, shard)
 
 
@@ -74,6 +72,6 @@ class CVA(nn.Module):
         if shard is not None:
             logits = shard.gather(logits, 1)
         context = self.slc_net(cost_down, logits, shard)
-        augmented = in_model_dtype(lambda t: resize_trilinear(t, 2, shard), context, enabled=not self.training)
+        augmented = in_model_dtype(lambda t: resize_trilinear(t, 2, shard), context)
         fused = self.fuse(torch.cat([augmented.to(cost_volume.dtype), cost_volume], dim=1))
         return logits, self.cost_agg(fused, post_residual, shard)

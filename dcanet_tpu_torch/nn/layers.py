@@ -354,19 +354,16 @@ def torch_conv_transpose2d(in_channels: int, features: int) -> nn.ConvTranspose2
 
 class AvgPool3dTorch(nn.AvgPool3d):
     """AvgPool3d(3, stride 2, padding 1), count_include_pad=True: the JAX
-    package's AvgPool3dTorch; with a `DispShard` on this rank's slab. In
-    eval it returns the model's dtype, the mean taken in at least float32
-    and rounded once, with autocast off (ops/precision.py): CPU autocast
-    would return float32 (the CPU has no bf16 kernel), CUDA's bf16.
-    Training keeps autocast's choice."""
+    package's AvgPool3dTorch; with a `DispShard` on this rank's slab. It
+    returns the model's dtype, the mean taken in at least float32 and
+    rounded once, with autocast off (ops/precision.py): CPU autocast would
+    return float32 (the CPU has no bf16 kernel), CUDA's bf16."""
 
     def __init__(self):
         super().__init__(3, 2, 1, count_include_pad=True)
 
     def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         pool = super().forward if shard is None else (lambda t: _avg_pool3d_sharded(self, t, shard))
-        if self.training:
-            return pool(x)
         return in_model_dtype(lambda t: pool(at_least_f32(t)).to(t.dtype), x)
 
 

@@ -1,13 +1,15 @@
 """The dtype plan of the port, in one place.
 
-In a bf16 eval (bf16 autocast, or a bf16 model):
-  (a) a tensor that holds a disparity value is float32: the soft-argmin's
-      products, its sum and its output, the coarse disparity and the convex
-      blend (a bf16 disparity above 128 would round to whole pixels). The
-      heads that make the coarse disparity (softmax over D, GwcNet's
-      trilinear 4x) stay float32 too: in bf16 they measured further from
-      the JAX package's bf16 heads on the CPU than in float32
-      (tests/test_torch_bf16_stages.py). ROADMAP Queue 3 item 3 keeps both
+In a bf16 eval or train step (bf16 autocast over float32 parameters, or a
+bf16 model):
+  (a) a tensor that holds a disparity value or a statistic is float32: the
+      soft-argmin's products, its sum and its output, the coarse disparity
+      and the convex blend (a bf16 disparity above 128 would round to whole
+      pixels), BatchNorm's statistics and the gwc volume's sums. The heads
+      that make a disparity (softmax over D, the trilinear upsamples before
+      it) stay float32 too: in bf16 they measured further from the JAX
+      package's bf16 heads on the CPU than in float32
+      (tests/test_torch_bf16_stages.py). ROADMAP Queue 3 item 3 keeps these
       deviations.
   (b) every other tensor is in the dtype the JAX package computes it in,
       the model's dtype: the SLC class pooling, the attention's softmax,
@@ -18,13 +20,17 @@ In a bf16 eval (bf16 autocast, or a bf16 model):
       in float32, the CPU runs avg_pool3d in float32), the step runs with
       autocast off and an explicit cast (`in_model_dtype`). Autocast then
       decides only the convolutions, transposed convolutions, matmuls and
-      einsums of the eval path, which both devices run in bf16
+      einsums, which both devices run in bf16
       (tests/test_torch_dtype_plan.py on the CPU; chip_smoke.py holds the
       card's record equal to the CPU's).
-At float32 and float64 the plan is the model's dtype throughout. Training
-keeps its float32 islands (softmax over D and the soft-argmin of every
-ladder, SLC statistics, BatchNorm statistics; `at_least_f32`) and leaves
-the attention, the pool and the 2x upsample to autocast.
+Training takes the same plan as eval (tests/test_torch_bf16_train.py holds
+a bf16 train step against the JAX package's). It differs in one site: the
+SLC pooling takes its statistics (softmax over D, the class maxima and
+sums) in float32 from float32 logits, as every ladder's softmax over D and
+soft-argmin does, where the eval takes them in bf16. The pooled features
+stay in the model's dtype. The backward follows the forward's casts. At
+float32 and float64 the plan is the model's dtype throughout
+(`at_least_f32` widens, never narrows).
 """
 
 from __future__ import annotations
@@ -37,13 +43,11 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def in_model_dtype(fn, *xs, at_least: torch.dtype = None, enabled: bool = True):
+def in_model_dtype(fn, *xs, at_least: torch.dtype = None):
     """fn(*xs) with autocast off on the device of xs[0] and every floating
     tensor of xs cast to the model's dtype there: autocast's dtype where it
     is on, else xs[0]'s own (rules (b) and (c)). `at_least` widens that
-    dtype (float32 for rule (a)). With `enabled` False, fn(*xs) as it is."""
-    if not enabled:
-        return fn(*xs)
+    dtype (float32 for rule (a))."""
     dev = xs[0].device.type
     dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else xs[0].dtype
     if at_least is not None:

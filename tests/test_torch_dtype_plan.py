@@ -18,6 +18,13 @@ CPU's.
   heads, ROADMAP Queue 3 item 3); the gwc volume bf16 in and out.
 - float32 and float64 evals: every op in the model's dtype (GANet at
   float64 aside: its SGA and LGA weights are float32, `nn/ganet.py`).
+- The bf16 train step's plan (`dtype_record(..., disparity=gt)`: one
+  train-mode forward with grad on and its loss), which chip_smoke.py phase
+  6 holds equal on the card and the CPU: rule (c) for every family; in
+  DCANet the same sites as the eval's, in their dtypes, but for the SLC
+  statistics in float32, and the ladders' upsamples, softmax and
+  soft-argmin, BatchNorm's statistics and the loss in float32; at float32
+  and float64 every op of the forward and the loss in the model's dtype.
 """
 
 import pytest
@@ -79,13 +86,33 @@ def autocast_kernel(op: str) -> bool:
     return any(line.startswith(("AutocastCPU: registered", "AutocastCUDA: registered")) for line in table.splitlines())
 
 
-def record(name, dtype=torch.bfloat16):
+# (module, op, input dtypes or None, output dtype) of DCANet's bf16 train step
+TRAIN_SITES = (
+    ("cva1.slc_net.cross_attention", "aten._softmax.default", (BF16,), BF16),
+    ("cva1.slc_net", "aten._softmax.default", (F32,), F32),
+    ("cva1.slc_net", "aten.exp.default", (F32,), F32),
+    ("cva1.slc_net", "aten.div.Tensor", (F32, F32), F32),
+    ("cva1.downsample.0", "aten.avg_pool3d.default", (F32,), F32),
+    ("cva1", "aten.upsample_trilinear3d.default", (BF16,), BF16),
+    ("", "gwc_volume", (BF16, BF16), BF16),
+    ("", "aten.upsample_trilinear3d.default", (F32,), F32),
+    ("", "aten._softmax.default", (F32,), F32),
+    ("", "aten._log_softmax.default", (F32,), F32),
+    ("prop", "aten._softmax.default", (F32,), F32),
+    ("dres0.0.1", "batch_norm", (BF16, F32, F32), BF16),
+    ("dres0.0.1", "aten.var_mean.correction", (F32,), F32),
+)
+
+
+def record(name, dtype=torch.bfloat16, train=False):
     model = reference_init_(registry.make_model(name, maxdisp=MAXDISP), torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     left, right = (torch.randn(1, 3, H, W, generator=gen) for _ in range(2))
+    gt = torch.rand(1, H, W, generator=gen) * (MAXDISP - 4) + 1 if train else None
     if dtype == torch.bfloat16:
-        return dtype_record(model, left, right)
-    return dtype_record(model.to(dtype), left.to(dtype), right.to(dtype), autocast=False)
+        return dtype_record(model, left, right, disparity=gt)
+    return dtype_record(model.to(dtype), left.to(dtype), right.to(dtype), autocast=False,
+                        disparity=None if gt is None else gt.to(dtype))
 
 
 def test_autocast_kernels_are_read():
@@ -95,14 +122,17 @@ def test_autocast_kernels_are_read():
     assert not autocast_kernel("aten.add.Tensor") and not autocast_kernel("batch_norm")
 
 
-@pytest.mark.parametrize("name", FAMILIES)
-def test_autocast_decides_only_convolutions_and_matmuls(name):
-    rec = record(name)
+def only_convolutions_and_matmuls_decided(rec):
     decided = [(op, mod, ins, out) for op, mod, ins, out, on in rec
                if on and op not in AUTOCAST_DECIDES and autocast_kernel(op)]
     assert not decided, decided[:5]
     convs = [(mod, ins, out) for op, mod, ins, out, on in rec if op == "aten.convolution.default"]
     assert convs and all(set(ins) == {BF16} and out == BF16 for _, ins, out in convs), convs[:3]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_autocast_decides_only_convolutions_and_matmuls(name):
+    only_convolutions_and_matmuls_decided(record(name))
 
 
 @pytest.mark.parametrize("name", sorted(SITES))
@@ -123,5 +153,32 @@ def test_sites_run_in_their_dtype(name):
 def test_eval_at_f32_and_f64_runs_in_the_model_dtype(name, dtype):
     want = str(dtype).removeprefix("torch.")
     rec = record(name, dtype)
+    assert rec and all(out == want and set(ins) <= {want} for _, _, ins, out, _ in rec), \
+        sorted({(op, ins, out) for op, _, ins, out, _ in rec if out != want or set(ins) - {want}})[:5]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_train_autocast_decides_only_convolutions_and_matmuls(name):
+    only_convolutions_and_matmuls_decided(record(name, train=True))
+
+
+def test_train_sites_run_in_their_dtype():
+    rec = record("dcanet-cva1", train=True)
+    for module, op, ins, out in TRAIN_SITES:
+        hits = [(i, o) for p, m, i, o, _ in rec if (m, p) == (module, op)]
+        assert hits, (module, op)
+        assert all(i == ins and o == out for i, o in hits), (module, op, hits)
+    pool = [(i, o) for p, m, i, o, _ in rec if m == "cva1.downsample.0"]
+    assert pool[-1] == ((F32,), BF16), pool  # the pool returns the model's dtype
+    # the pooled features stay in the model's dtype; the statistics widen
+    slc = [(p, i, o) for p, m, i, o, _ in rec if m == "cva1.slc_net"]
+    assert slc[-2:] == [("aten.mul.Tensor", (BF16, BF16), BF16), ("aten.add.Tensor", (BF16, BF16), BF16)], slc[-3:]
+
+
+@pytest.mark.parametrize("name, dtype", [("dcanet-cva1", torch.float32), ("dcanet-cva1", torch.float64),
+                                         ("gwcnet-gc", torch.float32), ("gwcnet-gc", torch.float64)])
+def test_train_at_f32_and_f64_runs_in_the_model_dtype(name, dtype):
+    want = str(dtype).removeprefix("torch.")
+    rec = record(name, dtype, train=True)
     assert rec and all(out == want and set(ins) <= {want} for _, _, ins, out, _ in rec), \
         sorted({(op, ins, out) for op, _, ins, out, _ in rec if out != want or set(ins) - {want}})[:5]
