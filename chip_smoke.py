@@ -27,9 +27,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      version), conv3d (with scale, bias and ReLU) and conv3d_fast's
      backward; CUDA-event times of kernel, plain version and, for conv3d,
      F.conv3d (cuDNN) beside the card's bound for the same work (the gwc
-     forward also at the train shape, at batch 1 and at the bf16 train
-     leg's batch 4, and at the KITTI eval shape, the backward at the train
-     shape at batch 1 and 4 and at the Middlebury shape); the gwc kernels
+     forward also at the train shape, at batch 1, at the bf16 train leg's
+     batch 4 and at the KITTI preset's batch 12, and at the KITTI eval
+     shape, the backward at the train shape at batch 1, 4 and 12 and at
+     the Middlebury shape); the gwc kernels
      retimed at the end; for context only, F.conv3d f32 with TF32 on (time,
      and its error, which misses the f32 tolerance).
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
@@ -70,7 +71,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      train step against the CPU train step from the same weights on a small
      input, in f32 and in bf16 (the bf16 step within the CPU's own
      bf16-vs-f32 distance), and the dtype plan of the bf16 step's forward
-     and loss op by op (`dtype_record`), equal on the card and the CPU.
+     and loss op by op (`dtype_record`), equal on the card and the CPU;
+     then the KITTI preset's step (5x / 10x focal and smooth-L1 on a sparse
+     gt) on a crop of a procedural KITTI scene, GPU against CPU, in f32 and
+     in bf16 with the same bounds.
   7. eval: `cli eval --preset kitti --dataset kitti2015` with DCANet(num_cva=3,
      maxdisp=192) on a synthetic KITTI 2015 tree of 6 pairs at 375x1242
      (sparse gt, one pair that the per-image skip rule drops), in f32 and in
@@ -170,7 +174,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      by its plain version (loss terms 1e-7, grad norm 1e-6, statistics
      1e-10 scaled, each parameter's gradient 1e-7 relative in L2); and the
      step alone, one process against 2 ranks time-sharing the card.
- 13. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+ 13. kitti: the KITTI training stage. Procedural KITTI trees at 376x1248
+     (`write_procedural_kitti_tree`: 12 KITTI 2012 + 12 KITTI 2015 scenes
+     as kitti_mix, 4 held-out KITTI 2015 scenes, a seed each); `cli export`
+     of phase 6's newest checkpoint (a seeded model's without phase 6);
+     `cmd_train` with the kitti preset at its batch of 12 in bf16 from
+     `loadckpt` of the export, 3 epochs (6 steps), a checkpoint after each:
+     the weights before step 1 equal to the export bit for bit, no Adam
+     state at step 0 and lr 1e-3, every metric finite, one bf16 gwc forward
+     and one bf16 backward launch per step and no f32 one (the counts of
+     each run), ms/step, pairs/s, peak memory; the same with `remat` from
+     the same weights and batches (its first loss within 1e-3 relative, its
+     peak lower); `cli eval --preset kitti --dataset kitti2015` in bf16 of
+     the trained checkpoint on the held-out scenes: one bf16 gwc launch per
+     pair, EPE, D1, ms/pair.
+ 14. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
 `--phases cards`, a manual measurement outside the smoke's phases (never run
@@ -191,6 +209,22 @@ run by default; ~30 min): the port's training curve (`phase_curve`,
 after each epoch, then f32, literal bf16 and folded bf16 `cli eval` of the
 trained checkpoint and its folded bf16 forward on the card against the CPU;
 its JSON goes to `chiprun_out/traincurve.json` beside the script.
+
+`--phases kitti12`, a manual measurement (never run by default; ~3 min):
+the KITTI preset's train step alone at batch 12 (256x512 crops of the
+kitti phase's kitti_mix, the batch on the card) for f32 and bf16, each
+with and without remat, each in a process of its own: median ms/step after
+2 warm-up steps, pairs/s, the peak and its largest blocks; running out of
+memory is a result, printed as "oom" with the allocator's message and the
+need reckoned from the peak before it plus the allocation refused. JSON in
+`chiprun_out/kitti12.json`.
+
+`--phases finetune`, a manual measurement (never run by default; ~35 min):
+the curve as `--phases curve` runs it, then the KITTI fine-tune leg
+(`dcanet_tpu_torch/finetune_kitti.py`) on its epoch-5 checkpoint: 120
+KITTI 2012 + 120 KITTI 2015 procedural scenes at 376x1248 and 24 held out
+(seeds 1, 2, 3), 8 epochs at batch 4 in bf16, `cli eval` before and after.
+JSON in `chiprun_out/traincurve.json` and `chiprun_out/finetune.json`.
 
 `--phases` runs a subset (for iterating on one part); the summary lines are
 printed only for the full run.
@@ -234,6 +268,8 @@ KITTI_EVAL_SHAPE = (1, 320, 92, 308)
 TRAIN_SHAPE = (1, 320, 64, 128)  # gwc features of a 256x512 SceneFlow crop
 # ... of a batch of 4 such crops: the bf16 train leg's and the curve's
 TRAIN_B4_SHAPE = (4,) + TRAIN_SHAPE[1:]
+# ... of the KITTI preset's batch of 12 crops of 256x512 (the kitti phase's)
+TRAIN_B12_SHAPE = (12,) + TRAIN_SHAPE[1:]
 MAIN_GROUPS, MAIN_D = 40, 48
 # the gwc backward at the Middlebury preset's 320x704 crop, maxdisp 240
 MIDDLEBURY_SHAPE, MIDDLEBURY_D = (1, 320, 80, 176), 60
@@ -284,6 +320,27 @@ MEMORY_BATCHES, MEMORY_STEPS = (1, 2, 4), 2
 # CURVE_CPU_SCENES TEST scenes
 CURVE_TRAIN, CURVE_TEST, CURVE_EPOCHS, CURVE_BATCH, CURVE_CPU_SCENES = 1600, 40, 5, 4, 2
 KITTI_HW = (375, 1242)  # a KITTI 2015 image, padded to 384x1248 by --submission
+# kitti phase: `cmd_train --preset kitti` (batch KITTI_BATCH, bf16, KITTI_EPOCHS
+# epochs, with and without remat, from `cli export` of phase 6's checkpoint)
+# on a procedural kitti_mix of KITTI_TREE KITTI 2012 + KITTI_TREE KITTI 2015
+# scenes at KITTI_TRAIN_HW (the JAX fine-tune leg's size), then `cli eval` on
+# KITTI_VAL held-out KITTI 2015 scenes; each tree from its own seed
+KITTI_TRAIN_HW, KITTI_TREE, KITTI_VAL, KITTI_BATCH, KITTI_EPOCHS = (376, 1248), 12, 4, 12, 3
+KITTI_SEEDS = (("kitti2012", 1), ("kitti2015", 2), ("kitti2015", 3))  # kitti_mix's two trees, the held-out one
+# kitti12 (manual): the KITTI step alone at batch KITTI_BATCH for {f32, bf16} x
+# {remat, none}, each in its own process, KITTI12_WARMUP + KITTI12_TIMED steps
+KITTI12_WARMUP, KITTI12_TIMED, KITTI12_TIMEOUT_S = 2, 5, 600
+# phase 8's kitti case: its bf16 scalars (loss terms, EPE) on KITTI_PARITY_DRAWS
+# procedural KITTI crops, within KITTI_PARITY_SCALAR_BOUND times the CPU's own
+# bf16-vs-f32 distance, the largest over them: the card's and the CPU's bf16
+# steps are two roundings of one f32 step, each about that far from it (the
+# bound of the CPU tests against the JAX package; 1x failed on the EPE on the
+# H100 with 1 and 3 crops, the gradient and BatchNorm statistics inside 1x)
+KITTI_PARITY_DRAWS, KITTI_PARITY_SCALAR_BOUND = 3, 2.0
+# finetune (manual): the curve, then the JAX fine-tune leg's run
+# (TRAINCURVE.md): FINETUNE_TREE + FINETUNE_TREE scenes, FINETUNE_VAL held
+# out, FINETUNE_EPOCHS epochs at batch FINETUNE_BATCH in bf16
+FINETUNE_TREE, FINETUNE_VAL, FINETUNE_EPOCHS, FINETUNE_BATCH = 120, 24, 8, 4
 # eval phase: a synthetic KITTI 2015 tree at KITTI_HW, the last pair's gt
 # almost all at maxdisp, so that the per-image skip rule drops it
 EVAL_PAIRS, EVAL_LIST = 6, ("000000_10.png", "000002_10.png", "000004_10.png")
@@ -543,6 +600,8 @@ def phase_kernels():
         ("train bf16", TRAIN_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("train b4 f32", TRAIN_B4_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("train b4 bf16", TRAIN_B4_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train b12 f32", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train b12 bf16", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("D=60 f32", MAIN_SHAPE, MAIN_GROUPS, 60, torch.float32),
         ("D=60 bf16", MAIN_SHAPE, MAIN_GROUPS, 60, torch.bfloat16),
         ("D>W f32", (2, 16, 5, 7), 4, 12, torch.float32),
@@ -564,6 +623,7 @@ def phase_kernels():
         want = gwc.gwc_volume_reference(left, right, d, groups)
         torch.cuda.synchronize()
         errs[name] = check_close(f"gwc {name} {tuple(shape)} G={groups} D={d}", got, want, *tol[dtype])
+        del left, right, got, want
     # plane ranges against the plain version's slices of the whole volume
     for name, shape, groups, d, planes in GWC_RANGES:
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -613,8 +673,8 @@ def phase_kernels():
         ("CPG=16 bf16", (1, 32, 3, 256), 2, 48, torch.bfloat16),
         ("middlebury f32", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, torch.float32),
         ("middlebury bf16", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, torch.bfloat16),
-        ("kitti batch f32", (12,) + TRAIN_SHAPE[1:], MAIN_GROUPS, MAIN_D, torch.float32),
-        ("kitti batch bf16", (12,) + TRAIN_SHAPE[1:], MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train b12 f32", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train b12 bf16", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
     ]
     bwd_errs = {}
     for name, shape, groups, d, dtype in bwd_cases:
@@ -727,7 +787,8 @@ def phase_kernels():
         log(f"[kernels] gwc main {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
 
-        for shape_tag, xs in (("train", TRAIN_SHAPE), ("kitti eval", KITTI_EVAL_SHAPE), ("train b4", TRAIN_B4_SHAPE)):
+        for shape_tag, xs in (("train", TRAIN_SHAPE), ("kitti eval", KITTI_EVAL_SHAPE), ("train b4", TRAIN_B4_SHAPE),
+                              ("train b12", TRAIN_B12_SHAPE)):
             left, right = randn(xs, dtype), randn(xs, dtype)
             ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
             plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, MAIN_D, MAIN_GROUPS), 5, flush=flush)
@@ -737,7 +798,7 @@ def phase_kernels():
             log(f"[kernels] gwc {shape_tag} {tag} x{tuple(xs)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
         for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("middlebury", MIDDLEBURY_SHAPE, MIDDLEBURY_D),
-                                 ("train b4", TRAIN_B4_SHAPE, MAIN_D)):
+                                 ("train b4", TRAIN_B4_SHAPE, MAIN_D), ("train b12", TRAIN_B12_SHAPE, MAIN_D)):
             b, c, h, w = xs
             left, right = randn(xs, dtype), randn(xs, dtype)
             grad = randn((b, MAIN_GROUPS, d, h, w), dtype)
@@ -943,15 +1004,16 @@ _BATCH_NORM_OPS = ("aten.native_batch_norm.default", "aten.cudnn_batch_norm.defa
                    "aten._native_batch_norm_legit_no_training.default")
 
 
-def dtype_record(model, left, right, autocast: bool = True, disparity=None) -> list:
+def dtype_record(model, left, right, autocast: bool = True, disparity=None, loss_cfg=None) -> list:
     """The dtype plan of one bf16-autocast eval forward of `model` on the
     device of `left` (with `autocast` False: in the model's dtype), under
     no_grad, after a warm-up forward (which fills the fold cache): one entry
     per op that the dispatcher runs below autocast and that returns a
     floating tensor, views aside, as (op, module, input dtypes, output dtype,
     autocast on at the call). With a `disparity` (the gt), one train-mode
-    forward with grad on and its loss (`train.loop.compute_loss`, the
-    sceneflow preset, outside autocast as `train_step` takes it), after a
+    forward with grad on and its loss (`train.loop.compute_loss` with
+    `loss_cfg`, by default the sceneflow preset's, outside autocast as
+    `train_step` takes it), after a
     warm-up one: the forward a bf16 train step runs, whose backward follows
     its casts (the backward is not recorded). The gwc volume is one entry
     ("gwc_volume", ...): the kernel on the card, its plain version on the
@@ -1005,7 +1067,8 @@ def dtype_record(model, left, right, autocast: bool = True, disparity=None) -> l
                 return model(left, right)
         with torch.autocast(dev, torch.bfloat16, enabled=autocast):
             out = model(left, right)
-        return compute_loss(out, disparity, valid_mask(disparity, model.maxdisp), LossConfig(max_disp=model.maxdisp))
+        return compute_loss(out, disparity, valid_mask(disparity, model.maxdisp),
+                            loss_cfg or LossConfig(max_disp=model.maxdisp))
 
     def enter(module, args):
         stack.append(names.get(module, stack[-1]))
@@ -1435,20 +1498,52 @@ def memory_at_peak(fn, top: int = 6) -> dict:
     return dict(peak_bytes=peak, blocks=len(at_peak), sites=sites, largest=blocks)
 
 
+def step_alone(cfg, batch: dict, loss_cfg, steps: int, warmup: int = 0, at_peak: bool = False) -> dict:
+    """The train step alone (the batch already on the card, no loader) of
+    the model and optimiser `cli.build_train_state(cfg)` builds: `steps`
+    steps, the median ms of those after `warmup` (host clock, synchronised
+    around each step), pairs/s, the losses, the peak device memory over them
+    and the memory held before the first step and after the last; with
+    `at_peak`, what holds the memory at the peak of one more step
+    (`memory_at_peak`)."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.train.loop import train_step
+
+    state = cli.build_train_state(cfg, 1, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(before_bytes=torch.cuda.memory_allocated(), losses=[])
+    times = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["losses"].append(float(train_step(state, batch, loss_cfg)["total"]))  # the read waits for the step
+        if i >= warmup:
+            times.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(times)
+    b = len(next(iter(batch.values())))
+    out.update(ms=ms, ms_range=[min(times), max(times)], pairs_per_s=1e3 * b / ms,
+               peak_bytes=torch.cuda.max_memory_allocated(), held_bytes=torch.cuda.memory_allocated())
+    if at_peak:
+        out["at_peak"] = memory_at_peak(lambda: train_step(state, batch, loss_cfg))
+    return out
+
+
 def train_memory(root: Path) -> dict:
-    """The train step alone (the batch on the card, no loader) of
-    DCANet(num_cva=3, maxdisp=192) on 256x512 crops of the procedural tree,
-    at each batch of MEMORY_BATCHES in f32 and in bf16: the peak device
-    memory over MEMORY_STEPS steps and the memory held between steps (the
-    parameters, gradients and Adam's state); what holds the memory at the
-    peak of one step (`memory_at_peak`) in f32 at batch 2 (PERF.md §7's
-    question: 22.17 GiB against 3.70 at batch 1) and in bf16 at the largest
-    batch."""
+    """The train step alone (`step_alone`) of DCANet(num_cva=3, maxdisp=192)
+    on 256x512 crops of the procedural tree, at each batch of MEMORY_BATCHES
+    in f32 and in bf16: the peak device memory over MEMORY_STEPS steps and
+    the memory held between steps (the parameters, gradients and Adam's
+    state); what holds the memory at the peak of one step (`memory_at_peak`)
+    in f32 at batch 2 (PERF.md §7's question: 22.17 GiB against 3.70 at
+    batch 1) and in bf16 at the largest batch."""
     import torch
 
     from dcanet_tpu_torch import cli
     from dcanet_tpu_torch.config import preset
-    from dcanet_tpu_torch.train.loop import LossConfig, train_step
+    from dcanet_tpu_torch.train.loop import LossConfig
 
     base = preset("sceneflow", data_root=str(root), seed=SEED)
     ds = cli.build_dataset(base, training=True)
@@ -1458,28 +1553,20 @@ def train_memory(root: Path) -> dict:
     for dtype in ("float32", "bfloat16"):
         for b in MEMORY_BATCHES:
             batch = {k: torch.from_numpy(np.stack([s[k] for s in samples[:b]])).cuda() for k in samples[0]}
-            state = cli.build_train_state(preset("sceneflow", seed=SEED, dtype=dtype), 1, "cuda")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            before = torch.cuda.memory_allocated()
-            for _ in range(MEMORY_STEPS):
-                loss = float(train_step(state, batch, loss_cfg)["total"])
-            torch.cuda.synchronize()
-            peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
-            entry = dict(peak_bytes=peak, held_bytes=held, before_bytes=before, batch_bytes=sum(
-                t.numel() * t.element_size() for t in batch.values()))
-            if (dtype, b) in (("float32", 2), ("bfloat16", max(MEMORY_BATCHES))):
-                entry["at_peak"] = memory_at_peak(lambda: train_step(state, batch, loss_cfg))
+            entry = step_alone(preset("sceneflow", seed=SEED, dtype=dtype), batch, loss_cfg, MEMORY_STEPS,
+                               at_peak=(dtype, b) in (("float32", 2), ("bfloat16", max(MEMORY_BATCHES))))
+            entry["batch_bytes"] = sum(t.numel() * t.element_size() for t in batch.values())
             results[f"{dtype} b{b}"] = entry
+            peak, held, before, loss = (entry[k] for k in ("peak_bytes", "held_bytes", "before_bytes", "losses"))
             log(f"[train memory] {dtype} batch {b}: peak {peak / 2**30:.4f} GiB, held between steps "
-                f"{held / 2**30:.4f} GiB (before the first step {before / 2**30:.4f}), loss {loss:.4f}")
+                f"{held / 2**30:.4f} GiB (before the first step {before / 2**30:.4f}), loss {loss[-1]:.4f}")
             for site, size in entry.get("at_peak", {}).get("sites", []):
                 log(f"[train memory]   at the peak of one step: {size / 2**30:8.4f} GiB {site}")
             for size, site in entry.get("at_peak", {}).get("largest", [])[:3]:
                 log(f"[train memory]   largest block: {size / 2**20:10.1f} MiB {site}")
-            if not math.isfinite(loss):
-                raise AssertionError(f"[train memory] {dtype} batch {b}: the loss is not finite")
-            del state, batch
+            if not all(math.isfinite(x) for x in loss):
+                raise AssertionError(f"[train memory] {dtype} batch {b}: a loss is not finite")
+            del batch
             torch.cuda.empty_cache()
     return results
 
@@ -1572,16 +1659,38 @@ def profile_train_step(root: Path) -> dict:
     return results
 
 
-def phase_train_parity(name: str = "dcanet"):
+def _kitti_parity_batch(seed: int) -> dict:
+    """A 1x3x64x128 crop of a procedural KITTI scene (`procedural_scene` at
+    64x256, its right half), the images normalised as the loader does, the
+    gt sparse as `write_procedural_kitti_tree` writes it (x256, truncated)."""
+    from dcanet_tpu_torch.data.io import normalize_imagenet
+    from dcanet_tpu_torch.data.synthetic import kitti_sparse_gt, procedural_scene
+
+    left, right, disp = procedural_scene(seed, 64, 256)
+    gt = kitti_sparse_gt(disp, seed)[:, 128:].astype(np.float32) / 256.0
+
+    def chw(img):
+        return normalize_imagenet(img[:, 128:].astype(np.float32)).transpose(2, 0, 1)[None].astype(np.float32)
+
+    return {"left": chw(left), "right": chw(right), "disparity": np.ascontiguousarray(gt[None])}
+
+
+def phase_train_parity(name: str = "dcanet", loss_preset: str = "sceneflow"):
     """One GPU train step (CUDA kernels, cuDNN) against one CPU train step
     (plain versions) of the registry's model `name` from the same weights on
     a small input: loss terms, grad norm and the updated BatchNorm
-    statistics, in f32. For DCANet also in bf16 autocast (the bf16 train
+    statistics, in f32. With `loss_preset="kitti"`, the KITTI preset's step
+    (5x / 10x focal and smooth-L1 on a sparse gt) on crops of procedural
+    KITTI scenes (`_kitti_parity_batch`); else the sceneflow loss on random
+    images and a dense gt. For DCANet also in bf16 autocast (the bf16 train
     step): the GPU's bf16 step against the CPU's, within the CPU's own
     bf16-vs-f32 distance on the step, for the loss terms and EPE (relative,
-    the CPU distance the largest over them: one scalar's distance is one
-    draw of its rounding noise), the whole gradient and the BatchNorm
-    statistics (relative L2), the grad norm within the gradient's
+    the CPU distance the largest over them and over the draws: one
+    scalar's distance is one draw of its rounding noise, so the kitti case
+    takes KITTI_PARITY_DRAWS crops, each step on the card held against the
+    CPU's on the same crop, within KITTI_PARITY_SCALAR_BOUND times that
+    distance), the whole gradient and the BatchNorm statistics (relative
+    L2, on the first crop), the grad norm within the gradient's
     bf16-vs-f32 distance (|a| - |b| <= |a - b|); and the dtype plan of the
     bf16 step's forward and loss (`dtype_record`) equal on both."""
     import copy
@@ -1596,28 +1705,38 @@ def phase_train_parity(name: str = "dcanet"):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     model = reference_init_(make_model(name, maxdisp=192), torch.Generator().manual_seed(SEED + 3))
-    rng = np.random.default_rng(SEED + 3)
-    batch = {
-        "left": rng.standard_normal((1, 3, 64, 128)).astype(np.float32),
-        "right": rng.standard_normal((1, 3, 64, 128)).astype(np.float32),
-        "disparity": rng.uniform(1.0, 60.0, (1, 64, 128)).astype(np.float32),
-    }
-    cfg = LossConfig(max_disp=192)
-    results = {}
+    if loss_preset == "kitti":
+        batches = [_kitti_parity_batch(SEED + 3 + i) for i in range(KITTI_PARITY_DRAWS)]
+        cfg = LossConfig(max_disp=192, sparse=True, preset="kitti")
+    else:
+        rng = np.random.default_rng(SEED + 3)
+        batches = [{
+            "left": rng.standard_normal((1, 3, 64, 128)).astype(np.float32),
+            "right": rng.standard_normal((1, 3, 64, 128)).astype(np.float32),
+            "disparity": rng.uniform(1.0, 60.0, (1, 64, 128)).astype(np.float32),
+        }]
+        cfg = LossConfig(max_disp=192)
+    tag = name if loss_preset == "sceneflow" else f"{name}, {loss_preset} preset"
     amps = (None, torch.bfloat16) if name == "dcanet" else (None,)
-    for amp in amps:
-        for dev in ("cpu", "cuda"):
-            m = copy.deepcopy(model).to(dev)
-            state = create_train_state(m, lambda step: 1e-3, amp)
-            metrics = train_step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg)
-            stats = {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}
-            grad = torch.cat([p.grad.detach().float().cpu().reshape(-1) for p in m.parameters()])
-            results[dev, amp] = ({k: float(v) for k, v in metrics.items()}, stats, grad)
-    (mc, sc, _), (mg, sg, _) = results["cpu", None], results["cuda", None]
+    draws = []
+    for i, batch in enumerate(batches):
+        results = {}
+        for amp in amps:
+            for dev in ("cpu", "cuda"):
+                m = copy.deepcopy(model).to(dev)
+                state = create_train_state(m, lambda step: 1e-3, amp)
+                metrics = train_step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg)
+                stats = {k: v.detach().cpu() for k, v in m.state_dict().items() if "running" in k}
+                # the kitti loss leaves the heads of vol_2.. out: no gradient there, as Adam skips them
+                grad = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).detach().float().cpu()
+                                  .reshape(-1) for p in m.parameters()])
+                results[dev, amp] = ({k: float(v) for k, v in metrics.items()}, stats, grad)
+        draws.append(results)
+    (mc, sc, _), (mg, sg, _) = draws[0]["cpu", None], draws[0]["cuda", None]
     stat_err = max(float((sc[k] - sg[k]).abs().max()) for k in sc)
     rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12)
            for k in ("total", "focal", "smooth_l1", "grad_norm") if k in mc}
-    log(f"[train parity] {name}: GPU vs CPU train step, 1x3x64x128 f32: loss {mg['total']:.6f} vs {mc['total']:.6f}, "
+    log(f"[train parity] {tag}: GPU vs CPU train step, 1x3x64x128 f32: loss {mg['total']:.6f} vs {mc['total']:.6f}, "
         f"grad norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; relative differences "
         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
         + f"; BatchNorm statistics max|diff| {stat_err:.3e} (tolerances: loss terms 1e-4, grad norm 1e-3, "
@@ -1626,22 +1745,29 @@ def phase_train_parity(name: str = "dcanet"):
         raise AssertionError("[train parity] the GPU train step disagrees with the CPU train step")
     out = dict(rel=rel, stat_err=stat_err)
     if name == "dcanet":
-        out["bf16"] = _bf16_step_parity(results)
+        out["bf16"] = _bf16_step_parity(draws, tag, 1.0 if loss_preset == "sceneflow" else KITTI_PARITY_SCALAR_BOUND)
+        batch = batches[0]
         gt = torch.from_numpy(batch["disparity"])
         left, right = (torch.from_numpy(batch[k]) for k in ("left", "right"))
-        cpu_rec = dtype_record(copy.deepcopy(model), left, right, disparity=gt)
-        cuda_rec = dtype_record(copy.deepcopy(model).cuda(), left.cuda(), right.cuda(), disparity=gt.cuda())
-        same_dtype_plan("train parity", cuda_rec, cpu_rec, "a bf16 train step's forward and loss, 1x3x64x128")
+        cpu_rec = dtype_record(copy.deepcopy(model), left, right, disparity=gt, loss_cfg=cfg)
+        cuda_rec = dtype_record(copy.deepcopy(model).cuda(), left.cuda(), right.cuda(), disparity=gt.cuda(),
+                                loss_cfg=cfg)
+        same_dtype_plan("train parity", cuda_rec, cpu_rec, f"a bf16 train step's forward and loss ({tag}), 1x3x64x128")
         out["bf16"]["dtype_plan_ops"] = len(cuda_rec)
     return out
 
 
-def _bf16_step_parity(results: dict) -> dict:
-    """The GPU bf16 step against the CPU bf16 step (phase_train_parity)."""
+def _bf16_step_parity(draws: list, tag: str, scalar_bound: float = 1.0) -> dict:
+    """The GPU bf16 step against the CPU bf16 step (phase_train_parity): the
+    scalars on every draw, within `scalar_bound` times the CPU's own
+    distance; the rest on the first draw, within 1x. Logs each draw's
+    scalars: the CPU's and the card's own bf16-vs-f32 distance, the card's
+    f32 step against the CPU's, and the card's bf16 step against the CPU's."""
     import torch
 
-    (mf, sf, gf), (mb, sb, gb), (mgb, sgb, ggb) = (results["cpu", None], results["cpu", torch.bfloat16],
-                                                 results["cuda", torch.bfloat16])
+    bf16 = torch.bfloat16
+    (mf, sf, gf), (mb, sb, gb), (mgb, sgb, ggb) = (draws[0]["cpu", None], draws[0]["cpu", bf16],
+                                                 draws[0]["cuda", bf16])
 
     def rel_l2(a, b):
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -1649,25 +1775,37 @@ def _bf16_step_parity(results: dict) -> dict:
     def cat(d):
         return torch.cat([d[k].double().reshape(-1) for k in sorted(d)])
 
+    def scalar_rel(r, a, b):
+        return {k: abs(r[a][0][k] - r[b][0][k]) / abs(r[b][0][k]) for k in losses}
+
     losses = ("total", "focal", "smooth_l1", "epe")
-    cpu_scale = max(abs(mb[k] - mf[k]) / abs(mb[k]) for k in losses)
-    cross = {k: abs(mgb[k] - mb[k]) / abs(mb[k]) for k in losses}
+    own = [scalar_rel(r, ("cpu", bf16), ("cpu", None)) for r in draws]
+    crosses = [scalar_rel(r, ("cuda", bf16), ("cpu", bf16)) for r in draws]
+    for i, r in enumerate(draws):
+        parts = {"CPU bf16-f32": own[i], "card bf16-f32": scalar_rel(r, ("cuda", bf16), ("cuda", None)),
+                 "card-CPU f32": scalar_rel(r, ("cuda", None), ("cpu", None)), "card-CPU bf16": crosses[i]}
+        log(f"[train parity] {tag}: draw {i}, relative: " + "; ".join(
+            f"{name} " + ", ".join(f"{k} {v[k]:.3e}" for k in losses) for name, v in parts.items()))
+    cpu_scale = max(max(o.values()) for o in own)
+    cross = {k: max(c[k] for c in crosses) for k in losses}
     grad_cross, grad_own = rel_l2(ggb, gb), rel_l2(gf, gb)
     stat_cross, stat_own = rel_l2(cat(sgb), cat(sb)), rel_l2(cat(sf), cat(sb))
     norm_cross, norm_bound = abs(mgb["grad_norm"] - mb["grad_norm"]), float((gf - gb).norm())
-    log(f"[train parity] dcanet: GPU vs CPU bf16 train step, 1x3x64x128: loss {mgb['total']:.6f} vs {mb['total']:.6f} "
+    log(f"[train parity] {tag}: GPU vs CPU bf16 train step, 1x3x64x128: loss {mgb['total']:.6f} vs {mb['total']:.6f} "
         f"(CPU f32 {mf['total']:.6f}), grad norm {mgb['grad_norm']:.6f} vs {mb['grad_norm']:.6f} (f32 "
-        f"{mf['grad_norm']:.6f}); relative: " + ", ".join(f"{k} {v:.3e}" for k, v in cross.items())
-        + f" against the CPU's own bf16-vs-f32 {cpu_scale:.3e} (the largest over them); whole gradient "
-        f"{grad_cross:.4f} against {grad_own:.4f}; BatchNorm statistics {stat_cross:.3e} against {stat_own:.3e}; "
-        f"grad norm {norm_cross:.4f} against the CPU's bf16-vs-f32 gradient distance {norm_bound:.4f} "
-        "(bound: the CPU's own distance)")
-    if (max(cross.values()) > cpu_scale or grad_cross > grad_own or stat_cross > stat_own
+        f"{mf['grad_norm']:.6f}); relative, the largest over {len(draws)} draw(s): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in cross.items())
+        + f" against {scalar_bound:g}x the CPU's own bf16-vs-f32 {cpu_scale:.3e} (the largest over them); whole "
+        f"gradient {grad_cross:.4f} against {grad_own:.4f}; BatchNorm statistics {stat_cross:.3e} against "
+        f"{stat_own:.3e}; grad norm {norm_cross:.4f} against the CPU's bf16-vs-f32 gradient distance "
+        f"{norm_bound:.4f} (bound: the CPU's own distance)")
+    if (max(cross.values()) > scalar_bound * cpu_scale or grad_cross > grad_own or stat_cross > stat_own
             or norm_cross > norm_bound):
-        raise AssertionError("[train parity] the GPU's bf16 train step sits farther from the CPU's than the CPU's "
-                             "own bf16-vs-f32 distance")
-    return dict(rel=cross, cpu_scale=cpu_scale, grad=(grad_cross, grad_own), stats=(stat_cross, stat_own),
-                grad_norm=(norm_cross, norm_bound))
+        raise AssertionError("[train parity] the GPU's bf16 train step sits farther from the CPU's than its bound "
+                             "from the CPU's own bf16-vs-f32 distance")
+    return dict(rel=cross, cpu_scale=cpu_scale, scalar_bound=scalar_bound, draws=[dict(own=o, cross=c) for o, c
+                                                                                  in zip(own, crosses)],
+                grad=(grad_cross, grad_own), stats=(stat_cross, stat_own), grad_norm=(norm_cross, norm_bound))
 
 
 def _eval_reference(model, ds, bf16: bool, maxdisp: int = 192):
@@ -3266,6 +3404,259 @@ def phase_curve(workdir: Path, out_path: Path) -> dict:
     return result
 
 
+def kitti_trees(workdir: Path, n: int, n_val: int) -> tuple:
+    """The procedural kitti_mix, `n` KITTI 2012 and `n` KITTI 2015 scenes, and
+    `n_val` held-out KITTI 2015 scenes, at KITTI_TRAIN_HW
+    (`write_procedural_kitti_tree`, the seeds of KITTI_SEEDS); each tree
+    written once under `workdir`. Returns their roots."""
+    import concurrent.futures
+
+    from dcanet_tpu_torch.data.synthetic import write_procedural_kitti_tree
+
+    t0 = time.perf_counter()
+    roots = [workdir / f"{layout}_seed{seed}_{count}" for (layout, seed), count in zip(KITTI_SEEDS, (n, n, n_val))]
+    with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:  # the trees' worker pools side by side
+        for f in [pool.submit(write_procedural_kitti_tree, root, layout, count, KITTI_TRAIN_HW, seed=seed)
+                  for root, (layout, seed), count in zip(roots, KITTI_SEEDS, (n, n, n_val)) if count and not root.exists()]:
+            f.result()
+    log(f"[kitti] procedural trees at {KITTI_TRAIN_HW}: {n} KITTI 2012 (seed {KITTI_SEEDS[0][1]}) + {n} KITTI 2015 "
+        f"(seed {KITTI_SEEDS[1][1]}), {n_val} held-out KITTI 2015 (seed {KITTI_SEEDS[2][1]}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    return tuple(roots)
+
+
+@contextlib.contextmanager
+def first_step_probe(record: list):
+    """Within it, the first call of `train.loop.train_step` (which `cmd_train`
+    imports at each call) appends what the step finds: the step count,
+    the number of parameters with Adam state, the LR of the step, the loss
+    config and the model's state_dict copied to the host."""
+    from dcanet_tpu_torch.train import loop
+
+    step_fn = loop.train_step
+
+    def probe(state, batch, cfg):
+        if not record:
+            record.append(dict(step=state.step, adam_entries=len(state.optimizer.state), lr=state.lr_fn(state.step),
+                               loss_cfg=cfg,
+                               weights={k: v.to("cpu", copy=True) for k, v in state.model.state_dict().items()}))
+        return step_fn(state, batch, cfg)
+
+    loop.train_step = probe
+    try:
+        yield
+    finally:
+        loop.train_step = step_fn
+
+
+def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
+    """The KITTI training stage (the `kitti` phase): `cli export` of the newest
+    checkpoint under `pretrain_logdir` (phase 6's run; a seeded model's
+    checkpoint when phase 6 does not run), then `cmd_train` with the kitti
+    preset (kitti_mix, sparse gt, 5x / 10x focal, the piecewise LR, the
+    random 256x512 crop) at its batch of KITTI_BATCH in bf16 from
+    `loadckpt` of the export, KITTI_EPOCHS epochs with a checkpoint after
+    each (`save_after_epoch=0`, as the fine-tune leg sets it), once without
+    and once with `remat` from the same weights and batches: the weights
+    before step 1 equal to the export bit for bit, no Adam state at step 0,
+    the LR 1e-3, every metric finite, one bf16 gwc forward and one bf16
+    backward launch per step and no f32 one (the counts of each run), the
+    remat run's first loss within 1e-3 relative of the other's and its peak
+    lower; ms/step (host clock between the steps' metric reads, median
+    after TRAIN_WARMUP steps), pairs/s, peak memory. Then `cli eval --preset
+    kitti --dataset kitti2015` in bf16 of the run's newest checkpoint on
+    the KITTI_VAL held-out scenes: one bf16 gwc launch per pair, EPE, D1,
+    ms/pair."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    k12, k15, val = kitti_trees(workdir, KITTI_TREE, KITTI_VAL)
+    if pretrain_logdir is None:
+        pretrain_logdir = workdir / "kitti_pretrain"
+        CheckpointManager(pretrain_logdir / "ckpt").save(cli.build_train_state(preset("sceneflow", seed=SEED), 1,
+                                                                                "cuda"))
+    weights = workdir / "kitti_pretrained.pt"
+    cli.main(["export", "--logdir", str(pretrain_logdir), "--out", str(weights)])
+    export = torch.load(weights, map_location="cpu", weights_only=True)["state_dict"]
+    steps_want = KITTI_EPOCHS * (2 * KITTI_TREE // KITTI_BATCH)
+    keys = ("total", "focal", "smooth_l1", "grad_norm", "epe")
+    runs = {}
+    for remat in (False, True):
+        tag = "remat" if remat else "no remat"
+        logdir = workdir / f"kitti_run_{'remat' if remat else 'plain'}"
+        cfg = preset("kitti", data_root=str(k12), data_root2=str(k15), batch_size=KITTI_BATCH, dtype="bfloat16",
+                     logdir=str(logdir), epochs=KITTI_EPOCHS, loadckpt=str(weights), save_after_epoch=0,
+                     print_freq=1, num_workers=8, seed=SEED, remat=remat)
+        first = []
+        gwc.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with first_step_probe(first):
+            hist = cli.cmd_train(cfg, "cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        fwd, bwd = dict(gwc.LAUNCHES_BY_DTYPE), dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE)
+        steps = len(hist)
+        for rec in hist:
+            log(f"[kitti] {tag}, step {rec['step']}: " + ", ".join(f"{k} {rec[k]:.4f}" for k in keys))
+        if steps != steps_want or not all(math.isfinite(r[k]) for r in hist for k in keys):
+            raise AssertionError(f"[kitti] {tag}: {steps} steps (expected {steps_want}) or a metric not finite")
+        start = first[0]
+        same = start["weights"].keys() == export.keys() and all(torch.equal(start["weights"][k], export[k])
+                                                                 for k in export)
+        if not same or start["step"] != 0 or start["adam_entries"] != 0 or start["lr"] != 1e-3:
+            raise AssertionError(f"[kitti] {tag}: the first step found weights equal to the export: {same}, step "
+                                 f"{start['step']}, {start['adam_entries']} parameters with Adam state, lr {start['lr']}")
+        if fwd != {"float32": 0, "bfloat16": steps} or bwd != {"float32": 0, "bfloat16": steps}:
+            raise AssertionError(f"[kitti] {tag}: gwc launches by dtype: forward {fwd}, backward {bwd} in {steps} steps")
+        ckpts = sorted(q.name for q in (logdir / "ckpt").iterdir())
+        if len(ckpts) != KITTI_EPOCHS:
+            raise AssertionError(f"[kitti] {tag}: checkpoints {ckpts}, expected one per epoch")
+        step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])][TRAIN_WARMUP - 1:]
+        ms = statistics.median(step_ms)
+        runs[tag] = dict(steps=steps, ms=ms, ms_range=[min(step_ms), max(step_ms)],
+                         pairs_per_s=1e3 * KITTI_BATCH / ms, peak_bytes=peak, fwd=fwd, bwd=bwd,
+                         first_loss=hist[0]["total"], last_loss=hist[-1]["total"])
+        log(f"[kitti] cmd_train --preset kitti --batch-size {KITTI_BATCH} --dtype bfloat16{' --remat' if remat else ''}"
+            f" --loadckpt (the export, bit-equal at step 0; fresh Adam, lr {start['lr']}), {KITTI_BATCH}x3x256x512 crops"
+            f" of kitti_mix: {steps} steps, gwc launches forward {fwd}, backward {bwd}; median {ms:.3f} ms/step over "
+            f"steps {TRAIN_WARMUP}-{steps - 1} (range {min(step_ms):.3f}-{max(step_ms):.3f}), "
+            f"{1e3 * KITTI_BATCH / ms:.3f} pairs/s, peak memory {peak / 2**30:.4f} GiB; checkpoints {ckpts}")
+    plain, rem = runs["no remat"], runs["remat"]
+    loss_rel = abs(rem["first_loss"] - plain["first_loss"]) / abs(plain["first_loss"])
+    log(f"[kitti] remat against none: first loss {rem['first_loss']:.6f} vs {plain['first_loss']:.6f} (relative "
+        f"{loss_rel:.2e}, bound 1e-3); peak {rem['peak_bytes'] / 2**30:.4f} vs {plain['peak_bytes'] / 2**30:.4f} GiB "
+        f"({rem['peak_bytes'] / plain['peak_bytes']:.3f}x); {rem['ms']:.3f} vs {plain['ms']:.3f} ms/step "
+        f"({rem['ms'] / plain['ms']:.3f}x)")
+    if loss_rel > 1e-3 or not rem["peak_bytes"] < plain["peak_bytes"]:
+        raise AssertionError("[kitti] the remat run's first loss or its peak memory is off")
+
+    gwc.reset_launch_counts()
+    cfg = preset("kitti", dataset="kitti2015", data_root=str(val), dtype="bfloat16", batch_size=1, seed=SEED,
+                 logdir=str(workdir / "kitti_eval"))
+    r = cli.cmd_eval(cfg, ckpt=str(workdir / "kitti_run_plain" / "ckpt"), device="cuda")
+    eval_fwd = dict(gwc.LAUNCHES_BY_DTYPE)
+    if eval_fwd != {"float32": 0, "bfloat16": KITTI_VAL} or not all(math.isfinite(r[k]) for k in ("epe", "d1")):
+        raise AssertionError(f"[kitti] cli eval: gwc launches {eval_fwd} for {KITTI_VAL} pairs, or a score not finite")
+    evaluation = {k: r.get(k) for k in ("epe", "d1", "thres1", "ms_per_pair", "pairs_per_s")}
+    log(f"[kitti] cli eval --preset kitti --dataset kitti2015 --dtype bfloat16, {KITTI_VAL} held-out scenes, the "
+        f"run's newest checkpoint: EPE {r['epe']:.4f} px, D1 {r['d1']:.5f}, {r['ms_per_pair']:.3f} ms/pair, gwc "
+        f"launches {eval_fwd}")
+    launches = dict(train_fwd=plain["fwd"]["bfloat16"] + rem["fwd"]["bfloat16"],
+                    train_bwd=plain["bwd"]["bfloat16"] + rem["bwd"]["bfloat16"], eval=eval_fwd["bfloat16"])
+    seconds = time.perf_counter() - t_phase
+    log(f"[kitti] the phase took {seconds:.1f} s")
+    return dict(runs=runs, remat_loss_rel=loss_rel, eval=evaluation, launches=launches, seconds=seconds)
+
+
+def _kitti12_worker(rank: int, port: int, root12: str, root15: str, dtype: str, remat: bool, out_path: str) -> None:
+    """The kitti preset's train step alone (`step_alone`) at batch
+    KITTI_BATCH (256x512 crops of kitti_mix) in one process: the median of
+    KITTI12_TIMED steps after KITTI12_WARMUP, pairs/s, the peak memory and,
+    without remat, what holds it (`memory_at_peak`: with remat, the
+    checkpointed backward under the allocator's history raised a SystemError
+    on the card); or, where the card runs out of memory, the allocator's
+    message, the peak reached before it and the allocation refused. No
+    other exception is caught."""
+    import re
+
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.train.loop import LossConfig
+
+    cfg = preset("kitti", data_root=root12, data_root2=root15, seed=SEED, dtype=dtype, remat=remat)
+    ds = cli.build_dataset(cfg, training=True)
+    samples = [ds[i] for i in range(KITTI_BATCH)]
+    batch = {k: torch.from_numpy(np.stack([x[k] for x in samples])).cuda() for k in samples[0]}
+    if dtype == "float32":  # as `cli train` runs it
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    loss_cfg = LossConfig(max_disp=cfg.maxdisp, sparse=True, preset="kitti")
+    result = dict(dtype=dtype, remat=remat, batch=KITTI_BATCH)
+    try:
+        result.update(step_alone(cfg, batch, loss_cfg, KITTI12_WARMUP + KITTI12_TIMED, KITTI12_WARMUP,
+                                 at_peak=not remat))
+    except torch.cuda.OutOfMemoryError as e:
+        msg = str(e)
+        m = re.search(r"Tried to allocate ([\d.]+) (GiB|MiB|KiB|B)", msg)
+        tried = float(m.group(1)) * {"GiB": 2**30, "MiB": 2**20, "KiB": 2**10, "B": 1}[m.group(2)] if m else 0.0
+        peak = torch.cuda.max_memory_allocated()
+        result.update(oom=msg, peak_bytes_before_oom=peak, refused_bytes=tried, reckoned_need_bytes=peak + tried)
+    torch.save(result, out_path)
+
+
+def phase_kitti12(workdir: Path, out_path: Path) -> dict:
+    """The KITTI step alone at batch KITTI_BATCH for {f32, bf16} x {remat,
+    none} (manual: `--phases kitti12`), each in a process of its own
+    (`_kitti12_worker`): ms/step, pairs/s, the peak and its largest blocks,
+    or "oom" with the allocator's message and the need reckoned from the
+    peak before it plus the allocation refused. Writes the results to
+    `out_path`."""
+    k12, k15, _ = kitti_trees(workdir, KITTI_TREE, 0)
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        for remat in (False, True):
+            tag = f"{dtype}{' remat' if remat else ''}"
+            (r,), wall = run_workers(f"kitti12_{dtype}_{remat}", _kitti12_worker, 1,
+                                     (str(k12), str(k15), dtype, remat), workdir, KITTI12_TIMEOUT_S)
+            results[tag] = r
+            if "oom" in r:
+                log(f"[kitti12] {tag}, batch {KITTI_BATCH}: oom; peak before it "
+                    f"{r['peak_bytes_before_oom'] / 2**30:.4f} GiB, refused {r['refused_bytes'] / 2**30:.4f} GiB, "
+                    f"reckoned need at least {r['reckoned_need_bytes'] / 2**30:.4f} GiB; the allocator: {r['oom']}")
+                continue
+            if not all(math.isfinite(x) for x in r["losses"]):
+                raise AssertionError(f"[kitti12] {tag}: a loss is not finite: {r['losses']}")
+            log(f"[kitti12] {tag}, batch {KITTI_BATCH}x3x256x512, the step alone: median {r['ms']:.3f} ms over "
+                f"{KITTI12_TIMED} steps (range {r['ms_range'][0]:.3f}-{r['ms_range'][1]:.3f}), {r['pairs_per_s']:.3f} "
+                f"pairs/s, peak {r['peak_bytes'] / 2**30:.4f} GiB (held before the first step "
+                f"{r['before_bytes'] / 2**30:.4f}), process {wall:.1f} s")
+            for size, site in r.get("at_peak", {}).get("largest", [])[:4]:
+                log(f"[kitti12]   largest block at the peak: {size / 2**20:10.1f} MiB {site}")
+    out = {"card": gpu_line(), "batch": KITTI_BATCH, "crop": [256, 512], "results": results}
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(out, indent=2))
+    log(f"[kitti12] summary: {json.dumps(out)}")
+    return out
+
+
+def phase_finetune(workdir: Path, out_dir: Path) -> dict:
+    """The KITTI fine-tune leg after the SceneFlow curve (manual: `--phases
+    finetune`): `phase_curve`, then `finetune_kitti.run_finetune` on its
+    newest (epoch CURVE_EPOCHS) checkpoint: FINETUNE_TREE KITTI 2012 +
+    FINETUNE_TREE KITTI 2015 procedural scenes at KITTI_TRAIN_HW, FINETUNE_VAL
+    held out (`kitti_trees`), FINETUNE_EPOCHS epochs at batch
+    FINETUNE_BATCH in bf16, `cli eval` before and after. Raises unless
+    every score is finite; says whether both points are under 1.0 px EPE
+    and 2 % D1. Writes traincurve.json and finetune.json to `out_dir`."""
+    from dcanet_tpu_torch import finetune_kitti
+
+    phase_curve(workdir, out_dir / "traincurve.json")
+    k12, k15, val = kitti_trees(workdir, FINETUNE_TREE, FINETUNE_VAL)
+    result = finetune_kitti.run_finetune(str(workdir / "curve_run" / "ckpt"), str(k12), str(k15), str(val),
+                                         FINETUNE_EPOCHS, FINETUNE_BATCH, "bfloat16", str(workdir / "finetune_run"),
+                                         "cuda", say=log)
+    result["card"] = gpu_line()
+    if not all(math.isfinite(r[k]) for r in result["curve"] for k in ("val_epe", "val_d1")):
+        raise AssertionError(f"[finetune] a score is not finite: {result['curve']}")
+    for r in result["curve"]:
+        log(f"[finetune] {r['tag']}: val EPE {r['val_epe']:.4f} px, D1 {r['val_d1']:.5f} (under 1.0 px and 2 %: "
+            f"{r['val_epe'] < 1.0 and r['val_d1'] < 0.02})")
+    log(f"[finetune] {result['train_steps']} steps at batch {FINETUNE_BATCH}: {result['ms_per_step']:.3f} ms/step, "
+        f"{result['pairs_per_s']:.3f} pairs/s, {result['train_wall_s']:.1f} s, peak "
+        f"{result['peak_memory_bytes'] / 2**30:.4f} GiB")
+    (out_dir / "finetune.json").write_text(json.dumps(result, indent=2))
+    log(f"[finetune] summary: {json.dumps(result)}")
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3273,16 +3664,18 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
 
 
 PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp",
-          "disp_train")
-MANUAL_PHASES = {"cards", "curve"}  # measurements that the default run never starts
+          "disp_train", "kitti")
+MANUAL_PHASES = {"cards", "curve", "kitti12", "finetune"}  # measurements that the default run never starts
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %(default)s to run after the build, or a manual "
-                         "measurement: `cards` (two or more cards: `cli train` across them) or `curve` (the "
-                         "training curve, ~30 min); the summary lines are printed only when all of the default run")
+                         "measurement: `cards` (two or more cards: `cli train` across them), `curve` (the "
+                         "training curve, ~30 min), `kitti12` (the KITTI step alone at batch 12, f32 / bf16 x "
+                         "remat / none) or `finetune` (the curve, then the KITTI fine-tune leg, ~35 min); the "
+                         "summary lines are printed only when all of the default run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES) | MANUAL_PHASES:
@@ -3314,6 +3707,7 @@ def main(argv=None) -> int:
         if "train" in phases:
             train = phase_train(Path(tmp))
             parity = phase_train_parity()
+            parity["kitti"] = phase_train_parity(loss_preset="kitti")
         if "eval" in phases:
             evaluation = phase_eval(Path(tmp), Path(tmp) / "run" if "train" in phases else None)
         if "family" in phases:
@@ -3328,8 +3722,15 @@ def main(argv=None) -> int:
             disp_train = phase_disp_train(Path(tmp))
         if "cards" in phases:
             phase_cards(Path(tmp), flat)
+        if "kitti" in phases:
+            kitti = phase_kitti(Path(tmp), Path(tmp) / "run" if "train" in phases else None)
+        out_dir = Path(__file__).resolve().parent / "chiprun_out"
         if "curve" in phases:
-            phase_curve(Path(tmp), Path(__file__).resolve().parent / "chiprun_out" / "traincurve.json")
+            phase_curve(Path(tmp), out_dir / "traincurve.json")
+        if "kitti12" in phases:
+            phase_kitti12(Path(tmp), out_dir / "kitti12.json")
+        if "finetune" in phases:
+            phase_finetune(Path(tmp), out_dir)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
@@ -3349,6 +3750,7 @@ def main(argv=None) -> int:
              "disp_eval_one_process": disp["f32"]["one_launches"] + disp["bf16"]["one_launches"],
              "disp_train": sum(f for f, _ in disp_train["launches"]),
              "disp_train_one_process": disp_train["one_launches"][0],
+             "kitti_train": kitti["launches"]["train_fwd"], "kitti_eval": kitti["launches"]["eval"],
              **{k: v for k, v in family["launches"].items() if not k.startswith("family_train_backward")}},
             errs["gwc"]["main f32"],
             gwc_t["f32"],
@@ -3361,6 +3763,11 @@ def main(argv=None) -> int:
                             "float32": {"max_abs_err": errs["gwc"]["train b4 f32"], **gwc_t["train b4 f32"]},
                             "bfloat16": {"max_abs_err": errs["gwc"]["train b4 bf16"], **gwc_t["train b4 bf16"],
                                          "launches": train["bf16"]["fwd"]["bfloat16"]}},
+            # the kitti phase's train launches (kitti_train), batch 12
+            train_b12_shape={"features": list(TRAIN_B12_SHAPE),
+                             "float32": {"max_abs_err": errs["gwc"]["train b12 f32"], **gwc_t["train b12 f32"]},
+                             "bfloat16": {"max_abs_err": errs["gwc"]["train b12 bf16"], **gwc_t["train b12 bf16"],
+                                          "launches": kitti["launches"]["train_fwd"]}},
             kitti_eval_shape={"features": list(KITTI_EVAL_SHAPE),
                               "float32": {"max_abs_err": errs["gwc"]["kitti eval f32"], **gwc_t["kitti eval f32"]},
                               "bfloat16": {"max_abs_err": errs["gwc"]["kitti eval bf16"],
@@ -3376,6 +3783,7 @@ def main(argv=None) -> int:
             train["bwd"], {"train": train["bwd"], "train_bf16": train["bf16"]["bwd"]["bfloat16"],
                            "parallel_train": sum(b for _, b in parallel["launches"]),
                            "disp_train_one_process": disp_train["one_launches"][1],
+                           "kitti_train": kitti["launches"]["train_bwd"],
                            **{k.replace("_backward", ""): v for k, v in family["launches"].items()
                               if k.startswith("family_train_backward")}},
             errs["gwc_bwd"]["train f32"], bwd_t["f32"],
@@ -3385,6 +3793,10 @@ def main(argv=None) -> int:
                             "float32": {"max_abs_err": errs["gwc_bwd"]["train b4 f32"], **bwd_t["train b4 f32"]},
                             "bfloat16": {"max_abs_err": errs["gwc_bwd"]["train b4 bf16"], **bwd_t["train b4 bf16"],
                                          "launches": train["bf16"]["bwd"]["bfloat16"]}},
+            train_b12_shape={"features": list(TRAIN_B12_SHAPE),
+                             "float32": {"max_abs_err": errs["gwc_bwd"]["train b12 f32"], **bwd_t["train b12 f32"]},
+                             "bfloat16": {"max_abs_err": errs["gwc_bwd"]["train b12 bf16"], **bwd_t["train b12 bf16"],
+                                          "launches": kitti["launches"]["train_bwd"]}},
             middlebury_shape={"features": list(MIDDLEBURY_SHAPE), "maxdisp": MIDDLEBURY_D,
                               "float32": {"max_abs_err": errs["gwc_bwd"]["middlebury f32"], **bwd_t["middlebury f32"]},
                               "bfloat16": {"max_abs_err": errs["gwc_bwd"]["middlebury bf16"],
@@ -3430,6 +3842,7 @@ def main(argv=None) -> int:
     log("[parallel] summary: " + json.dumps(parallel))
     log("[disp] summary: " + json.dumps(disp))
     log("[disp_train] summary: " + json.dumps(disp_train))
+    log("[kitti] summary: " + json.dumps(kitti))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,11 @@ nothing here imports it, JAX or flax.
   data/     PNG/PFM IO (numpy + zlib), the KITTI submission protocol,
             per-benchmark eval geometry, datasets, list files,
             augmentation, loader with CUDA prefetch, synthetic SceneFlow,
-            KITTI 2015 and ETH3D trees, procedural scenes
+            KITTI 2015 and ETH3D trees, procedural scenes in the SceneFlow
+            and KITTI 2012 / 2015 layouts
   utils/    meters, metric logger (JSONL, CSV, PNG panels), error colormap
   cli.py    `python -m dcanet_tpu_torch.cli {train,eval,infer,export} ...`
   traincurve.py  `python -m dcanet_tpu_torch.traincurve`: a training curve
+  finetune_kitti.py  `python -m dcanet_tpu_torch.finetune_kitti`: the KITTI
+            fine-tune leg (export, eval, train --preset kitti --loadckpt, eval)
 """

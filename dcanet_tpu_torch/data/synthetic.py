@@ -29,6 +29,17 @@ seed * 1_000_000 + i and of TEST from seed * 1_000_000 + 500_000 + i. Both
 are the port's copy of the JAX package's generator
 (tools/gen_synthetic_sceneflow.py), equal to it bit for bit; its training
 curve ran on 1600 + 40 such scenes at 320x640 (TRAINCURVE.md).
+`write_procedural_kitti_tree` writes such scenes in the KITTI 2012 or 2015
+layout (the tool's `--layout kitti2012|kitti2015`), `<index:06d>_10.png`:
+
+  KITTI 2012  <root>/{colored_0,colored_1,disp_occ}/
+  KITTI 2015  <root>/{image_2,image_3,disp_occ_0}/
+
+scene i from the seed seed * 1_000_000 + i, its gt sparse as a LiDAR's
+(`kitti_sparse_gt`: ~20 % of the pixels dropped at random, and the left band
+whose match lies outside the right view), uint16 disparity x 256; the JAX
+package's fine-tune leg ran on 120 + 120 such scenes at 376x1248 and scored
+24 more (TRAINCURVE.md, FINETUNE.json).
 """
 
 from __future__ import annotations
@@ -237,9 +248,35 @@ def procedural_seed(seed: int, split: str, index: int) -> int:
     return seed * 1_000_000 + (500_000 if split == "TEST" else 0) + index
 
 
+KITTI_LAYOUTS = {  # layout -> (left, right, gt) directories
+    "kitti2012": ("colored_0", "colored_1", "disp_occ"),
+    "kitti2015": ("image_2", "image_3", "disp_occ_0"),
+}
+
+
+def kitti_sparse_gt(disp: np.ndarray, scene_seed: int) -> np.ndarray:
+    """A scene's disparity as KITTI's sparse uint16 x 256 gt: a pixel keeps
+    its value with probability 0.8 (drawn from `scene_seed + 777`) where its
+    match lies inside the right view (x >= d), else 0; the cast truncates."""
+    rng = np.random.default_rng(scene_seed + 777)
+    xs = np.arange(disp.shape[1])[None, :]
+    valid = (rng.random(disp.shape) > 0.2) & (xs >= disp)
+    return np.where(valid, np.clip(disp * 256.0, 1, 65535), 0).astype(np.uint16)
+
+
 def _write_procedural_scene(job) -> None:
+    """job: (root, a split of the SceneFlow layout or a KITTI layout, index,
+    (h, w), scene seed)."""
     root, split, index, (h, w), scene_seed = job
     left, right, disp = procedural_scene(scene_seed, h, w)
+    if split in KITTI_LAYOUTS:
+        dirs = [Path(root) / d for d in KITTI_LAYOUTS[split]]
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+        name = f"{index:06d}_10.png"
+        for d, img in zip(dirs, (left, right, kitti_sparse_gt(disp, scene_seed))):
+            write_png(d / name, img)
+        return
     seq, frame = f"{index // 100:04d}", f"{index % 100:04d}"
     img_dir = Path(root) / "frames_finalpass" / split / "A" / seq
     disp_dir = Path(root) / "frames_disparity" / split / "A" / seq / "left"
@@ -248,6 +285,19 @@ def _write_procedural_scene(job) -> None:
     write_png(img_dir / "left" / f"{frame}.png", left)
     write_png(img_dir / "right" / f"{frame}.png", right)
     write_pfm(disp_dir / f"{frame}.pfm", disp)
+
+
+def _write_scenes(jobs, workers: Optional[int]) -> None:
+    """Each job over `workers` spawned processes (default: the host's cores,
+    at most 16; 1 writes in this process)."""
+    workers = min(os.cpu_count() or 1, 16) if workers is None else workers
+    if workers <= 1:
+        for job in jobs:
+            _write_procedural_scene(job)
+        return
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for _ in pool.imap_unordered(_write_procedural_scene, jobs, chunksize=4):
+            pass
 
 
 def write_procedural_sceneflow_tree(
@@ -259,14 +309,21 @@ def write_procedural_sceneflow_tree(
     (default: the host's cores, at most 16; 1 writes in this process);
     returns `root`."""
     root = Path(root)
-    jobs = [(str(root), split, i, tuple(hw), procedural_seed(seed, split, i))
-            for split, n in (("TRAIN", n_train), ("TEST", n_test)) for i in range(n)]
-    workers = min(os.cpu_count() or 1, 16) if workers is None else workers
-    if workers <= 1:
-        for job in jobs:
-            _write_procedural_scene(job)
-        return root
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        for _ in pool.imap_unordered(_write_procedural_scene, jobs, chunksize=4):
-            pass
+    _write_scenes([(str(root), split, i, tuple(hw), procedural_seed(seed, split, i))
+                   for split, n in (("TRAIN", n_train), ("TEST", n_test)) for i in range(n)], workers)
+    return root
+
+
+def write_procedural_kitti_tree(
+    root: Union[str, Path], layout: str, n: int, hw: Tuple[int, int] = (376, 1248), seed: int = 0,
+    workers: Optional[int] = None,
+) -> Path:
+    """Write `n` procedural scenes of size `hw` under `root` in the KITTI
+    `layout` ("kitti2012" or "kitti2015"), scene i from the seed
+    seed * 1_000_000 + i, over `workers` spawned processes (as
+    `write_procedural_sceneflow_tree`); returns `root`."""
+    if layout not in KITTI_LAYOUTS:
+        raise ValueError(f"layout must be one of {sorted(KITTI_LAYOUTS)}, got {layout!r}")
+    root = Path(root)
+    _write_scenes([(str(root), layout, i, tuple(hw), procedural_seed(seed, "TRAIN", i)) for i in range(n)], workers)
     return root

@@ -39,7 +39,7 @@ def _make_cfg(root: str, logdir: str, batch: int, dtype: str, epochs: int, print
                   resume=True, print_freq=print_freq, num_workers=num_workers)
 
 
-def _ms_per_step(history: List[Dict[str, float]]) -> Optional[float]:
+def ms_per_step(history: List[Dict[str, float]]) -> Optional[float]:
     """Host ms per step between the epoch's first and last metric read (the
     steps of one read share its time)."""
     last = {}  # read time -> the last step it read
@@ -79,7 +79,7 @@ def run_curve(root: str, epochs: int = 5, batch: int = 4, dtype: str = "bfloat16
         wall = time.perf_counter() - t0
         if not hist:
             raise RuntimeError(f"epoch {e + 1}: cmd_train took no step (is {logdir} ahead of it?)")
-        ms = _ms_per_step(hist)
+        ms = ms_per_step(hist)
         train = {"train_steps": len(hist), "train_loss_last": hist[-1]["total"], "train_epe_last": hist[-1]["epe"],
                  "ms_per_step": ms, "pairs_per_s": None if ms is None else 1e3 * batch / ms, "train_wall_s": wall,
                  "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if cuda else "not measured"}
