@@ -188,7 +188,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      peak lower); `cli eval --preset kitti --dataset kitti2015` in bf16 of
      the trained checkpoint on the held-out scenes: one bf16 gwc launch per
      pair, EPE, D1, ms/pair.
- 14. summary: the card's name and power limit, one `{"kernels": [...]}` line,
+ 14. middlebury: the ETH3D and Middlebury training stages. Procedural trees
+     (`write_procedural_middlebury_tree`: 4 full-resolution MiddEval3 frames
+     at 1988x2880 to train on and 2 held out, disparities up to 640 px;
+     `write_procedural_eth3d_tree`: 4 ETH3D frames at 489x941; gt inf where
+     unknown; a seed each); `cmd_train --preset middlebury` (DCANet(num_cva=3,
+     maxdisp=240): the scenes halved, 320x704 crops, the smooth-L1 preset, D
+     = 60 through the gwc kernels) in f32 and in bf16, 2 epochs each, and
+     `--preset eth3d` in bf16 for one: every metric finite, one gwc forward
+     and one backward launch per step, all of the run's dtype (the counts of
+     each run), ms/step with the loader (the steady median inside an epoch,
+     and each epoch start's stall beside the checkpoint save and the
+     loader's waits there), pairs/s, peak memory; the smooth-L1 step at
+     maxdisp 240 on the card against the CPU on 2 Middlebury crops cut to
+     64x256, with phase 6's bounds (the bf16 scalars at the kitti case's 2x)
+     but for the f32 grad norm: on each crop a float64 step on the card as
+     its witness (on the first crop held to the CPU's at phase 10's
+     bounds), the card's f32 gradient within 2x the CPU's f32 gradient
+     distance from it and its grad norm within 3e-3 of the float64 norm;
+     `cli eval --preset
+     middlebury` of the f32 run's checkpoint on the held-out scenes (halved,
+     replicate-padded to 1024x1472) in f32 and in folded bf16: one gwc launch
+     per pair, EPE, D1 and >1/2/3 px against direct model calls (rel 1e-5),
+     the class scores against a numpy count of the same logits (exact), both
+     under cuDNN's deterministic algorithms; ms/pair and peak memory with
+     cuDNN's defaults, the host's decode of each pair and the forward alone.
+     Phase 2 checks and times the gwc forward at the phase's train crop and
+     eval pair.
+ 15. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
 `--phases cards`, a manual measurement outside the smoke's phases (never run
@@ -218,6 +245,14 @@ with and without remat, each in a process of its own: median ms/step after
 memory is a result, printed as "oom" with the allocator's message and the
 need reckoned from the peak before it plus the allocation refused. JSON in
 `chiprun_out/kitti12.json`.
+
+`--phases middlebury_step`, a manual measurement (never run by default): the
+Middlebury preset's train step alone at batch 1 (320x704 crops of the
+middlebury phase's halved scenes, the batch on the card), as `kitti12`
+measures the KITTI one; then `cli train --preset middlebury` over 2 epochs
+of 15 procedural scenes (MiddEval3's training set) at batch 1, f32 and
+bf16, as the middlebury phase times its runs. JSON in
+`chiprun_out/middlebury_step.json`.
 
 `--phases finetune`, a manual measurement (never run by default; ~35 min):
 the curve as `--phases curve` runs it, then the KITTI fine-tune leg
@@ -327,9 +362,10 @@ KITTI_HW = (375, 1242)  # a KITTI 2015 image, padded to 384x1248 by --submission
 # KITTI_VAL held-out KITTI 2015 scenes; each tree from its own seed
 KITTI_TRAIN_HW, KITTI_TREE, KITTI_VAL, KITTI_BATCH, KITTI_EPOCHS = (376, 1248), 12, 4, 12, 3
 KITTI_SEEDS = (("kitti2012", 1), ("kitti2015", 2), ("kitti2015", 3))  # kitti_mix's two trees, the held-out one
-# kitti12 (manual): the KITTI step alone at batch KITTI_BATCH for {f32, bf16} x
-# {remat, none}, each in its own process, KITTI12_WARMUP + KITTI12_TIMED steps
-KITTI12_WARMUP, KITTI12_TIMED, KITTI12_TIMEOUT_S = 2, 5, 600
+# kitti12 and middlebury_step (manual): a preset's step alone for {f32, bf16} x
+# {remat, none}, each in its own process, STEP_ALONE_WARMUP + STEP_ALONE_TIMED
+# steps
+STEP_ALONE_WARMUP, STEP_ALONE_TIMED, STEP_ALONE_TIMEOUT_S = 2, 5, 600
 # phase 8's kitti case: its bf16 scalars (loss terms, EPE) on KITTI_PARITY_DRAWS
 # procedural KITTI crops, within KITTI_PARITY_SCALAR_BOUND times the CPU's own
 # bf16-vs-f32 distance, the largest over them: the card's and the CPU's bf16
@@ -381,6 +417,25 @@ DISP_TIMEOUT_S = 420
 # global batch of 2, whole on each rank
 DISP_TRAIN_WORLD, DISP_TRAIN_PAIRS, DISP_TRAIN_EPOCHS = 2, 4, 2
 DISP_TRAIN_TIMEOUT_S = 420
+# middlebury phase: procedural trees of MIDDLEBURY_TREE + MIDDLEBURY_VAL
+# (held out) full-resolution MiddEval3 frames and ETH3D_TREE ETH3D two-view
+# frames, a seed each (BENCHMARK_SEEDS); `cmd_train --preset middlebury` in f32
+# and bf16 for MIDDLEBURY_EPOCHS epochs, `--preset eth3d` in bf16 for one; the
+# smooth-L1 parity step on MIDDLEBURY_PARITY_DRAWS Middlebury crops cut to
+# MIDDLEBURY_PARITY_CROP (a CPU step at maxdisp 240 takes seconds there)
+MIDDLEBURY_TREE, MIDDLEBURY_VAL, ETH3D_TREE, MIDDLEBURY_EPOCHS = 4, 2, 4, 2
+BENCHMARK_SEEDS = (1, 2, 3)
+MIDDLEBURY_PARITY_DRAWS, MIDDLEBURY_PARITY_CROP = 2, (64, 256)
+# the card's f32 grad norm on each parity crop against the float64 step's,
+# relative to its norm (`_float64_witness`; the card read 1.6e-3 on the first
+# crop, PERF.md §6)
+MIDDLEBURY_F32_GRAD_NORM_BOUND = 3e-3
+# middlebury_step: `cmd_train --preset middlebury` at MiddEval3's training-set
+# size (15 scenes), batch 1, for MIDDLEBURY_EPOCH_RUN epochs in f32 and bf16
+MIDDLEBURY_EPOCH_SCENES, MIDDLEBURY_EPOCH_RUN, MIDDLEBURY_EPOCH_SEED = 15, 2, 4
+# gwc features of `cli eval --preset middlebury`'s pair: a 1988x2880 frame
+# halved to 994x1440 and replicate-padded to 1024x1472 (D = 60)
+MIDDLEBURY_EVAL_FEATURES = (1, 320, 256, 368)
 
 
 def log(msg: str) -> None:
@@ -604,6 +659,11 @@ def phase_kernels():
         ("train b12 bf16", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("D=60 f32", MAIN_SHAPE, MAIN_GROUPS, 60, torch.float32),
         ("D=60 bf16", MAIN_SHAPE, MAIN_GROUPS, 60, torch.bfloat16),
+        # the middlebury phase's: its train crop and its eval pair, D = 60
+        ("middlebury train f32", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, torch.float32),
+        ("middlebury train bf16", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, torch.bfloat16),
+        ("middlebury eval f32", MIDDLEBURY_EVAL_FEATURES, MAIN_GROUPS, MIDDLEBURY_D, torch.float32),
+        ("middlebury eval bf16", MIDDLEBURY_EVAL_FEATURES, MAIN_GROUPS, MIDDLEBURY_D, torch.bfloat16),
         ("D>W f32", (2, 16, 5, 7), 4, 12, torch.float32),
         ("D>W bf16", (2, 16, 5, 7), 4, 12, torch.bfloat16),
         # the forward kernel's edges: odd W (scalar loads and stores), one
@@ -787,15 +847,17 @@ def phase_kernels():
         log(f"[kernels] gwc main {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
 
-        for shape_tag, xs in (("train", TRAIN_SHAPE), ("kitti eval", KITTI_EVAL_SHAPE), ("train b4", TRAIN_B4_SHAPE),
-                              ("train b12", TRAIN_B12_SHAPE)):
+        for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("kitti eval", KITTI_EVAL_SHAPE, MAIN_D),
+                                 ("train b4", TRAIN_B4_SHAPE, MAIN_D), ("train b12", TRAIN_B12_SHAPE, MAIN_D),
+                                 ("middlebury train", MIDDLEBURY_SHAPE, MIDDLEBURY_D),
+                                 ("middlebury eval", MIDDLEBURY_EVAL_FEATURES, MIDDLEBURY_D)):
             left, right = randn(xs, dtype), randn(xs, dtype)
-            ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
-            plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, MAIN_D, MAIN_GROUPS), 5, flush=flush)
-            bound_ms, bound_by = gwc_bound_ms(xs, MAIN_GROUPS, MAIN_D, left.element_size())
+            ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, d, MAIN_GROUPS), 20, flush=flush)
+            plain_ms = time_cuda(lambda: gwc.gwc_volume_reference(left, right, d, MAIN_GROUPS), 5, flush=flush)
+            bound_ms, bound_by = gwc_bound_ms(xs, MAIN_GROUPS, d, left.element_size())
             timing["gwc"][f"{shape_tag} {tag}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                                        library_ms=None)
-            log(f"[kernels] gwc {shape_tag} {tag} x{tuple(xs)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            log(f"[kernels] gwc {shape_tag} {tag} x{tuple(xs)} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
         for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("middlebury", MIDDLEBURY_SHAPE, MIDDLEBURY_D),
                                  ("train b4", TRAIN_B4_SHAPE, MAIN_D), ("train b12", TRAIN_B12_SHAPE, MAIN_D)):
@@ -1675,11 +1737,16 @@ def _kitti_parity_batch(seed: int) -> dict:
     return {"left": chw(left), "right": chw(right), "disparity": np.ascontiguousarray(gt[None])}
 
 
-def phase_train_parity(name: str = "dcanet", loss_preset: str = "sceneflow"):
+def phase_train_parity(name: str = "dcanet", loss_preset: str = "sceneflow", maxdisp: int = 192, batches=None,
+                       float64_witness: bool = False):
     """One GPU train step (CUDA kernels, cuDNN) against one CPU train step
-    (plain versions) of the registry's model `name` from the same weights on
-    a small input: loss terms, grad norm and the updated BatchNorm
-    statistics, in f32. With `loss_preset="kitti"`, the KITTI preset's step
+    (plain versions) of the registry's model `name` (at `maxdisp`) from the
+    same weights on a small input: loss terms, grad norm and the updated
+    BatchNorm statistics, in f32. With `batches`, the `loss_preset` step on
+    them (the middlebury phase: the smooth-L1 preset on Middlebury crops);
+    with `float64_witness`, the f32 grad norm is held not card against CPU
+    but against a float64 step on each batch (`_float64_witness`);
+    with `loss_preset="kitti"`, the KITTI preset's step
     (5x / 10x focal and smooth-L1 on a sparse gt) on crops of procedural
     KITTI scenes (`_kitti_parity_batch`); else the sceneflow loss on random
     images and a dense gt. For DCANet also in bf16 autocast (the bf16 train
@@ -1704,8 +1771,10 @@ def phase_train_parity(name: str = "dcanet", loss_preset: str = "sceneflow"):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = reference_init_(make_model(name, maxdisp=192), torch.Generator().manual_seed(SEED + 3))
-    if loss_preset == "kitti":
+    model = reference_init_(make_model(name, maxdisp=maxdisp), torch.Generator().manual_seed(SEED + 3))
+    if batches is not None:
+        cfg = LossConfig(max_disp=maxdisp, preset=loss_preset)
+    elif loss_preset == "kitti":
         batches = [_kitti_parity_batch(SEED + 3 + i) for i in range(KITTI_PARITY_DRAWS)]
         cfg = LossConfig(max_disp=192, sparse=True, preset="kitti")
     else:
@@ -1736,28 +1805,104 @@ def phase_train_parity(name: str = "dcanet", loss_preset: str = "sceneflow"):
     stat_err = max(float((sc[k] - sg[k]).abs().max()) for k in sc)
     rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12)
            for k in ("total", "focal", "smooth_l1", "grad_norm") if k in mc}
-    log(f"[train parity] {tag}: GPU vs CPU train step, 1x3x64x128 f32: loss {mg['total']:.6f} vs {mc['total']:.6f}, "
+    size = "x".join(map(str, batches[0]["left"].shape))
+    log(f"[train parity] {tag}: GPU vs CPU train step, {size} f32: loss {mg['total']:.6f} vs {mc['total']:.6f}, "
         f"grad norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; relative differences "
         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
-        + f"; BatchNorm statistics max|diff| {stat_err:.3e} (tolerances: loss terms 1e-4, grad norm 1e-3, "
-        "statistics 1e-4)")
-    if max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
-        raise AssertionError("[train parity] the GPU train step disagrees with the CPU train step")
+        + f"; BatchNorm statistics max|diff| {stat_err:.3e} (tolerances: loss terms 1e-4, grad norm 1e-3"
+        + (" (here: the float64 witness below)" if float64_witness else "") + ", statistics 1e-4)")
+    norm_bad = rel["grad_norm"] > 1e-3
     out = dict(rel=rel, stat_err=stat_err)
+    if float64_witness:
+        # float64 on the CPU for the first crop only (~20 s a step): there the card's float64 step is held
+        # to it, and is the witness on the others
+        out["float64"] = [_float64_witness(model, batch, cfg, draw, f"{tag}, crop {i}", on_cpu=i == 0)
+                          for i, (batch, draw) in enumerate(zip(batches, draws))]
+        norm_bad = False
+    if max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or norm_bad or stat_err > 1e-4:
+        raise AssertionError("[train parity] the GPU train step disagrees with the CPU train step")
     if name == "dcanet":
-        out["bf16"] = _bf16_step_parity(draws, tag, 1.0 if loss_preset == "sceneflow" else KITTI_PARITY_SCALAR_BOUND)
+        out["bf16"] = _bf16_step_parity(draws, tag, 1.0 if loss_preset == "sceneflow" else KITTI_PARITY_SCALAR_BOUND,
+                                        size)
         batch = batches[0]
         gt = torch.from_numpy(batch["disparity"])
         left, right = (torch.from_numpy(batch[k]) for k in ("left", "right"))
         cpu_rec = dtype_record(copy.deepcopy(model), left, right, disparity=gt, loss_cfg=cfg)
         cuda_rec = dtype_record(copy.deepcopy(model).cuda(), left.cuda(), right.cuda(), disparity=gt.cuda(),
                                 loss_cfg=cfg)
-        same_dtype_plan("train parity", cuda_rec, cpu_rec, f"a bf16 train step's forward and loss ({tag}), 1x3x64x128")
+        same_dtype_plan("train parity", cuda_rec, cpu_rec, f"a bf16 train step's forward and loss ({tag}), {size}")
         out["bf16"]["dtype_plan_ops"] = len(cuda_rec)
     return out
 
 
-def _bf16_step_parity(draws: list, tag: str, scalar_bound: float = 1.0) -> dict:
+def _float64_witness(model, batch: dict, cfg, draw: dict, tag: str, on_cpu: bool = True) -> dict:
+    """The step of `model` on `batch` in float64 on the card (cuDNN's
+    float64 convolutions; the gwc volume by its plain version, the kernels
+    taking f32 and bf16) and, with `on_cpu`, on the CPU, the two held
+    together as phase 10 holds float64 steps: loss terms 1e-7, grad norm
+    1e-6, the whole gradient 1e-7 (relative L2). Then the f32 steps of
+    `draw` against the float64 step (the CPU's, else the card's): the card's
+    gradient no farther from the float64 gradient than twice the CPU's f32
+    gradient is (the triangle bound: two roundings of one step), and the
+    card's grad norm within MIDDLEBURY_F32_GRAD_NORM_BOUND of the float64
+    norm (relative). On the Middlebury crop at maxdisp 240 the f32 gradient
+    lies ~5e-3 from float64 on either device (PERF.md §6): the f32 grad
+    norms are not within 1e-3 of each other there. The card's f32 step with
+    the plain gwc in place of the kernels is logged beside it: where the f32
+    error comes from."""
+    import copy
+
+    import torch
+
+    from dcanet_tpu_torch.kernels.gwc import gwc_volume_reference
+    from dcanet_tpu_torch.models import dcanet
+    from dcanet_tpu_torch.train.loop import train_step
+    from dcanet_tpu_torch.train.state import create_train_state
+
+    wide = {}
+    runs = (("cpu", torch.float64),) * on_cpu + (("cuda", torch.float64), ("cuda", torch.float32))
+    kernel_gwc, dcanet.gwc_volume = dcanet.gwc_volume, gwc_volume_reference
+    try:  # float64, and the card's f32 step with the plain gwc beside the kernel's
+        for dev, dtype in runs:
+            m = copy.deepcopy(model).to(dev, dtype)
+            metrics = train_step(create_train_state(m, lambda step: 1e-3, None),
+                                 {k: torch.from_numpy(v).to(dev, dtype) for k, v in batch.items()}, cfg)
+            grad = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).detach().double().cpu()
+                              .reshape(-1) for p in m.parameters()])
+            wide[dev, dtype] = ({k: float(v) for k, v in metrics.items()}, grad)
+    finally:
+        dcanet.gwc_volume = kernel_gwc
+    mg, gg = wide["cuda", torch.float64]
+    mc, gc = wide["cpu", torch.float64] if on_cpu else (mg, gg)
+    mp, gp = wide["cuda", torch.float32]
+    rel64 = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-300) for k in mc if k != "epe"}
+    grad64 = float((gg - gc).norm() / gc.norm())
+    exact_norm = float(gc.norm())
+    f32 = {dev: draw[dev, None][2].double() for dev in ("cpu", "cuda")}
+    own = float((f32["cpu"] - gc).norm())
+    card = float((f32["cuda"] - gc).norm())
+    norm_card = abs(draw["cuda", None][0]["grad_norm"] - mc["grad_norm"])
+    norm_cpu = abs(draw["cpu", None][0]["grad_norm"] - mc["grad_norm"])
+    plain, norm_plain = float((gp - gc).norm()), abs(mp["grad_norm"] - mc["grad_norm"])
+    log(f"[train parity] {tag}: "
+        + ("float64 steps, card (cuDNN, plain gwc) against CPU: " + ", ".join(f"{k} {v:.2e}" for k, v in rel64.items())
+           + f", whole gradient {grad64:.2e} (bounds: loss terms 1e-7, grad norm 1e-6, gradient 1e-7); "
+           if on_cpu else "the card's float64 step as the witness; ")
+        + f"the f32 steps against float64 (grad norm {mc['grad_norm']:.6f}): "
+        f"gradient card {card / exact_norm:.3e}, CPU {own / exact_norm:.3e} (relative L2; bound for the card: 2x the "
+        f"CPU's), grad norm card {norm_card / exact_norm:.3e}, CPU {norm_cpu / exact_norm:.3e} (relative; bound for "
+        f"the card: {MIDDLEBURY_F32_GRAD_NORM_BOUND:g}); the card's f32 step with the plain gwc in place of the "
+        f"kernels: gradient {plain / exact_norm:.3e}, grad norm {norm_plain / exact_norm:.3e}")
+    if (max(v for k, v in rel64.items() if k != "grad_norm") > 1e-7 or rel64["grad_norm"] > 1e-6 or grad64 > 1e-7
+            or card > 2 * own or norm_card > MIDDLEBURY_F32_GRAD_NORM_BOUND * exact_norm):
+        raise AssertionError(f"[train parity] {tag}: the card's step disagrees with the float64 witness")
+    return dict(rel64=rel64 if on_cpu else None, grad64=grad64 if on_cpu else None,
+                f32_grad=(card / exact_norm, own / exact_norm),
+                f32_grad_norm=(norm_card / exact_norm, norm_cpu / exact_norm),
+                f32_plain_gwc=(plain / exact_norm, norm_plain / exact_norm))
+
+
+def _bf16_step_parity(draws: list, tag: str, scalar_bound: float = 1.0, size: str = "1x3x64x128") -> dict:
     """The GPU bf16 step against the CPU bf16 step (phase_train_parity): the
     scalars on every draw, within `scalar_bound` times the CPU's own
     distance; the rest on the first draw, within 1x. Logs each draw's
@@ -1778,7 +1923,7 @@ def _bf16_step_parity(draws: list, tag: str, scalar_bound: float = 1.0) -> dict:
     def scalar_rel(r, a, b):
         return {k: abs(r[a][0][k] - r[b][0][k]) / abs(r[b][0][k]) for k in losses}
 
-    losses = ("total", "focal", "smooth_l1", "epe")
+    losses = tuple(k for k in ("total", "focal", "smooth_l1", "epe") if k in mf)  # the smooth-L1 preset has no focal
     own = [scalar_rel(r, ("cpu", bf16), ("cpu", None)) for r in draws]
     crosses = [scalar_rel(r, ("cuda", bf16), ("cpu", bf16)) for r in draws]
     for i, r in enumerate(draws):
@@ -1791,7 +1936,7 @@ def _bf16_step_parity(draws: list, tag: str, scalar_bound: float = 1.0) -> dict:
     grad_cross, grad_own = rel_l2(ggb, gb), rel_l2(gf, gb)
     stat_cross, stat_own = rel_l2(cat(sgb), cat(sb)), rel_l2(cat(sf), cat(sb))
     norm_cross, norm_bound = abs(mgb["grad_norm"] - mb["grad_norm"]), float((gf - gb).norm())
-    log(f"[train parity] {tag}: GPU vs CPU bf16 train step, 1x3x64x128: loss {mgb['total']:.6f} vs {mb['total']:.6f} "
+    log(f"[train parity] {tag}: GPU vs CPU bf16 train step, {size}: loss {mgb['total']:.6f} vs {mb['total']:.6f} "
         f"(CPU f32 {mf['total']:.6f}), grad norm {mgb['grad_norm']:.6f} vs {mb['grad_norm']:.6f} (f32 "
         f"{mf['grad_norm']:.6f}); relative, the largest over {len(draws)} draw(s): "
         + ", ".join(f"{k} {v:.3e}" for k, v in cross.items())
@@ -1808,7 +1953,7 @@ def _bf16_step_parity(draws: list, tag: str, scalar_bound: float = 1.0) -> dict:
                 grad=(grad_cross, grad_own), stats=(stat_cross, stat_own), grad_norm=(norm_cross, norm_bound))
 
 
-def _eval_reference(model, ds, bf16: bool, maxdisp: int = 192):
+def _eval_reference(model, ds, bf16: bool, maxdisp: int = 192, protocol: str = "kitti"):
     """The eval command's numbers from direct model calls on the same
     transformed pairs: EPE, D1 and >1/2/3 px with numpy (float32 errors,
     float64 means), the per-image skip rule, the means weighted by the
@@ -1819,7 +1964,7 @@ def _eval_reference(model, ds, bf16: bool, maxdisp: int = 192):
 
     sums, kept, confusions = dict.fromkeys(("epe", "d1", "thres1", "thres2", "thres3"), 0.0), 0, None
     for i in range(len(ds)):
-        left, right, gt, pads = eval_transform(ds[i], "kitti")
+        left, right, gt, pads = eval_transform(ds[i], protocol)
         tl, tr = (torch.from_numpy(np.ascontiguousarray(x[None])).cuda() for x in (left, right))
         with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=bf16):
             out = model(tl, tr)
@@ -1862,10 +2007,10 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = prev
 
 
-def _eval_parts(model, ds, bf16: bool) -> dict:
-    """Where an eval pair's time goes: the host's decode and transform of a
-    pair (median over the pairs), and the forward alone on the first pair
-    (CUDA events, median of 5)."""
+def _eval_parts(model, ds, bf16: bool, protocol: str = "kitti") -> dict:
+    """Where an eval pair's time goes: the host's decode and transform of
+    each pair under `protocol` (and their median), and the forward alone on
+    the first pair (CUDA events, median of 5)."""
     import torch
 
     from dcanet_tpu_torch.data.eval_protocol import eval_transform
@@ -1873,15 +2018,15 @@ def _eval_parts(model, ds, bf16: bool) -> dict:
     host = []
     for i in range(len(ds)):
         t0 = time.perf_counter()
-        left, right, _, _ = eval_transform(ds[i], "kitti")
+        left, right, _, _ = eval_transform(ds[i], protocol)
         host.append(1e3 * (time.perf_counter() - t0))
-    tl, tr = (torch.from_numpy(np.ascontiguousarray(x[None])).cuda() for x in eval_transform(ds[0], "kitti")[:2])
+    tl, tr = (torch.from_numpy(np.ascontiguousarray(x[None])).cuda() for x in eval_transform(ds[0], protocol)[:2])
 
     def fwd():
         with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=bf16):
             return model(tl, tr)
 
-    return dict(host_ms=statistics.median(host), forward_ms=time_cuda(fwd, 5))
+    return dict(host_ms=statistics.median(host), host_ms_each=host, forward_ms=time_cuda(fwd, 5))
 
 
 def phase_eval(workdir: Path, train_logdir) -> dict:
@@ -3554,15 +3699,327 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
     return dict(runs=runs, remat_loss_rel=loss_rel, eval=evaluation, launches=launches, seconds=seconds)
 
 
-def _kitti12_worker(rank: int, port: int, root12: str, root15: str, dtype: str, remat: bool, out_path: str) -> None:
-    """The kitti preset's train step alone (`step_alone`) at batch
-    KITTI_BATCH (256x512 crops of kitti_mix) in one process: the median of
-    KITTI12_TIMED steps after KITTI12_WARMUP, pairs/s, the peak memory and,
-    without remat, what holds it (`memory_at_peak`: with remat, the
-    checkpointed backward under the allocator's history raised a SystemError
-    on the card); or, where the card runs out of memory, the allocator's
-    message, the peak reached before it and the allocation refused. No
-    other exception is caught."""
+def benchmark_trees(workdir: Path) -> tuple:
+    """The middlebury phase's procedural trees, written side by side
+    (`write_procedural_middlebury_tree`, `write_procedural_eth3d_tree`, the
+    seeds of BENCHMARK_SEEDS): MIDDLEBURY_TREE Middlebury scenes to train on
+    and MIDDLEBURY_VAL held out, full-resolution MiddEval3 frames, and
+    ETH3D_TREE ETH3D two-view frames; each tree written once under
+    `workdir`. Returns their roots."""
+    import concurrent.futures
+
+    from dcanet_tpu_torch.data.synthetic import write_procedural_eth3d_tree, write_procedural_middlebury_tree
+
+    t0 = time.perf_counter()
+    jobs = [(write_procedural_middlebury_tree, "middlebury_train", MIDDLEBURY_TREE, BENCHMARK_SEEDS[0]),
+            (write_procedural_middlebury_tree, "middlebury_val", MIDDLEBURY_VAL, BENCHMARK_SEEDS[1]),
+            (write_procedural_eth3d_tree, "eth3d_train", ETH3D_TREE, BENCHMARK_SEEDS[2])]
+    roots = tuple(workdir / f"{name}_seed{seed}_{n}" for _, name, n, seed in jobs)
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:  # the trees' worker pools side by side
+        for f in [pool.submit(writer, root, n, seed=seed) for (writer, _, n, seed), root in zip(jobs, roots)
+                  if not root.exists()]:
+            f.result()
+    log(f"[middlebury] procedural trees: {MIDDLEBURY_TREE} + {MIDDLEBURY_VAL} held-out Middlebury scenes at "
+        f"1988x2880 (seeds {BENCHMARK_SEEDS[0]}, {BENCHMARK_SEEDS[1]}), {ETH3D_TREE} ETH3D scenes at 489x941 (seed "
+        f"{BENCHMARK_SEEDS[2]}), {time.perf_counter() - t0:.1f} s")
+    return roots
+
+
+@contextlib.contextmanager
+def train_waits():
+    """Times what a `cmd_train` step can wait on besides the step itself, in
+    host seconds: for each pass of the loader, the wait for each batch that
+    `device_prefetch` pulls from it (it pulls batch j + 2 before it hands
+    over batch j, so three before the first step of a pass) and the wait for
+    its end (its decode pools shut down, before the step two from the end);
+    and each checkpoint save. Yields the record, filled as the
+    command runs: "loader" (a list of waits per pass), "loader_end" (one per
+    pass), "checkpoint" (one per save)."""
+    from dcanet_tpu_torch.data import loader as loader_module
+    from dcanet_tpu_torch.train.checkpoint import CheckpointManager
+
+    record = dict(loader=[], loader_end=[], checkpoint=[])
+    prefetch, save = loader_module.device_prefetch, CheckpointManager.save
+
+    def timed(iterable):
+        waits = []
+        record["loader"].append(waits)
+        it = iter(iterable)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                record["loader_end"].append(time.perf_counter() - t0)
+                return
+            waits.append(time.perf_counter() - t0)
+            yield batch
+
+    def timed_save(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return save(self, *args, **kwargs)
+        finally:
+            record["checkpoint"].append(time.perf_counter() - t0)
+
+    loader_module.device_prefetch = lambda iterator, *args, **kwargs: prefetch(timed(iterator), *args, **kwargs)
+    CheckpointManager.save = timed_save
+    try:
+        yield record
+    finally:
+        loader_module.device_prefetch, CheckpointManager.save = prefetch, save
+
+
+def _benchmark_train_run(tag: str, cfg, scenes: int) -> dict:
+    """`cmd_train` with `cfg` on the card: every metric finite, one gwc
+    forward and one backward launch per step, all of cfg.dtype (the counts
+    of this run), one checkpoint per epoch; ms/step on the host clock
+    between the steps' metric reads after TRAIN_WARMUP steps: the median of
+    the intervals inside an epoch (the steady state) and the mean of all
+    (epoch starts in); each epoch start's stall (its interval less the
+    steady median) beside what the command waited on there (`train_waits`:
+    the checkpoint save and the loader's first three batches of the new
+    pass); the loader's waits inside a pass (for batch 3 on, each before the
+    step two batches back, and its end); pairs/s at both; peak memory."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.data.datasets import PRESETS
+    from dcanet_tpu_torch.kernels import gwc
+
+    gwc.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with train_waits() as waits:
+        hist = cli.cmd_train(cfg, "cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = dict(gwc.LAUNCHES_BY_DTYPE), dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE)
+    steps, keys = len(hist), ("total", "smooth_l1", "grad_norm", "epe")
+    for rec in hist:
+        log(f"[middlebury] {tag}, step {rec['step']}: " + ", ".join(f"{k} {rec[k]:.4f}" for k in keys))
+    if steps != cfg.epochs * scenes // cfg.batch_size or not all(math.isfinite(r[k]) for r in hist for k in keys):
+        raise AssertionError(f"[middlebury] {tag}: {steps} steps or a metric not finite")
+    other = "float32" if cfg.dtype == "bfloat16" else "bfloat16"
+    if fwd != {cfg.dtype: steps, other: 0} or bwd != {cfg.dtype: steps, other: 0}:
+        raise AssertionError(f"[middlebury] {tag}: gwc launches by dtype: forward {fwd}, backward {bwd} in {steps} "
+                             "steps")
+    ckpts = sorted(q.name for q in (Path(cfg.logdir) / "ckpt").iterdir())
+    if len(ckpts) != cfg.epochs or len(waits["checkpoint"]) != cfg.epochs or len(waits["loader"]) != cfg.epochs:
+        raise AssertionError(f"[middlebury] {tag}: checkpoints {ckpts}, {len(waits['loader'])} loader passes; "
+                             "expected one of each per epoch")
+    pairs = list(zip(hist, hist[1:]))[TRAIN_WARMUP - 1:]
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in pairs]
+    steady = [t for t, (a, b) in zip(step_ms, pairs) if a["epoch"] == b["epoch"]]
+    ms, mean_ms = statistics.median(steady), statistics.mean(step_ms)
+    # each epoch start after the first: its interval, less the steady median, against what it waited on
+    starts = []
+    for a, b in zip(hist, hist[1:]):
+        if a["epoch"] != b["epoch"]:
+            e = b["epoch"]
+            starts.append(dict(epoch=e, stall_s=(b["time"] - a["time"]) - ms / 1e3,
+                               checkpoint_s=waits["checkpoint"][e - 1], first_batches_s=sum(waits["loader"][e][:3])))
+    in_epoch = [w for passes in waits["loader"] for w in passes[3:]]
+    crop = "x".join(map(str, PRESETS[cfg.dataset]["crop"]))
+    log(f"[middlebury] cmd_train --preset {cfg.dataset} --dtype {cfg.dtype} (maxdisp {cfg.maxdisp}, half_res "
+        f"{cfg.half_res}, {cfg.batch_size}x3x{crop} crops, {scenes} scenes): {steps} steps, gwc launches forward "
+        f"{fwd}, backward {bwd}; over steps {TRAIN_WARMUP}-{steps - 1}: steady median {ms:.3f} ms/step over "
+        f"{len(steady)} intervals inside an epoch (range {min(steady):.3f}-{max(steady):.3f}), mean "
+        f"{mean_ms:.3f} over all {len(step_ms)} (epoch starts in), {1e3 * cfg.batch_size / ms:.3f} / "
+        f"{1e3 * cfg.batch_size / mean_ms:.3f} pairs/s; peak memory {peak / 2**30:.4f} GiB; checkpoints {ckpts}; "
+        f"{gpu_line()}")
+    for s in starts:
+        log(f"[middlebury] {tag}, epoch {s['epoch']} starts: stall {s['stall_s']:.3f} s over the steady step; waited "
+            f"on the checkpoint save {s['checkpoint_s']:.3f} s and the loader's first three batches "
+            f"{s['first_batches_s']:.3f} s")
+    log(f"[middlebury] {tag}: the loader's waits inside a pass (batch 3 on): "
+        + (f"median {1e3 * statistics.median(in_epoch):.3f} ms, max {1e3 * max(in_epoch):.3f} ms over "
+           f"{len(in_epoch)} batches" if in_epoch else "none")
+        + f"; at each pass's end {', '.join(f'{1e3 * w:.3f}' for w in waits['loader_end'])} ms")
+    return dict(steps=steps, ms=ms, mean_ms=mean_ms, ms_range=[min(steady), max(steady)],
+                pairs_per_s=1e3 * cfg.batch_size / ms, pairs_per_s_mean=1e3 * cfg.batch_size / mean_ms,
+                epoch_starts=starts, loader_waits_ms=[[1e3 * w for w in p] for p in waits["loader"]],
+                loader_end_ms=[1e3 * w for w in waits["loader_end"]],
+                peak_bytes=peak, fwd=fwd, bwd=bwd, first_loss=hist[0]["total"], last_loss=hist[-1]["total"])
+
+
+def phase_middlebury(workdir: Path) -> dict:
+    """The ETH3D and Middlebury stages (the `middlebury` phase; see the module
+    docstring, phase 14): the trees (`benchmark_trees`); `cmd_train --preset
+    middlebury` (DCANet(num_cva=3, maxdisp=240), the scenes halved, the
+    320x704 crop, the smooth-L1 preset) in f32 and in bf16 for
+    MIDDLEBURY_EPOCHS epochs and `--preset eth3d` in bf16 for one
+    (`_benchmark_train_run`); the smooth-L1 step at maxdisp 240 on the card
+    against the CPU on MIDDLEBURY_PARITY_DRAWS Middlebury crops cut to
+    MIDDLEBURY_PARITY_CROP (`phase_train_parity`, phase 6's bounds but for
+    the f32 grad norm, held against a float64 step on each crop); then
+    `cli eval --preset middlebury` of the f32 run's newest checkpoint on the
+    held-out scenes in f32 and in bf16 (the BatchNorm folded): one gwc
+    launch of the run's dtype per pair, EPE, D1 and >1/2/3 px against direct
+    model calls with numpy formulas (rel 1e-5) and the class scores against
+    a numpy count of the same logits (exact), both under cuDNN's
+    deterministic algorithms; ms/pair and peak memory of the command run
+    again with cuDNN's defaults, and its parts (`_eval_parts`)."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.data.eval_protocol import eval_transform
+    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.models import DCANet
+    from dcanet_tpu_torch.train.checkpoint import checkpoint_step, latest_checkpoint
+    from dcanet_tpu_torch.train.metrics import segmentation_scores
+
+    t_phase = time.perf_counter()
+    mb_train, mb_val, eth3d = benchmark_trees(workdir)
+    marks = [("trees", time.perf_counter())]
+    maxdisp = preset("middlebury").maxdisp
+    halved = cli.build_dataset(preset("middlebury", data_root=str(mb_train)), training=False)
+    known = past = 0
+    for i in range(len(halved)):
+        gt = halved[i]["disparity"]
+        known, past = known + int((gt > 0).sum()), past + int((gt >= maxdisp).sum())
+    log(f"[middlebury] the training scenes halved: {past / known:.4%} of the known gt pixels at or past maxdisp "
+        f"{maxdisp} (masked by valid_mask)")
+    if not past:
+        raise AssertionError("[middlebury] no halved gt pixel past maxdisp: the mask's upper edge is not exercised")
+
+    runs = {}
+    for tag, name, root, dtype, epochs, scenes in (
+            ("middlebury f32", "middlebury", mb_train, "float32", MIDDLEBURY_EPOCHS, MIDDLEBURY_TREE),
+            ("middlebury bf16", "middlebury", mb_train, "bfloat16", MIDDLEBURY_EPOCHS, MIDDLEBURY_TREE),
+            ("eth3d bf16", "eth3d", eth3d, "bfloat16", 1, ETH3D_TREE)):
+        cfg = preset(name, data_root=str(root), dtype=dtype, logdir=str(workdir / f"{name}_run_{dtype}"),
+                     epochs=epochs, print_freq=1, seed=SEED)
+        runs[tag] = _benchmark_train_run(tag, cfg, scenes)
+    marks.append(("cmd_train runs", time.perf_counter()))
+
+    ds = cli.build_dataset(preset("middlebury", data_root=str(mb_train)), training=True)
+    ds.cfg = dict(ds.cfg, crop=MIDDLEBURY_PARITY_CROP)
+    draws = []
+    for i in range(MIDDLEBURY_PARITY_DRAWS):
+        ds.reseed(i)
+        draws.append({k: v[None] for k, v in ds[i % len(ds)].items()})
+    parity = phase_train_parity(loss_preset="smooth_l1", maxdisp=maxdisp, batches=draws, float64_witness=True)
+    marks.append(("parity", time.perf_counter()))
+
+    # cli eval on the held-out scenes, f32 and bf16
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpt = workdir / "middlebury_run_float32" / "ckpt"
+    newest = latest_checkpoint(ckpt)
+    model = DCANet(maxdisp=maxdisp, num_cva=3)
+    model.load_state_dict(torch.load(newest, map_location="cpu", weights_only=True)["model"], strict=True)
+    model = model.cuda().eval()
+    val = cli.build_dataset(preset("middlebury", data_root=str(mb_val)), training=False)
+
+    def run_eval(dtype, logdir):
+        """One eval command; its results, its peak memory above the memory
+        held before it and its gwc launches by dtype."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gwc.reset_launch_counts()
+        got = cli.main(["eval", "--preset", "middlebury", "--data-root", str(mb_val), "--logdir", str(logdir),
+                        "--dtype", dtype, "--ckpt", str(ckpt), "--device", "cuda"])
+        launches = dict(gwc.LAUNCHES_BY_DTYPE)
+        other = "float32" if dtype == "bfloat16" else "bfloat16"
+        if launches != {dtype: MIDDLEBURY_VAL, other: 0}:
+            raise AssertionError(f"[middlebury eval] gwc launches {launches} for {MIDDLEBURY_VAL} pairs in {dtype}")
+        return got, torch.cuda.max_memory_allocated() - base, launches[dtype]
+
+    evaluation, eval_launches = {}, 0
+    first = val[0]
+    shape = tuple(eval_transform(first, "middlebury")[0].shape)
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        with cudnn_deterministic():
+            got, _, n = run_eval(dtype, workdir / f"middlebury_eval_{tag}")
+            want, kept, confusions = _eval_reference(model, val, dtype == "bfloat16", maxdisp, "middlebury")
+        eval_launches += n
+        rel = {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()}
+        log(f"[middlebury eval {tag}] metrics " + ", ".join(
+            f"{k} {got[k]:.6f} (direct {want[k]:.6f}, rel {rel[k]:.1e})" for k in want) + f" over {kept} kept "
+            "pairs (tolerance rel 1e-5)")
+        if kept != MIDDLEBURY_VAL or max(rel.values()) > 1e-5:
+            raise AssertionError(f"[middlebury eval {tag}] {kept} pairs kept, or the metrics disagree with the direct "
+                                 f"model calls: {rel}")
+        for vi, conf in enumerate(confusions):
+            scores = segmentation_scores(torch.from_numpy(conf).float().cuda())
+            wrong = {k: (got[f"vol{vi + 1}/{k}"], float(v)) for k, v in scores.items()
+                     if got[f"vol{vi + 1}/{k}"] != float(v)}
+            if wrong:
+                raise AssertionError(f"[middlebury eval {tag}] vol{vi + 1} scores differ from the numpy count: {wrong}")
+        log(f"[middlebury eval {tag}] the class scores of {len(confusions)} volumes equal a numpy count of the same "
+            "logits")
+        timed, peak, n = run_eval(dtype, workdir / f"middlebury_eval_{tag}_timed")
+        eval_launches += n
+        moved = {k: abs(timed[k] - got[k]) / max(abs(got[k]), 1e-12) for k in want}
+        if max(moved.values()) > 1e-3:
+            raise AssertionError(f"[middlebury eval {tag}] the run with cuDNN's defaults moved the metrics: {moved}")
+        parts = _eval_parts(model, val, dtype == "bfloat16", "middlebury")
+        evaluation[tag] = dict(ms_per_pair=timed["ms_per_pair"], pairs_per_s=timed["pairs_per_s"], peak_bytes=peak,
+                               metrics={k: got[k] for k in want}, miou=got["miou"], mpa=got["mpa"], **parts)
+        log(f"[middlebury eval {tag}] cli eval --preset middlebury, DCANet(num_cva=3, maxdisp={maxdisp}), checkpoint "
+            f"step {checkpoint_step(newest)}, {MIDDLEBURY_VAL} held-out scenes halved to {first['disparity'].shape} "
+            f"and padded to {shape[1:]}: {timed['ms_per_pair']:.3f} ms/pair (host clock, pair 2: decode, halve, "
+            f"transform, forward, metrics), peak memory {peak / 2**30:.4f} GiB above the memory held before; EPE "
+            f"{got['epe']:.4f} px, D1 {got['d1']:.5f}; {gpu_line()}")
+        log(f"[middlebury eval {tag}] parts: decode, halve and transform of each held-out pair "
+            + ", ".join(f"{t:.3f}" for t in parts["host_ms_each"]) + f" ms (host), the forward alone "
+            f"{parts['forward_ms']:.3f} ms (CUDA events, median of 5)")
+    launches = dict(middlebury_train_fwd=sum(runs[t]["fwd"][d] for t, d in (("middlebury f32", "float32"),
+                                                                           ("middlebury bf16", "bfloat16"))),
+                    middlebury_train_bwd=sum(runs[t]["bwd"][d] for t, d in (("middlebury f32", "float32"),
+                                                                           ("middlebury bf16", "bfloat16"))),
+                    eth3d_train_fwd=runs["eth3d bf16"]["fwd"]["bfloat16"],
+                    eth3d_train_bwd=runs["eth3d bf16"]["bwd"]["bfloat16"], middlebury_eval=eval_launches)
+    marks.append(("cli eval", time.perf_counter()))
+    seconds = time.perf_counter() - t_phase
+    log(f"[middlebury] the phase took {seconds:.1f} s: " + ", ".join(
+        f"{name} {t - t_prev:.1f} s" for (name, t), t_prev in zip(marks, [t_phase] + [t for _, t in marks])))
+    return dict(runs=runs, parity=parity, eval=evaluation, eval_shape=list(shape), launches=launches,
+                seconds=seconds)
+
+
+def phase_middlebury_step(workdir: Path, out_path: Path) -> dict:
+    """The Middlebury step alone at batch 1 (320x704 crops of the halved
+    scenes) for {f32, bf16} x {remat, none} (manual: `--phases
+    middlebury_step`), each in a process of its own (`steps_alone`); then
+    `cmd_train --preset middlebury` at an epoch of MiddEval3's training-set
+    size (MIDDLEBURY_EPOCH_SCENES procedural scenes, batch 1) for
+    MIDDLEBURY_EPOCH_RUN epochs in f32 and bf16 (`_benchmark_train_run`: the
+    steady ms/step beside the step alone, each epoch start's stall and what
+    it waited on); writes the results to `out_path`."""
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.data.synthetic import write_procedural_middlebury_tree
+
+    mb_train, _, _ = benchmark_trees(workdir)
+    out = steps_alone("middlebury_step", "middlebury", (mb_train, None), 1, workdir, out_path, (320, 704))
+    t0 = time.perf_counter()
+    root = write_procedural_middlebury_tree(workdir / "middlebury_epoch", MIDDLEBURY_EPOCH_SCENES,
+                                            seed=MIDDLEBURY_EPOCH_SEED)
+    log(f"[middlebury_step] procedural tree: {MIDDLEBURY_EPOCH_SCENES} Middlebury scenes at 1988x2880 (seed "
+        f"{MIDDLEBURY_EPOCH_SEED}), {time.perf_counter() - t0:.1f} s")
+    out["epoch_runs"] = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = preset("middlebury", data_root=str(root), dtype=dtype, logdir=str(workdir / f"middlebury_epoch_{dtype}"),
+                     epochs=MIDDLEBURY_EPOCH_RUN, print_freq=1, seed=SEED)
+        out["epoch_runs"][dtype] = _benchmark_train_run(f"middlebury {dtype}, epoch of {MIDDLEBURY_EPOCH_SCENES}",
+                                                        cfg, MIDDLEBURY_EPOCH_SCENES)
+    out_path.write_text(json.dumps(out, indent=2))
+    log(f"[middlebury_step] epoch runs: {json.dumps(out['epoch_runs'])}")
+    return out
+
+
+def _step_alone_worker(rank: int, port: int, name: str, root: str, root2: str, batch_size: int, dtype: str,
+                       remat: bool, out_path: str) -> None:
+    """The train step alone (`step_alone`) of the `name` preset at batch
+    `batch_size` (crops of the preset's training set under `root` and
+    `root2`) in one process: the median of STEP_ALONE_TIMED steps after
+    STEP_ALONE_WARMUP, pairs/s, the peak memory and, without remat, what
+    holds it (`memory_at_peak`: with remat, the checkpointed backward under
+    the allocator's history raised a SystemError on the card); or, where
+    the card runs out of memory, the allocator's message, the peak reached
+    before it and the allocation refused. No other exception is caught."""
     import re
 
     import torch
@@ -3571,17 +4028,17 @@ def _kitti12_worker(rank: int, port: int, root12: str, root15: str, dtype: str, 
     from dcanet_tpu_torch.config import preset
     from dcanet_tpu_torch.train.loop import LossConfig
 
-    cfg = preset("kitti", data_root=root12, data_root2=root15, seed=SEED, dtype=dtype, remat=remat)
+    cfg = preset(name, data_root=root, data_root2=root2, seed=SEED, dtype=dtype, remat=remat)
     ds = cli.build_dataset(cfg, training=True)
-    samples = [ds[i] for i in range(KITTI_BATCH)]
+    samples = [ds[i % len(ds)] for i in range(batch_size)]
     batch = {k: torch.from_numpy(np.stack([x[k] for x in samples])).cuda() for k in samples[0]}
     if dtype == "float32":  # as `cli train` runs it
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    loss_cfg = LossConfig(max_disp=cfg.maxdisp, sparse=True, preset="kitti")
-    result = dict(dtype=dtype, remat=remat, batch=KITTI_BATCH)
+    loss_cfg = LossConfig(max_disp=cfg.maxdisp, sparse=cfg.sparse_gt, preset=cfg.loss_preset)
+    result = dict(dtype=dtype, remat=remat, batch=batch_size)
     try:
-        result.update(step_alone(cfg, batch, loss_cfg, KITTI12_WARMUP + KITTI12_TIMED, KITTI12_WARMUP,
+        result.update(step_alone(cfg, batch, loss_cfg, STEP_ALONE_WARMUP + STEP_ALONE_TIMED, STEP_ALONE_WARMUP,
                                  at_peak=not remat))
     except torch.cuda.OutOfMemoryError as e:
         msg = str(e)
@@ -3592,39 +4049,46 @@ def _kitti12_worker(rank: int, port: int, root12: str, root15: str, dtype: str, 
     torch.save(result, out_path)
 
 
-def phase_kitti12(workdir: Path, out_path: Path) -> dict:
-    """The KITTI step alone at batch KITTI_BATCH for {f32, bf16} x {remat,
-    none} (manual: `--phases kitti12`), each in a process of its own
-    (`_kitti12_worker`): ms/step, pairs/s, the peak and its largest blocks,
-    or "oom" with the allocator's message and the need reckoned from the
-    peak before it plus the allocation refused. Writes the results to
-    `out_path`."""
-    k12, k15, _ = kitti_trees(workdir, KITTI_TREE, 0)
+def steps_alone(tag: str, name: str, roots: tuple, batch_size: int, workdir: Path, out_path: Path, crop) -> dict:
+    """The `name` preset's step alone (`_step_alone_worker`) at batch
+    `batch_size` for {f32, bf16} x {remat, none}, each in a process of its
+    own: ms/step, pairs/s, the peak and its largest blocks, or "oom" with
+    the allocator's message and the need reckoned from the peak before it
+    plus the allocation refused. Writes the results to `out_path`."""
     results = {}
     for dtype in ("float32", "bfloat16"):
         for remat in (False, True):
-            tag = f"{dtype}{' remat' if remat else ''}"
-            (r,), wall = run_workers(f"kitti12_{dtype}_{remat}", _kitti12_worker, 1,
-                                     (str(k12), str(k15), dtype, remat), workdir, KITTI12_TIMEOUT_S)
-            results[tag] = r
+            key = f"{dtype}{' remat' if remat else ''}"
+            (r,), wall = run_workers(f"{tag}_{dtype}_{remat}", _step_alone_worker, 1,
+                                     (name, str(roots[0]), str(roots[1]) if roots[1] else "", batch_size, dtype,
+                                      remat), workdir, STEP_ALONE_TIMEOUT_S)
+            results[key] = r
             if "oom" in r:
-                log(f"[kitti12] {tag}, batch {KITTI_BATCH}: oom; peak before it "
+                log(f"[{tag}] {key}, batch {batch_size}: oom; peak before it "
                     f"{r['peak_bytes_before_oom'] / 2**30:.4f} GiB, refused {r['refused_bytes'] / 2**30:.4f} GiB, "
                     f"reckoned need at least {r['reckoned_need_bytes'] / 2**30:.4f} GiB; the allocator: {r['oom']}")
                 continue
             if not all(math.isfinite(x) for x in r["losses"]):
-                raise AssertionError(f"[kitti12] {tag}: a loss is not finite: {r['losses']}")
-            log(f"[kitti12] {tag}, batch {KITTI_BATCH}x3x256x512, the step alone: median {r['ms']:.3f} ms over "
-                f"{KITTI12_TIMED} steps (range {r['ms_range'][0]:.3f}-{r['ms_range'][1]:.3f}), {r['pairs_per_s']:.3f} "
-                f"pairs/s, peak {r['peak_bytes'] / 2**30:.4f} GiB (held before the first step "
+                raise AssertionError(f"[{tag}] {key}: a loss is not finite: {r['losses']}")
+            log(f"[{tag}] {key}, batch {batch_size}x3x{crop[0]}x{crop[1]}, the step alone: median {r['ms']:.3f} ms "
+                f"over {STEP_ALONE_TIMED} steps (range {r['ms_range'][0]:.3f}-{r['ms_range'][1]:.3f}), "
+                f"{r['pairs_per_s']:.3f} pairs/s, peak {r['peak_bytes'] / 2**30:.4f} GiB (held before the first step "
                 f"{r['before_bytes'] / 2**30:.4f}), process {wall:.1f} s")
             for size, site in r.get("at_peak", {}).get("largest", [])[:4]:
-                log(f"[kitti12]   largest block at the peak: {size / 2**20:10.1f} MiB {site}")
-    out = {"card": gpu_line(), "batch": KITTI_BATCH, "crop": [256, 512], "results": results}
+                log(f"[{tag}]   largest block at the peak: {size / 2**20:10.1f} MiB {site}")
+    out = {"card": gpu_line(), "preset": name, "batch": batch_size, "crop": list(crop), "results": results}
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(out, indent=2))
-    log(f"[kitti12] summary: {json.dumps(out)}")
+    log(f"[{tag}] summary: {json.dumps(out)}")
     return out
+
+
+def phase_kitti12(workdir: Path, out_path: Path) -> dict:
+    """The KITTI step alone at batch KITTI_BATCH for {f32, bf16} x {remat,
+    none} (manual: `--phases kitti12`), each in a process of its own
+    (`steps_alone`); writes the results to `out_path`."""
+    k12, k15, _ = kitti_trees(workdir, KITTI_TREE, 0)
+    return steps_alone("kitti12", "kitti", (k12, k15), KITTI_BATCH, workdir, out_path, (256, 512))
 
 
 def phase_finetune(workdir: Path, out_dir: Path) -> dict:
@@ -3664,8 +4128,9 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
 
 
 PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp",
-          "disp_train", "kitti")
-MANUAL_PHASES = {"cards", "curve", "kitti12", "finetune"}  # measurements that the default run never starts
+          "disp_train", "kitti", "middlebury")
+# measurements that the default run never starts
+MANUAL_PHASES = {"cards", "curve", "kitti12", "finetune", "middlebury_step"}
 
 
 def main(argv=None) -> int:
@@ -3674,8 +4139,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of %(default)s to run after the build, or a manual "
                          "measurement: `cards` (two or more cards: `cli train` across them), `curve` (the "
                          "training curve, ~30 min), `kitti12` (the KITTI step alone at batch 12, f32 / bf16 x "
-                         "remat / none) or `finetune` (the curve, then the KITTI fine-tune leg, ~35 min); the "
-                         "summary lines are printed only when all of the default run")
+                         "remat / none), `finetune` (the curve, then the KITTI fine-tune leg, ~35 min) or "
+                         "`middlebury_step` (the Middlebury step alone, f32 / bf16 x remat / none); the summary "
+                         "lines are printed only when all of the default run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES) | MANUAL_PHASES:
@@ -3724,6 +4190,8 @@ def main(argv=None) -> int:
             phase_cards(Path(tmp), flat)
         if "kitti" in phases:
             kitti = phase_kitti(Path(tmp), Path(tmp) / "run" if "train" in phases else None)
+        if "middlebury" in phases:
+            middlebury = phase_middlebury(Path(tmp))
         out_dir = Path(__file__).resolve().parent / "chiprun_out"
         if "curve" in phases:
             phase_curve(Path(tmp), out_dir / "traincurve.json")
@@ -3731,6 +4199,8 @@ def main(argv=None) -> int:
             phase_kitti12(Path(tmp), out_dir / "kitti12.json")
         if "finetune" in phases:
             phase_finetune(Path(tmp), out_dir)
+        if "middlebury_step" in phases:
+            phase_middlebury_step(Path(tmp), out_dir / "middlebury_step.json")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)}; no summary for a subset")
@@ -3751,6 +4221,9 @@ def main(argv=None) -> int:
              "disp_train": sum(f for f, _ in disp_train["launches"]),
              "disp_train_one_process": disp_train["one_launches"][0],
              "kitti_train": kitti["launches"]["train_fwd"], "kitti_eval": kitti["launches"]["eval"],
+             "middlebury_train": middlebury["launches"]["middlebury_train_fwd"],
+             "eth3d_train": middlebury["launches"]["eth3d_train_fwd"],
+             "middlebury_eval": middlebury["launches"]["middlebury_eval"],
              **{k: v for k, v in family["launches"].items() if not k.startswith("family_train_backward")}},
             errs["gwc"]["main f32"],
             gwc_t["f32"],
@@ -3768,6 +4241,18 @@ def main(argv=None) -> int:
                              "float32": {"max_abs_err": errs["gwc"]["train b12 f32"], **gwc_t["train b12 f32"]},
                              "bfloat16": {"max_abs_err": errs["gwc"]["train b12 bf16"], **gwc_t["train b12 bf16"],
                                           "launches": kitti["launches"]["train_fwd"]}},
+            # the middlebury phase's launches at D = 60: its train crops (f32 and
+            # bf16 runs) and its eval pairs (f32 and bf16, two runs each)
+            middlebury_train_shape={
+                "features": list(MIDDLEBURY_SHAPE), "maxdisp": MIDDLEBURY_D,
+                "launches": middlebury["launches"]["middlebury_train_fwd"],
+                "float32": {"max_abs_err": errs["gwc"]["middlebury train f32"], **gwc_t["middlebury train f32"]},
+                "bfloat16": {"max_abs_err": errs["gwc"]["middlebury train bf16"], **gwc_t["middlebury train bf16"]}},
+            middlebury_eval_shape={
+                "features": list(MIDDLEBURY_EVAL_FEATURES), "maxdisp": MIDDLEBURY_D,
+                "launches": middlebury["launches"]["middlebury_eval"],
+                "float32": {"max_abs_err": errs["gwc"]["middlebury eval f32"], **gwc_t["middlebury eval f32"]},
+                "bfloat16": {"max_abs_err": errs["gwc"]["middlebury eval bf16"], **gwc_t["middlebury eval bf16"]}},
             kitti_eval_shape={"features": list(KITTI_EVAL_SHAPE),
                               "float32": {"max_abs_err": errs["gwc"]["kitti eval f32"], **gwc_t["kitti eval f32"]},
                               "bfloat16": {"max_abs_err": errs["gwc"]["kitti eval bf16"],
@@ -3784,6 +4269,8 @@ def main(argv=None) -> int:
                            "parallel_train": sum(b for _, b in parallel["launches"]),
                            "disp_train_one_process": disp_train["one_launches"][1],
                            "kitti_train": kitti["launches"]["train_bwd"],
+                           "middlebury_train": middlebury["launches"]["middlebury_train_bwd"],
+                           "eth3d_train": middlebury["launches"]["eth3d_train_bwd"],
                            **{k.replace("_backward", ""): v for k, v in family["launches"].items()
                               if k.startswith("family_train_backward")}},
             errs["gwc_bwd"]["train f32"], bwd_t["f32"],
@@ -3798,6 +4285,7 @@ def main(argv=None) -> int:
                              "bfloat16": {"max_abs_err": errs["gwc_bwd"]["train b12 bf16"], **bwd_t["train b12 bf16"],
                                           "launches": kitti["launches"]["train_bwd"]}},
             middlebury_shape={"features": list(MIDDLEBURY_SHAPE), "maxdisp": MIDDLEBURY_D,
+                              "launches": middlebury["launches"]["middlebury_train_bwd"],
                               "float32": {"max_abs_err": errs["gwc_bwd"]["middlebury f32"], **bwd_t["middlebury f32"]},
                               "bfloat16": {"max_abs_err": errs["gwc_bwd"]["middlebury bf16"],
                                            **bwd_t["middlebury bf16"]}},
@@ -3843,6 +4331,7 @@ def main(argv=None) -> int:
     log("[disp] summary: " + json.dumps(disp))
     log("[disp_train] summary: " + json.dumps(disp_train))
     log("[kitti] summary: " + json.dumps(kitti))
+    log("[middlebury] summary: " + json.dumps(middlebury))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

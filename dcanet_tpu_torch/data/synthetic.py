@@ -1,4 +1,4 @@
-"""Synthetic datasets in the SceneFlow, KITTI 2015 and ETH3D layouts, drawn from a seed:
+"""Synthetic datasets in the SceneFlow, KITTI, ETH3D and Middlebury layouts, drawn from a seed:
 
   SceneFlow   <root>/frames_finalpass/<split>/A/<seq>/{left,right}/<frame>.png
               <root>/frames_disparity/<split>/A/<seq>/left/<frame>.pfm
@@ -40,6 +40,14 @@ scene i from the seed seed * 1_000_000 + i, its gt sparse as a LiDAR's
 whose match lies outside the right view), uint16 disparity x 256; the JAX
 package's fine-tune leg ran on 120 + 120 such scenes at 376x1248 and scored
 24 more (TRAINCURVE.md, FINETUNE.json).
+`write_procedural_eth3d_tree` and `write_procedural_middlebury_tree` write
+them in the two benchmarks' layout, `<root>/scene<index:04d>/{im0.png,
+im1.png, disp0GT.pfm}` (what `data/datasets.py::scan_eth3d` and
+`scan_middlebury` read), scene i from the seed seed * 1_000_000 + i, at an
+ETH3D two-view frame's 489x941 and a full-resolution MiddEval3 frame's
+1988x2880 by default, each with its benchmark's disparity range
+(`BENCHMARK_LAYOUTS`), the gt inf where it is unknown, as theirs is
+(`unknown_as_inf`).
 """
 
 from __future__ import annotations
@@ -162,9 +170,10 @@ def _resize_bilinear(a: np.ndarray, h: int, w: int) -> np.ndarray:
     x1 = np.minimum(x0 + 1, gw - 1)
     fy = (ys - y0)[:, None, None]
     fx = (xs - x0)[None, :, None]
-    top = a[y0][:, x0] * (1 - fx) + a[y0][:, x1] * fx
-    bot = a[y1][:, x0] * (1 - fx) + a[y1][:, x1] * fx
-    return top * (1 - fy) + bot * fy
+    # each grid row interpolated along x once: rows[y0] holds, element for
+    # element, the same products and sums as the interpolation of a[y0]
+    rows = a[:, x0] * (1 - fx) + a[:, x1] * fx
+    return rows[y0] * (1 - fy) + rows[y1] * fy
 
 
 def _value_noise(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -264,10 +273,37 @@ def kitti_sparse_gt(disp: np.ndarray, scene_seed: int) -> np.ndarray:
     return np.where(valid, np.clip(disp * 256.0, 1, 65535), 0).astype(np.uint16)
 
 
+# layout -> (full-resolution disparity range of its scenes, share of pixels
+# without gt): ETH3D's two-view frames (~490x940, disparities up to ~60,
+# sparse laser gt), Middlebury MiddEval3's full-resolution frames (~2000x2900,
+# ndisp up to ~800; training halves them, so the upper part lies past the
+# preset's maxdisp 240)
+BENCHMARK_LAYOUTS = {"eth3d": ((2.0, 64.0), 0.1), "middlebury": ((40.0, 640.0), 0.05)}
+
+
+def unknown_as_inf(disp: np.ndarray, scene_seed: int, share: float) -> np.ndarray:
+    """A scene's disparity as ETH3D's and Middlebury's PFM gt: inf where it is
+    unknown, which is where the match lies outside the right view (x < d)
+    and at a random `share` of the pixels (drawn from `scene_seed + 777`)."""
+    rng = np.random.default_rng(scene_seed + 777)
+    xs = np.arange(disp.shape[1])[None, :]
+    unknown = (rng.random(disp.shape) < share) | (xs < disp)
+    return np.where(unknown, np.inf, disp).astype(np.float32)
+
+
 def _write_procedural_scene(job) -> None:
     """job: (root, a split of the SceneFlow layout or a KITTI layout, index,
-    (h, w), scene seed)."""
-    root, split, index, (h, w), scene_seed = job
+    (h, w), scene seed), or (root, a layout of BENCHMARK_LAYOUTS, index,
+    (h, w), scene seed, (dmin, dmax))."""
+    root, split, index, (h, w), scene_seed, *drange = job
+    if split in BENCHMARK_LAYOUTS:
+        left, right, disp = procedural_scene(scene_seed, h, w, *drange[0])
+        scene = Path(root) / f"scene{index:04d}"
+        os.makedirs(scene, exist_ok=True)
+        write_png(scene / "im0.png", left)
+        write_png(scene / "im1.png", right)
+        write_pfm(scene / "disp0GT.pfm", unknown_as_inf(disp, scene_seed, BENCHMARK_LAYOUTS[split][1]))
+        return
     left, right, disp = procedural_scene(scene_seed, h, w)
     if split in KITTI_LAYOUTS:
         dirs = [Path(root) / d for d in KITTI_LAYOUTS[split]]
@@ -291,12 +327,15 @@ def _write_scenes(jobs, workers: Optional[int]) -> None:
     """Each job over `workers` spawned processes (default: the host's cores,
     at most 16; 1 writes in this process)."""
     workers = min(os.cpu_count() or 1, 16) if workers is None else workers
-    if workers <= 1:
+    if workers <= 1 or len(jobs) <= 1:
         for job in jobs:
             _write_procedural_scene(job)
         return
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        for _ in pool.imap_unordered(_write_procedural_scene, jobs, chunksize=4):
+    # chunks of up to 4 jobs, at least 4 chunks a worker where there are
+    # enough jobs: a few large scenes go one to a process
+    chunk = min(4, max(1, len(jobs) // (4 * workers)))
+    with multiprocessing.get_context("spawn").Pool(min(workers, len(jobs))) as pool:
+        for _ in pool.imap_unordered(_write_procedural_scene, jobs, chunksize=chunk):
             pass
 
 
@@ -327,3 +366,38 @@ def write_procedural_kitti_tree(
     root = Path(root)
     _write_scenes([(str(root), layout, i, tuple(hw), procedural_seed(seed, "TRAIN", i)) for i in range(n)], workers)
     return root
+
+
+def _write_procedural_benchmark_tree(root, layout, n, hw, seed, workers, disp_range) -> Path:
+    root = Path(root)
+    drange = tuple(disp_range or BENCHMARK_LAYOUTS[layout][0])
+    _write_scenes([(str(root), layout, i, tuple(hw), procedural_seed(seed, "TRAIN", i), drange) for i in range(n)],
+                  workers)
+    return root
+
+
+def write_procedural_eth3d_tree(
+    root: Union[str, Path], n: int, hw: Tuple[int, int] = (489, 941), seed: int = 0,
+    workers: Optional[int] = None, disp_range: Optional[Tuple[float, float]] = None,
+) -> Path:
+    """Write `n` procedural scenes of size `hw` (an ETH3D two-view frame's)
+    under `root` in the ETH3D layout, `<root>/scene<index:04d>/{im0.png,
+    im1.png, disp0GT.pfm}`, scene i from the seed seed * 1_000_000 + i, its
+    disparities in `disp_range` (default BENCHMARK_LAYOUTS["eth3d"]'s), its
+    gt inf where unknown (`unknown_as_inf`), over `workers` spawned
+    processes (as `write_procedural_sceneflow_tree`); returns `root`."""
+    return _write_procedural_benchmark_tree(root, "eth3d", n, hw, seed, workers, disp_range)
+
+
+def write_procedural_middlebury_tree(
+    root: Union[str, Path], n: int, hw: Tuple[int, int] = (1988, 2880), seed: int = 0,
+    workers: Optional[int] = None, disp_range: Optional[Tuple[float, float]] = None,
+) -> Path:
+    """Write `n` procedural scenes of size `hw` (a full-resolution MiddEval3
+    frame's) under `root` in the Middlebury layout, the ETH3D one's
+    (`<root>/scene<index:04d>/{im0.png, im1.png, disp0GT.pfm}`), with
+    full-resolution disparities in `disp_range` (default
+    BENCHMARK_LAYOUTS["middlebury"]'s: halved, the upper part lies past the
+    preset's maxdisp 240), as `write_procedural_eth3d_tree`; returns
+    `root`."""
+    return _write_procedural_benchmark_tree(root, "middlebury", n, hw, seed, workers, disp_range)
