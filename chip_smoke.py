@@ -22,15 +22,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain version's range backward with NaN at the occluded grad entries:
      [0, 24), [24, 48), [16, 32) and [0, 48) of the train shape, [54, 60)
      and [0, 8) of the Middlebury train shape, a range across W and one
-     past it, each timed beside its bound), TF32
+     past it, each timed beside its bound; forward and backward also over
+     the planes of the disparity-sharded Middlebury train step's ranks at
+     its train shape, [0, 30) and [30, 60) (2 ranks), [0, 16), [16, 32),
+     [32, 46) and [46, 60) (4 ranks), each timed, with the shared memory
+     each backward range asks for a block held to the card's limit), TF32
      off: the gwc volume, its backward (against autograd through the plain
      version), conv3d (with scale, bias and ReLU) and conv3d_fast's
      backward; CUDA-event times of kernel, plain version and, for conv3d,
      F.conv3d (cuDNN) beside the card's bound for the same work (the gwc
      forward also at the train shape, at batch 1, at the bf16 train leg's
-     batch 4 and at the KITTI preset's batch 12, and at the KITTI eval
-     shape, the backward at the train shape at batch 1, 4 and 12 and at
-     the Middlebury shape); the gwc kernels
+     batch 4, at the KITTI preset's batch 12 and at a card's share of it
+     on 2 and 4 cards, 6 and 3, and at the KITTI eval shape, the backward
+     at the train shape at batch 1, 4, 12, 6 and 3 and at the Middlebury
+     shape); the gwc kernels
      retimed at the end; for context only, F.conv3d f32 with TF32 on (time,
      and its error, which misses the f32 tolerance).
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
@@ -185,7 +190,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      and one bf16 backward launch per step and no f32 one (the counts of
      each run), ms/step, pairs/s, peak memory; the same with `remat` from
      the same weights and batches (its first loss within 1e-3 relative, its
-     peak lower); `cli eval --preset kitti --dataset kitti2015` in bf16 of
+     peak lower); then the leg over 2 ranks that share the card under gloo
+     (as phase 10): `cli train --preset kitti` at the global batch of 12
+     (6 a rank) in bf16 from the export, 2 epochs (4 steps): the ranks'
+     records equal and finite, one bf16 gwc forward and backward launch a
+     step on each rank, ms/step and each rank's peak beside one process's;
+     the first step from the export, 2 ranks against one process
+     (`_hold_parity`, phase 10's bounds): f32 on a global batch of 12 crops
+     (six KITTI 2012, six KITTI 2015), float64 (the gwc volume by its plain
+     version) on the same samples cut to 64x128, every parameter's gradient
+     within 1e-7; `cli eval --preset kitti --dataset kitti2015` in bf16 of
      the trained checkpoint on the held-out scenes: one bf16 gwc launch per
      pair, EPE, D1, ms/pair.
  14. middlebury: the ETH3D and Middlebury training stages. Procedural trees
@@ -199,7 +213,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      and one backward launch per step, all of the run's dtype (the counts of
      each run), ms/step with the loader (the steady median inside an epoch,
      and each epoch start's stall beside the checkpoint save and the
-     loader's waits there), pairs/s, peak memory; the smooth-L1 step at
+     loader's waits there), pairs/s, peak memory; the disparity-sharded leg
+     over 2 ranks that share the card under gloo (as phase 12): `cli train
+     --preset middlebury --n-disp-shards 2` in bf16, one epoch (4 steps):
+     the ranks' records equal and finite, one bf16 gwc forward of the
+     rank's planes ([0, 30) and [30, 60) of D = 60) and one range backward
+     a step on each rank, ms/step and each rank's peak beside one
+     process's; the first step, 2 ranks against one process (as the kitti
+     leg; the f32 grad norm within 3e-3): f32 on one 320x704 crop, float64
+     on it cut to 64x256 (D = 60 still split); the smooth-L1 step at
      maxdisp 240 on the card against the CPU on 2 Middlebury crops cut to
      64x256, with phase 6's bounds (the bf16 scalars at the kitti case's 2x)
      but for the f32 grad norm: on each crop a float64 step on the card as
@@ -218,16 +240,26 @@ Phases, in order; any failure raises and the script exits non-zero:
  15. summary: the card's name and power limit, one `{"kernels": [...]}` line,
      and last `{"ok": true, "device": {...}}`.
 
-`--phases cards`, a manual measurement outside the smoke's phases (never run
-by default; needs two or more cards): `cli train` started as a user starts
-it, one process per card with the DCANET_* variables (NCCL), on 1, 2, 4,
-... cards at one 256x512 pair per card: ms/step, pairs/s and the scaling
-against one card, and the 2-card first step's loss terms against one card
-at batch 2; then `cli eval --dataset eth3d --n-disp-shards N` on N = 1, 2,
-4, ... cards the same way, f32 and bf16: ms/pair and the metrics against
-one card. Between the two, `cli train --n-disp-shards 2` on 2 cards and on
-a data=2 x disp=2 grid of 4: ms/step, each card's peak memory, the first
-step's loss against one card.
+`--phases cards`, `cards_kitti` and `cards_middlebury`, manual measurements
+outside the smoke's phases (never run by default; each needs two or more
+cards; any of them together write `chiprun_out/cards.json`), each command
+started as a user starts it, one process per card with the DCANET_*
+variables (NCCL). `cards`: `cli train` on 1,
+2, 4, ... cards at one 256x512 pair per card: ms/step, pairs/s and the
+scaling against one card, and the 2-card first step's loss terms against
+one card at batch 2; `cli train --n-disp-shards 2` on 2 cards and on a
+data=2 x disp=2 grid of 4: ms/step, each card's peak memory, the first
+step's loss against one card; `cli eval --dataset eth3d --n-disp-shards N`
+on N = 1, 2, 4, ... cards, f32 and bf16: ms/pair and the metrics against
+one card. `cards_kitti`: `cli train --preset kitti --loadckpt` at the global
+batch of 12 in bf16 on 1, 2 and 4 cards (12, 6 and 3 pairs a card): ms/step,
+pairs/s, the scaling, each card's peak, the gwc launches; the step alone on
+a resident batch on each card count (bf16) and the first f32 step's loss
+terms against one card (rtol 1e-4). `cards_middlebury`: `cli train --preset
+middlebury --n-disp-shards N` on N = 1, 2 and 4 cards in f32 and bf16:
+ms/step, each card's peak and what holds it (`memory_at_peak`), the gwc
+launches a step on each card and their planes, the first f32 step's loss
+terms against one card (rtol 1e-4).
 
 `--phases curve`, a manual measurement outside the smoke's phases (never
 run by default; ~30 min): the port's training curve (`phase_curve`,
@@ -305,9 +337,20 @@ TRAIN_SHAPE = (1, 320, 64, 128)  # gwc features of a 256x512 SceneFlow crop
 TRAIN_B4_SHAPE = (4,) + TRAIN_SHAPE[1:]
 # ... of the KITTI preset's batch of 12 crops of 256x512 (the kitti phase's)
 TRAIN_B12_SHAPE = (12,) + TRAIN_SHAPE[1:]
+# ... of one card's share of that batch on 2 and 4 cards (and of a rank's in
+# the kitti phase's 2-rank leg): 6 and 3 crops
+TRAIN_B6_SHAPE, TRAIN_B3_SHAPE = (6,) + TRAIN_SHAPE[1:], (3,) + TRAIN_SHAPE[1:]
 MAIN_GROUPS, MAIN_D = 40, 48
 # the gwc backward at the Middlebury preset's 320x704 crop, maxdisp 240
 MIDDLEBURY_SHAPE, MIDDLEBURY_D = (1, 320, 80, 176), 60
+# the ranks' planes of the disparity-sharded Middlebury train step (maxdisp
+# 240, D = 60 at the 320x704 crop's W/4 = 176; `DispPlan.split`): 2 ranks
+# take 15 / 15 plane pairs, 4 ranks 8 / 8 / 7 / 7; the starts 30, 16, 32 and
+# 46 are not multiples of the kernels' kV or kND, so they take the range
+# instantiations (`csrc/gwc.cu`)
+MIDDLEBURY_SHARDS = {2: ((0, 30), (30, 60)), 4: ((0, 16), (16, 32), (32, 46), (46, 60))}
+MIDDLEBURY_SHARD_RANGES = tuple((f"middlebury train [{lo},{hi})", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (lo, hi))
+                                for ranges in MIDDLEBURY_SHARDS.values() for lo, hi in ranges)
 # the gwc forward's plane ranges, the shares of the disparity-sharded eval's
 # ranks: ETH3D's 768x1024 canvas (D = 48 on 2 ranks), a half-resolution
 # Middlebury pair padded to 512x768 (maxdisp 240: D = 60, 8 ranks take
@@ -320,7 +363,9 @@ GWC_RANGES = (  # name, features, groups, D, planes
     ("middlebury [0,8)", MIDDLEBURY_EVAL_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (0, 8)),
     ("middlebury [54,60)", MIDDLEBURY_EVAL_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (54, 60)),
     ("past W [8,12)", (2, 16, 5, 7), 4, 12, (8, 12)),
-)
+) + MIDDLEBURY_SHARD_RANGES
+# the forward's ranges that are timed: all but the one past W
+GWC_TIMED_RANGES = tuple(r for r in GWC_RANGES if not r[0].startswith("past W"))
 # the gwc backward's plane ranges, the shares of the disparity-sharded train
 # step's ranks: the SceneFlow train shape (D = 48; 2 ranks take [0, 24) and
 # [24, 48), the middle one of 3 [16, 32); the whole range by the range
@@ -336,7 +381,7 @@ GWC_BWD_RANGES = (  # name, features, groups, D, planes
     ("middlebury [0,8)", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, (0, 8)),
     ("across W [40,52)", (1, 16, 5, 45), 4, 60, (40, 52)),
     ("past W [8,12)", (2, 16, 5, 7), 4, 12, (8, 12)),
-)
+) + MIDDLEBURY_SHARD_RANGES
 # the conv3d kernel's own path: tools/bench_conv3d.py::run_pallas's shapes, NCDHW
 CONV_SHAPE = (1, 32, 48, 96, 312)
 CONV_SHAPE_64 = (1, 64, 48, 96, 312)
@@ -362,6 +407,18 @@ KITTI_HW = (375, 1242)  # a KITTI 2015 image, padded to 384x1248 by --submission
 # KITTI_VAL held-out KITTI 2015 scenes; each tree from its own seed
 KITTI_TRAIN_HW, KITTI_TREE, KITTI_VAL, KITTI_BATCH, KITTI_EPOCHS = (376, 1248), 12, 4, 12, 3
 KITTI_SEEDS = (("kitti2012", 1), ("kitti2015", 2), ("kitti2015", 3))  # kitti_mix's two trees, the held-out one
+# the kitti and middlebury phases' legs over LEG_WORLD ranks that share the
+# card under gloo (as phases 10 and 12): the kitti leg's `cmd_train` at the
+# global batch of KITTI_BATCH for KITTI_LEG_EPOCHS epochs of the phase's
+# kitti_mix (2 steps each), its parity batch the samples KITTI_LEG_INDICES
+# (six KITTI 2012 crops, then six KITTI 2015 ones: one tree a rank); the
+# middlebury leg's `cmd_train --n-disp-shards LEG_WORLD` for one epoch of
+# the phase's MIDDLEBURY_TREE scenes
+LEG_WORLD, KITTI_LEG_EPOCHS, LEG_TIMEOUT_S = 2, 2, 420
+KITTI_LEG_INDICES = tuple(range(6)) + tuple(range(KITTI_TREE, KITTI_TREE + 6))
+# the legs' float64 steps run on their parity batch cut to these crops (a
+# float64 step at the presets' crops would not fit beside the f32 ones)
+KITTI_LEG_F64_CROP = (64, 128)
 # kitti12 and middlebury_step (manual): a preset's step alone for {f32, bf16} x
 # {remat, none}, each in its own process, STEP_ALONE_WARMUP + STEP_ALONE_TIMED
 # steps
@@ -403,6 +460,10 @@ PARALLEL_TIMEOUT_S = 300
 # one process each, CARDS_STEPS steps at 1 pair per card; the first
 # CARDS_WARMUP intervals between steps are not timed
 CARDS_STEPS, CARDS_WARMUP, CARDS_TIMEOUT_S = 8, 2, 600
+# its kitti leg: a kitti_mix of CARDS_KITTI_TREE + CARDS_KITTI_TREE scenes at
+# 376x1248 (4 steps an epoch at batch 12), CARDS_KITTI_EPOCHS epochs; its
+# middlebury leg: CARDS_MIDDLEBURY_EPOCHS epochs of MIDDLEBURY_TREE scenes
+CARDS_KITTI_TREE, CARDS_KITTI_EPOCHS, CARDS_MIDDLEBURY_EPOCHS = 24, 2, 2
 CARDS_EVAL_PAIRS = 8
 # disp phase: `cli eval --dataset eth3d` (the 768x1024 canvas) over
 # DISP_WORLD ranks under gloo on the one card against one process, on
@@ -657,6 +718,10 @@ def phase_kernels():
         ("train b4 bf16", TRAIN_B4_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("train b12 f32", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("train b12 bf16", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train b6 f32", TRAIN_B6_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train b6 bf16", TRAIN_B6_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train b3 f32", TRAIN_B3_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train b3 bf16", TRAIN_B3_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
         ("D=60 f32", MAIN_SHAPE, MAIN_GROUPS, 60, torch.float32),
         ("D=60 bf16", MAIN_SHAPE, MAIN_GROUPS, 60, torch.bfloat16),
         # the middlebury phase's: its train crop and its eval pair, D = 60
@@ -735,6 +800,10 @@ def phase_kernels():
         ("middlebury bf16", MIDDLEBURY_SHAPE, MAIN_GROUPS, MIDDLEBURY_D, torch.bfloat16),
         ("train b12 f32", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
         ("train b12 bf16", TRAIN_B12_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train b6 f32", TRAIN_B6_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train b6 bf16", TRAIN_B6_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
+        ("train b3 f32", TRAIN_B3_SHAPE, MAIN_GROUPS, MAIN_D, torch.float32),
+        ("train b3 bf16", TRAIN_B3_SHAPE, MAIN_GROUPS, MAIN_D, torch.bfloat16),
     ]
     bwd_errs = {}
     for name, shape, groups, d, dtype in bwd_cases:
@@ -749,6 +818,22 @@ def phase_kernels():
             for part, g_, w_ in (("dL", got[0], want[0]), ("dR", got[1], want[1]))
         )
         del left, right, grad, got, want
+    # the shared memory each backward range asks for per block, against
+    # what the card lets a block opt in to (kernels/gwc.py reports both when
+    # a launch fails)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = gwc._lib()
+    for name, shape, groups, d, planes in GWC_BWD_RANGES:
+        for dtype_bytes, tag in ((4, "f32"), (2, "bf16")):
+            smem = lib.gwc_volume_backward_smem_bytes(shape[1], shape[3], groups, planes[1] - planes[0], planes[0],
+                                                      dtype_bytes)
+            if not 0 < smem <= limit:
+                raise AssertionError(f"[kernels] gwc backward range {name} {tag}: {smem} bytes of shared memory a "
+                                     f"block, the card allows {limit}")
+    log(f"[kernels] gwc backward ranges: shared memory a block " + ", ".join(
+        f"{name} {lib.gwc_volume_backward_smem_bytes(shape[1], shape[3], groups, p[1] - p[0], p[0], 4)} / "
+        f"{lib.gwc_volume_backward_smem_bytes(shape[1], shape[3], groups, p[1] - p[0], p[0], 2)}"
+        for name, shape, groups, d, p in GWC_BWD_RANGES) + f" bytes (f32 / bf16), the card allows {limit}")
     # the backward of plane ranges against autograd through the plain
     # version's planes, the grad NaN at the occluded entries w < d (which
     # must reach neither dL nor dR), the tolerances as above
@@ -849,6 +934,7 @@ def phase_kernels():
 
         for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("kitti eval", KITTI_EVAL_SHAPE, MAIN_D),
                                  ("train b4", TRAIN_B4_SHAPE, MAIN_D), ("train b12", TRAIN_B12_SHAPE, MAIN_D),
+                                 ("train b6", TRAIN_B6_SHAPE, MAIN_D), ("train b3", TRAIN_B3_SHAPE, MAIN_D),
                                  ("middlebury train", MIDDLEBURY_SHAPE, MIDDLEBURY_D),
                                  ("middlebury eval", MIDDLEBURY_EVAL_FEATURES, MIDDLEBURY_D)):
             left, right = randn(xs, dtype), randn(xs, dtype)
@@ -860,7 +946,8 @@ def phase_kernels():
             log(f"[kernels] gwc {shape_tag} {tag} x{tuple(xs)} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound (cold L2)")
         for shape_tag, xs, d in (("train", TRAIN_SHAPE, MAIN_D), ("middlebury", MIDDLEBURY_SHAPE, MIDDLEBURY_D),
-                                 ("train b4", TRAIN_B4_SHAPE, MAIN_D), ("train b12", TRAIN_B12_SHAPE, MAIN_D)):
+                                 ("train b4", TRAIN_B4_SHAPE, MAIN_D), ("train b12", TRAIN_B12_SHAPE, MAIN_D),
+                                 ("train b6", TRAIN_B6_SHAPE, MAIN_D), ("train b3", TRAIN_B3_SHAPE, MAIN_D)):
             b, c, h, w = xs
             left, right = randn(xs, dtype), randn(xs, dtype)
             grad = randn((b, MAIN_GROUPS, d, h, w), dtype)
@@ -894,8 +981,8 @@ def phase_kernels():
                 entry["library_tf32"] = library_tf32(x, w, flush)
             del x, w
     # the plane ranges' times beside their bounds (the disparity-sharded eval's
-    # launches), the whole ETH3D volume beside them
-    for name, shape, groups, d, planes in GWC_RANGES[:5]:
+    # and train step's launches), the whole ETH3D volume beside them
+    for name, shape, groups, d, planes in GWC_TIMED_RANGES:
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             left, right = randn(shape, dtype), randn(shape, dtype)
             ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, d, groups, planes), 20, flush=flush)
@@ -1441,11 +1528,10 @@ def phase_train(workdir: Path):
             raise AssertionError(f"[train] step {rec['step']} is not finite: {rec}")
     if fwd != steps or bwd != steps:
         raise AssertionError(f"[train] gwc forward {fwd} / backward {bwd} launches in {steps} steps")
-    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])][TRAIN_WARMUP - 1:]
-    ms = statistics.median(step_ms)
+    ms, lo, hi = _median_gap_ms(hist, skip=TRAIN_WARMUP - 1)
     log(f"[train] DCANet(num_cva=3, maxdisp=192) f32, 1x3x256x512 crops: {steps} steps, "
         f"{fwd} gwc forward and {bwd} gwc backward launches (1 each per step); median {ms:.3f} ms/step "
-        f"over steps {TRAIN_WARMUP}-{steps - 1} (range {min(step_ms):.3f}-{max(step_ms):.3f}), "
+        f"over steps {TRAIN_WARMUP}-{steps - 1} (range {lo:.3f}-{hi:.3f}), "
         f"{1e3 / ms:.3f} pairs/s, peak memory {peak / 2**30:.3f} GiB")
 
     ckpts = sorted(p.name for p in (logdir / "ckpt").iterdir())
@@ -1505,11 +1591,10 @@ def train_bf16_leg(workdir: Path) -> dict:
             raise AssertionError(f"[train bf16] step {rec['step']} is not finite: {rec}")
     if fwd != {"float32": 0, "bfloat16": steps} or bwd != {"float32": 0, "bfloat16": steps}:
         raise AssertionError(f"[train bf16] gwc launches by dtype: forward {fwd}, backward {bwd} in {steps} steps")
-    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])][TRAIN_WARMUP - 1:]
-    ms = statistics.median(step_ms)
+    ms, lo, hi = _median_gap_ms(hist, skip=TRAIN_WARMUP - 1)
     log(f"[train bf16] cli train --dtype bfloat16 --batch-size {BF16_TRAIN_BATCH}, DCANet(num_cva=3, maxdisp=192), "
         f"{BF16_TRAIN_BATCH}x3x256x512 crops: {steps} steps, gwc launches forward {fwd}, backward {bwd}; median "
-        f"{ms:.3f} ms/step over steps {TRAIN_WARMUP}-{steps - 1} (range {min(step_ms):.3f}-{max(step_ms):.3f}), "
+        f"{ms:.3f} ms/step over steps {TRAIN_WARMUP}-{steps - 1} (range {lo:.3f}-{hi:.3f}), "
         f"{1e3 * BF16_TRAIN_BATCH / ms:.3f} pairs/s, peak memory {peak / 2**30:.4f} GiB")
     return dict(root=root, steps=steps, ms=ms, pairs_per_s=1e3 * BF16_TRAIN_BATCH / ms, peak_bytes=peak,
                 fwd=fwd, bwd=bwd)
@@ -2287,12 +2372,11 @@ def family_train(name: str, root: Path, workdir: Path) -> dict:
     for rec in hist:
         if not all(math.isfinite(rec[k]) for k in ("total", "smooth_l1", "grad_norm", "epe")):
             raise AssertionError(f"[family train {name}] step {rec['step']} is not finite: {rec}")
-    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])]
-    ms = statistics.median(step_ms)
+    ms, lo, hi = _median_gap_ms(hist, skip=0)
     log(f"[family] cli train --model {name} f32, 1x3x256x512 crops: {steps} steps, losses "
         + ", ".join(f"{r['total']:.4f}" for r in hist)
         + f"; {fwd} gwc forward and {bwd} gwc backward launches (1 each per step); median {ms:.3f} ms/step over "
-        f"steps 1-{steps - 1} (range {min(step_ms):.3f}-{max(step_ms):.3f}), {1e3 / ms:.3f} pairs/s, peak memory "
+        f"steps 1-{steps - 1} (range {lo:.3f}-{hi:.3f}), {1e3 / ms:.3f} pairs/s, peak memory "
         f"{peak / 2**30:.3f} GiB")
     torch.cuda.empty_cache()
     parity = phase_train_parity(name)
@@ -2570,24 +2654,38 @@ def _bn_input_ratios(model) -> tuple:
     return ratios, [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, _FlaxStatistics)]
 
 
-def _parity_step(batch: dict, bn_ratios: bool = False, mesh=None) -> dict:
-    """One f32 train step of the seeded DCANet(num_cva=3, maxdisp=192) on
-    `batch` (this process's share), with the disparity-sharding plan of
-    `mesh`'s disp axis where it has one, cuDNN's deterministic algorithms
-    (with `bn_ratios`, its BatchNorm inputs' channel |mean| / std too); then
-    PARALLEL_WARMUP + PARALLEL_TIMED more steps with cuDNN's defaults, each
-    timed on the host clock between synchronisations."""
-    import torch
-
+def _parity_state(name: str, mesh, loadckpt):
+    """The `name` preset's train state on the card from the seed's init, or
+    with `loadckpt`'s weights, with the disparity-sharding plan of `mesh`'s
+    disp axis where it has one; and the preset's loss config."""
     from dcanet_tpu_torch import cli
     from dcanet_tpu_torch.config import preset
-    from dcanet_tpu_torch.train.loop import LossConfig, train_step
+    from dcanet_tpu_torch.train.checkpoint import load_params_only
+    from dcanet_tpu_torch.train.loop import LossConfig
+
+    cfg = preset(name, seed=SEED)
+    state = cli.build_train_state(cfg, 1, "cuda", mesh)
+    if loadckpt:
+        load_params_only(loadckpt, state.model)
+    return state, LossConfig(max_disp=cfg.maxdisp, sparse=cfg.sparse_gt, preset=cfg.loss_preset)
+
+
+def _parity_step(batch: dict, bn_ratios: bool = False, mesh=None, name: str = "sceneflow", loadckpt=None,
+                 timed: int = PARALLEL_WARMUP + PARALLEL_TIMED) -> dict:
+    """One f32 train step (`_parity_state`: by default the seeded
+    DCANet(num_cva=3, maxdisp=192) of the SceneFlow preset) on `batch` (this
+    process's share), cuDNN's deterministic algorithms (with `bn_ratios`,
+    its BatchNorm inputs' channel |mean| / std too); then `timed` more
+    steps with cuDNN's defaults, each timed on the host clock between
+    synchronisations, the first PARALLEL_WARMUP of them not kept."""
+    import torch
+
+    from dcanet_tpu_torch.train.loop import train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    state = cli.build_train_state(preset("sceneflow", seed=SEED), PARALLEL_PAIRS // PARALLEL_WORLD, "cuda", mesh)
+    state, cfg = _parity_state(name, mesh, loadckpt)
     batch = {k: v.cuda() for k, v in batch.items()}
-    cfg = LossConfig(max_disp=192)
     ratios, hooks = _bn_input_ratios(state.model) if bn_ratios else ([], [])
     out = _step_record(state, batch, cfg)
     for h in hooks:
@@ -2595,7 +2693,7 @@ def _parity_step(batch: dict, bn_ratios: bool = False, mesh=None) -> dict:
     if ratios:
         out["bn_ratios"] = torch.cat(ratios).numpy()
     times = []
-    for i in range(PARALLEL_WARMUP + PARALLEL_TIMED):
+    for i in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         train_step(state, batch, cfg)
@@ -2608,28 +2706,25 @@ def _parity_step(batch: dict, bn_ratios: bool = False, mesh=None) -> dict:
     return out
 
 
-def _parity_step_f64(batch: dict, mesh=None) -> dict:
-    """One float64 train step of the seeded DCANet(num_cva=3, maxdisp=192)
-    on `batch` (this process's share; with `mesh`'s disparity-sharding
-    plan), cuDNN's deterministic algorithms, the gwc volume by its plain
-    version (the kernels take f32 and bf16; the plain version computes
-    float64 input in float64): float64 leaves the rounding of a 2-rank step
-    against one process far below a fault in the global BatchNorm's
-    backward, an exchange's gradient or the gradient all-reduce."""
+def _parity_step_f64(batch: dict, mesh=None, name: str = "sceneflow", loadckpt=None) -> dict:
+    """One float64 train step of `_parity_state`'s model on `batch` (this
+    process's share; with `mesh`'s disparity-sharding plan), cuDNN's
+    deterministic algorithms, the gwc volume by its plain version (the
+    kernels take f32 and bf16; the plain version computes float64 input in
+    float64): float64 leaves the rounding of a 2-rank step against one
+    process far below a fault in the global BatchNorm's backward, an
+    exchange's gradient or the gradient all-reduce."""
     import torch
 
-    from dcanet_tpu_torch import cli
-    from dcanet_tpu_torch.config import preset
     from dcanet_tpu_torch.kernels.gwc import gwc_volume_reference
     from dcanet_tpu_torch.models import dcanet
-    from dcanet_tpu_torch.train.loop import LossConfig
 
-    state = cli.build_train_state(preset("sceneflow", seed=SEED), PARALLEL_PAIRS // PARALLEL_WORLD, "cuda", mesh)
+    state, cfg = _parity_state(name, mesh, loadckpt)
     state.model.double()
     batch = {k: v.to("cuda", torch.float64) for k, v in batch.items()}
     kernel_gwc, dcanet.gwc_volume = dcanet.gwc_volume, gwc_volume_reference
     try:
-        out = _step_record(state, batch, LossConfig(max_disp=192))
+        out = _step_record(state, batch, cfg)
     finally:
         dcanet.gwc_volume = kernel_gwc
     del state
@@ -2665,58 +2760,13 @@ def writes_under(root: str, written: list):
         builtins.open, os.replace, os.makedirs, Path.mkdir, Path.unlink = saved
 
 
-def _parallel_worker(rank: int, port: int, root: str, logdir: str, batch_path: str, out_path: str) -> None:
-    """One rank of phase 10: gloo on cuda:0 (the ranks share the card);
-    `cli train` for PARALLEL_EPOCHS epochs and a resumed one at the global
-    --batch-size 2, counting its gwc launches and recording its writes; then
-    the parity step on this rank's share of the global batch."""
-    import torch
-    import torch.distributed as dist
-
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=PARALLEL_WORLD)
-    torch.cuda.set_device(0)
-    from dcanet_tpu_torch import cli
-    from dcanet_tpu_torch.kernels import gwc
-    from dcanet_tpu_torch.parallel import make_mesh, shard_batch, shutdown
-    from dcanet_tpu_torch.train import loop
-
-    states = []
-    real_step = loop.train_step
-
-    def step_spy(state, batch, cfg):
-        states[:] = [state]
-        return real_step(state, batch, cfg)
-
-    args = ["train", "--preset", "sceneflow", "--data-root", root, "--logdir", logdir,
-            "--batch-size", str(PARALLEL_WORLD), "--dtype", "float32", "--seed", str(SEED), "--print-freq", "1",
-            "--num-workers", "4", "--device", "cuda"]
-    loop.train_step = step_spy
-    gwc.LAUNCHES = gwc.BACKWARD_LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        with writes_under(logdir, []) as written:
-            hist = cli.main(args + ["--epochs", str(PARALLEL_EPOCHS)])
-            resumed = cli.main(args + ["--epochs", str(PARALLEL_EPOCHS + 1), "--resume"])
-    finally:
-        loop.train_step = real_step
-    torch.cuda.synchronize()
-    result = {"hist": hist, "resumed": resumed, "fwd": gwc.LAUNCHES, "bwd": gwc.BACKWARD_LAUNCHES,
-              "peak_bytes": torch.cuda.max_memory_allocated(), "written": written,
-              "digest": state_digest(states[0])}
-    del states
-    torch.cuda.empty_cache()
-    batch = shard_batch(torch.load(batch_path, weights_only=True), make_mesh())
-    result["parity"] = _parity_step(batch)
-    result["parity64"] = _parity_step_f64(batch)
-    for key in ("parity", "parity64"):  # rank 0's gradients stand for both; rank 1 sends their digest
-        if rank != 0:
-            result[key]["grads_digest"] = _grads_digest(result[key].pop("grads"))
-    torch.save(result, out_path)
-    shutdown()
+LOSS_TERMS = ("total", "focal", "smooth_l1")
 
 
-def _rel_metrics(got: dict, want: dict) -> dict:
-    return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in ("total", "focal", "smooth_l1", "grad_norm")}
+def _rel_metrics(got: dict, want: dict, keys=LOSS_TERMS + ("grad_norm",)) -> dict:
+    """Each of `keys` that `want` has, relative to it (the smooth-L1 preset
+    has no focal term)."""
+    return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in keys if k in want}
 
 
 def _norm(t) -> float:
@@ -2735,6 +2785,47 @@ def _grad_rel(grads: dict, ref: dict):
 
 def _worst(each: dict, k: int = 3) -> str:
     return ", ".join(f"{n} {v:.2e}" for n, v in sorted(each.items(), key=lambda kv: -kv[1])[:k])
+
+
+def _hold_parity(tag: str, ranks: list, one: dict, one64: dict, grad_norm_bound: float = 1e-3) -> dict:
+    """The ranks' parity steps (`_train_worker`) against one process's on
+    the same global batch: the ranks hold the same summed gradients and
+    report the same metrics; f32: the loss terms within 1e-4, the grad norm
+    within `grad_norm_bound`, the BatchNorm statistics 1e-4 scaled (the
+    gradient recorded); float64: the loss terms within 1e-7, the grad norm
+    1e-6 (summed in f32), the statistics 1e-10, each parameter's gradient
+    1e-7 relative in L2. Logs the distances and returns them."""
+    two, two64 = ranks[0]["parity"], ranks[0]["parity64"]
+    for key in ("parity", "parity64"):
+        for r in ranks[1:]:
+            if r[key]["grads_digest"] != _grads_digest(ranks[0][key]["grads"]):
+                raise AssertionError(f"[{tag}] {key}: the ranks hold different summed gradients")
+            if r[key]["metrics"] != ranks[0][key]["metrics"]:
+                raise AssertionError(f"[{tag}] {key}: the ranks report different metrics")
+    rel, rel64 = _rel_metrics(two["metrics"], one["metrics"]), _rel_metrics(two64["metrics"], one64["metrics"])
+    stat_err = max(_scaled_err(two["stats"][k], one["stats"][k]) for k in one["stats"])
+    stat_err64 = max(_scaled_err(two64["stats"][k], one64["stats"][k]) for k in one64["stats"])
+    whole, each = _grad_rel(two["grads"], one["grads"])
+    whole64, each64 = _grad_rel(two64["grads"], one64["grads"])
+    m1, m2 = one["metrics"], two["metrics"]
+    log(f"[{tag}] parity, one f32 step (cuDNN deterministic): {len(ranks)} ranks vs one process on the same global "
+        f"batch: loss {m2['total']:.6f} vs {m1['total']:.6f}, grad norm {m2['grad_norm']:.6f} vs "
+        f"{m1['grad_norm']:.6f}; relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; BatchNorm statistics {stat_err:.3e} scaled (bounds: loss terms 1e-4, grad norm {grad_norm_bound:g}, "
+        f"statistics 1e-4). Recorded: the whole gradient {whole:.2e} relative in L2; each parameter's, worst "
+        f"{_worst(each)}")
+    log(f"[{tag}] parity in float64 (the gwc volume by its plain version): {len(ranks)} ranks vs one process: "
+        f"relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel64.items()) + f"; BatchNorm statistics "
+        f"{stat_err64:.3e} scaled; the whole gradient {whole64:.2e}, each parameter's worst {_worst(each64)} "
+        f"(bounds: loss terms 1e-7, grad norm 1e-6 (summed in f32), statistics 1e-10, each parameter 1e-7)")
+    if (max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or rel["grad_norm"] > grad_norm_bound
+            or stat_err > 1e-4):
+        raise AssertionError(f"[{tag}] the {len(ranks)}-rank f32 step disagrees with the one-process step")
+    if (max(v for k, v in rel64.items() if k != "grad_norm") > 1e-7 or rel64["grad_norm"] > 1e-6
+            or stat_err64 > 1e-10 or max(each64.values()) > 1e-7):
+        raise AssertionError(f"[{tag}] the float64 {len(ranks)}-rank step disagrees with the one-process step")
+    return dict(rel=rel, stat_err=stat_err, whole_grad=whole, rel64=rel64, stat_err64=stat_err64,
+                whole_grad64=whole64, worst_grad64=max(each64.values()))
 
 
 def run_workers(tag: str, target, world: int, args: tuple, workdir: Path, timeout_s: float):
@@ -2791,13 +2882,19 @@ def phase_parallel(workdir: Path) -> dict:
     torch.cuda.empty_cache()
 
     logdir = workdir / "parallel_run"
-    ranks, wall = run_workers("parallel", _parallel_worker, PARALLEL_WORLD, (str(root), str(logdir), str(batch_path)),
-                              workdir, PARALLEL_TIMEOUT_S)
+    args = ["train", "--preset", "sceneflow", "--data-root", str(root), "--logdir", str(logdir),
+            "--batch-size", str(PARALLEL_WORLD), "--dtype", "float32", "--seed", str(SEED), "--print-freq", "1",
+            "--num-workers", "4", "--device", "cuda"]
+    runs = [args + ["--epochs", str(PARALLEL_EPOCHS)], args + ["--epochs", str(PARALLEL_EPOCHS + 1), "--resume"]]
+    parity = dict(name="sceneflow", loadckpt=None, n_disp=1, batch=str(batch_path), batch64=str(batch_path),
+                  timed=PARALLEL_WARMUP + PARALLEL_TIMED)
+    ranks, wall = run_workers("parallel", _train_worker, PARALLEL_WORLD,
+                              (PARALLEL_WORLD, runs, str(logdir), parity), workdir, PARALLEL_TIMEOUT_S)
 
     steps = PARALLEL_PAIRS // PARALLEL_WORLD * (PARALLEL_EPOCHS + 1)
     keys = ("total", "focal", "smooth_l1", "grad_norm", "epe")
     for r, res in enumerate(ranks):
-        hist = res["hist"] + res["resumed"]
+        hist = sum(res["hists"], [])
         if [h["step"] for h in hist] != list(range(steps)):
             raise AssertionError(f"[parallel] rank {r} took steps {[h['step'] for h in hist]}")
         if not all(math.isfinite(h[k]) for h in hist for k in keys):
@@ -2805,11 +2902,11 @@ def phase_parallel(workdir: Path) -> dict:
         if res["fwd"] != steps or res["bwd"] != steps:
             raise AssertionError(f"[parallel] rank {r}: gwc forward {res['fwd']} / backward {res['bwd']} launches "
                                  f"in {steps} steps")
-    h0 = ranks[0]["hist"] + ranks[0]["resumed"]
+    h0 = sum(ranks[0]["hists"], [])
     for h in h0:
         log(f"[parallel] step {h['step']}: loss {h['total']:.4f} (focal {h['focal']:.4f}, smooth-L1 "
             f"{h['smooth_l1']:.4f}), grad norm {h['grad_norm']:.4f}, epe {h['epe']:.4f}")
-    h1 = ranks[1]["hist"] + ranks[1]["resumed"]
+    h1 = sum(ranks[1]["hists"], [])
     if [{k: h[k] for k in keys} for h in h0] != [{k: h[k] for k in keys} for h in h1]:
         raise AssertionError("[parallel] the ranks report different metrics")
     if ranks[0]["digest"] != ranks[1]["digest"]:
@@ -2823,45 +2920,25 @@ def phase_parallel(workdir: Path) -> dict:
     if ckpts != want or lines != steps or rows != steps:
         raise AssertionError(f"[parallel] checkpoints {ckpts} (expected {want}), {lines} train_log and {rows} "
                              f"metrics rows for {steps} steps")
-    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(ranks[0]["hist"], ranks[0]["hist"][1:])]
-    cli_ms = statistics.median(step_ms)
+    first = ranks[0]["hists"][0]
+    cli_ms, lo, hi = _median_gap_ms(first, skip=0)
     log(f"[parallel] cli train over {PARALLEL_WORLD} ranks (gloo, one card), DCANet(num_cva=3, maxdisp=192) f32, "
         f"global batch {PARALLEL_WORLD}x3x{PARALLEL_CROP[0]}x{PARALLEL_CROP[1]}: {steps} steps per rank, gwc "
         f"forward / backward launches per rank {[(r['fwd'], r['bwd']) for r in ranks]} (1 each per step); "
-        f"rank 0 median {cli_ms:.3f} ms/step over steps 1-{len(step_ms)} of the first run (host clock between metric "
-        f"reads, range {min(step_ms):.3f}-{max(step_ms):.3f}); peak memory per rank "
+        f"rank 0 median {cli_ms:.3f} ms/step over steps 1-{len(first) - 1} of the first run (host clock between "
+        f"metric reads, range {lo:.3f}-{hi:.3f}); peak memory per rank "
         f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB; replicas bit-equal at the end "
         f"({ranks[0]['digest'][:12]}); rank 0 alone wrote {len(ranks[0]['written'])} paths, checkpoints {ckpts}; "
         f"the workers' wall time {wall:.1f} s")
 
     # parity: the 2-rank step against one process on the same global batch
-    two, two64 = ranks[0]["parity"], ranks[0]["parity64"]
-    for key in ("parity", "parity64"):
-        if ranks[1][key]["grads_digest"] != _grads_digest(ranks[0][key]["grads"]):
-            raise AssertionError(f"[parallel] {key}: the ranks hold different summed gradients")
-        if ranks[0][key]["metrics"] != ranks[1][key]["metrics"]:
-            raise AssertionError(f"[parallel] {key}: the ranks report different metrics")
-
-    rel, rel64 = _rel_metrics(two["metrics"], one["metrics"]), _rel_metrics(two64["metrics"], one64["metrics"])
-    stat_err = max(_scaled_err(two["stats"][k], one["stats"][k]) for k in one["stats"])
-    stat_err64 = max(_scaled_err(two64["stats"][k], one64["stats"][k]) for k in one64["stats"])
-    whole, each = _grad_rel(two["grads"], one["grads"])
-    whole64, each64 = _grad_rel(two64["grads"], one64["grads"])
+    held = _hold_parity("parallel", ranks, one, one64)
+    two = ranks[0]["parity"]
     # each f32 step's own distance to the float64 gradient of the same step
     one_vs64, one_each64 = _grad_rel(one["grads"], one64["grads"])
     two_vs64, two_each64 = _grad_rel(two["grads"], one64["grads"])
-    m1, m2 = one["metrics"], two["metrics"]
     ratios = one["bn_ratios"]
     ms1, ms2 = statistics.median(one["step_ms"]), statistics.median(two["step_ms"])
-    log(f"[parallel] parity, one f32 step from the seeded weights (cuDNN deterministic): 2 ranks vs one process "
-        f"on the global batch of 2: loss {m2['total']:.6f} vs {m1['total']:.6f}, grad norm {m2['grad_norm']:.6f} vs "
-        f"{m1['grad_norm']:.6f}; relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
-        + f"; BatchNorm statistics {stat_err:.3e} scaled (bounds: loss terms 1e-4, grad norm 1e-3, statistics "
-        f"1e-4). Recorded: the whole gradient {whole:.2e} relative in L2; each parameter's, worst {_worst(each)}")
-    log(f"[parallel] parity in float64 (the gwc volume by its plain version): 2 ranks vs one process: "
-        f"relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel64.items()) + f"; BatchNorm statistics "
-        f"{stat_err64:.3e} scaled; the whole gradient {whole64:.2e}, each parameter's worst {_worst(each64)} "
-        f"(bounds: loss terms 1e-7, grad norm 1e-6 (summed in f32), statistics 1e-10, each parameter 1e-7)")
     log(f"[parallel] the f32 steps against the float64 step's gradient: one process {one_vs64:.2e} (worst "
         f"{_worst(one_each64)}), 2 ranks {two_vs64:.2e} (worst {_worst(two_each64)}); the BatchNorm inputs' channel "
         f"|mean| / std over the step's {len(ratios)} channels: max {ratios.max():.3f}, 99th percentile "
@@ -2870,17 +2947,9 @@ def phase_parallel(workdir: Path) -> dict:
         f"{PARALLEL_WARMUP} warm-ups): one process at batch 2 {ms1:.3f} ms (range {min(one['step_ms']):.3f}-"
         f"{max(one['step_ms']):.3f}); 2 ranks sharing the card over gloo, rank 0 {ms2:.3f} ms (range "
         f"{min(two['step_ms']):.3f}-{max(two['step_ms']):.3f}); one card time-shared, not a multi-card number")
-    if max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
-        raise AssertionError("[parallel] the 2-rank step disagrees with the one-process step")
-    if (max(v for k, v in rel64.items() if k != "grad_norm") > 1e-7 or rel64["grad_norm"] > 1e-6
-            or stat_err64 > 1e-10 or max(each64.values()) > 1e-7):
-        raise AssertionError("[parallel] the float64 2-rank step disagrees with the one-process step")
     log(f"[parallel] card: {gpu_line()}")
     return dict(steps=steps, launches=[(r["fwd"], r["bwd"]) for r in ranks], cli_ms=cli_ms,
-                peak_bytes=[r["peak_bytes"] for r in ranks],
-                parity=dict(rel=rel, stat_err=stat_err, whole_grad=whole, rel64=rel64, stat_err64=stat_err64,
-                            whole_grad64=whole64, worst_grad64=max(each64.values()), one_vs64=one_vs64,
-                            two_vs64=two_vs64),
+                peak_bytes=[r["peak_bytes"] for r in ranks], parity=dict(held, one_vs64=one_vs64, two_vs64=two_vs64),
                 bn_ratio_max=float(ratios.max()), step_ms={"one_process_batch2": ms1, "two_ranks": ms2},
                 workers_s=wall)
 
@@ -3105,24 +3174,31 @@ def phase_disp(workdir: Path, flat) -> dict:
     return out
 
 
-def _disp_train_args(root: str, n_disp: int) -> list:
-    return ["train", "--preset", "sceneflow", "--data-root", root, "--batch-size", "1", "--dtype", "float32",
-            "--seed", str(SEED), "--print-freq", "1", "--num-workers", "4", "--n-disp-shards", str(n_disp),
-            "--device", "cuda"]
+def _disp_train_args(root: str, n_disp: int, logdir: str) -> list:
+    """Phase 12's `cli train` runs: DISP_TRAIN_EPOCHS epochs, then a resumed
+    one."""
+    args = ["train", "--preset", "sceneflow", "--data-root", root, "--logdir", logdir, "--batch-size", "1",
+            "--dtype", "float32", "--seed", str(SEED), "--print-freq", "1", "--num-workers", "4",
+            "--n-disp-shards", str(n_disp), "--device", "cuda"]
+    return [args + ["--epochs", str(DISP_TRAIN_EPOCHS)], args + ["--epochs", str(DISP_TRAIN_EPOCHS + 1), "--resume"]]
 
 
-def _disp_train_run(args: list, logdir: str) -> dict:
-    """`cli train` with `args` for DISP_TRAIN_EPOCHS epochs and a resumed one:
-    its records, the gwc launches (the counts set to 0 before, read after)
-    and each launch's planes, the peak memory above what the process held
-    before, the paths written under `logdir` and the final state's digest."""
+def _train_run(runs: list, logdir: str = None, last: list = None) -> dict:
+    """`cli train` with each argument list of `runs` in turn, in this
+    process: the records of each run (`hists`), the gwc launches of all
+    (the counts set to 0 before, read after: forward, backward and the
+    range backward's, and the first two by dtype), the planes of each
+    forward and backward launch, the peak device memory above what the
+    process held before, the final state's digest and, with `logdir`, the
+    paths written under it; `last`, where given, receives the last step's
+    (state, batch, loss config)."""
     import torch
 
     from dcanet_tpu_torch import cli
     from dcanet_tpu_torch.kernels import gwc
     from dcanet_tpu_torch.train import loop
 
-    fwd_planes, bwd_planes, states = [], [], []
+    fwd_planes, bwd_planes, steps = [], [], [None]
     kernel, backward, real_step = gwc.gwc_volume_cuda, gwc.gwc_volume_backward_cuda, loop.train_step
 
     def kernel_spy(*a, **k):
@@ -3135,49 +3211,55 @@ def _disp_train_run(args: list, logdir: str) -> dict:
         return backward(grad, *a, **k)
 
     def step_spy(state, batch, cfg):
-        states[:] = [state]
+        steps[0] = (state, batch, cfg)
         return real_step(state, batch, cfg)
 
     gwc.gwc_volume_cuda, gwc.gwc_volume_backward_cuda, loop.train_step = kernel_spy, backward_spy, step_spy
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    gwc.LAUNCHES = gwc.BACKWARD_LAUNCHES = gwc.RANGE_BACKWARD_LAUNCHES = 0
+    gwc.reset_launch_counts()
     try:
-        with writes_under(logdir, []) as written:
-            args = args + ["--logdir", logdir]
-            hist = cli.main(args + ["--epochs", str(DISP_TRAIN_EPOCHS)])
-            resumed = cli.main(args + ["--epochs", str(DISP_TRAIN_EPOCHS + 1), "--resume"])
-        launches = (gwc.LAUNCHES, gwc.BACKWARD_LAUNCHES, gwc.RANGE_BACKWARD_LAUNCHES)
+        with writes_under(logdir, []) if logdir else contextlib.nullcontext([]) as written:
+            hists = [cli.main(args) for args in runs]
+        launches = dict(fwd=gwc.LAUNCHES, bwd=gwc.BACKWARD_LAUNCHES, range_bwd=gwc.RANGE_BACKWARD_LAUNCHES,
+                        fwd_by_dtype=dict(gwc.LAUNCHES_BY_DTYPE), bwd_by_dtype=dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE))
     finally:
         gwc.gwc_volume_cuda, gwc.gwc_volume_backward_cuda, loop.train_step = kernel, backward, real_step
     torch.cuda.synchronize()
-    out = dict(hist=hist, resumed=resumed, fwd=launches[0], bwd=launches[1], range_bwd=launches[2],
-               fwd_planes=fwd_planes, bwd_planes=bwd_planes, written=written, digest=state_digest(states[0]),
-               peak_bytes=torch.cuda.max_memory_allocated() - held)
-    del states
+    out = dict(hists=hists, fwd_planes=fwd_planes, bwd_planes=bwd_planes, written=written,
+               digest=state_digest(steps[0][0]), peak_bytes=torch.cuda.max_memory_allocated() - held, **launches)
+    if last is not None:
+        last[:] = steps[0]
+    del steps
     torch.cuda.empty_cache()
     return out
 
 
-def _disp_train_worker(rank: int, port: int, root: str, logdir: str, batch_path: str, out_path: str) -> None:
-    """One rank of phase 12: gloo on cuda:0 (the ranks share the card); `cli
-    train --n-disp-shards DISP_TRAIN_WORLD`, then this rank's parity steps
-    on the whole global batch with the mesh's plan."""
+def _train_worker(rank: int, port: int, world: int, runs: list, logdir, parity: dict, out_path: str) -> None:
+    """One rank of a phase's run over `world` processes that share the card
+    (gloo on cuda:0): `cli train` with each argument list of `runs`
+    (`_train_run`, the writes under `logdir` recorded); then, on a (world /
+    n_disp, n_disp) mesh of `parity`'s n_disp, the parity steps of its
+    `name` preset from its `loadckpt` (or the seed's init) on this rank's
+    share of a global batch: `_parity_step` (with its `timed` steps) on the
+    batch saved at its `batch`, `_parity_step_f64` on the one at its
+    `batch64`. Rank 0's gradients stand for all: the others send their
+    digest."""
     import torch
     import torch.distributed as dist
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=DISP_TRAIN_WORLD)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
     torch.cuda.set_device(0)
-    from dcanet_tpu_torch.parallel import make_mesh, shutdown
+    from dcanet_tpu_torch.parallel import make_mesh, shard_batch, shutdown
 
-    result = _disp_train_run(_disp_train_args(root, DISP_TRAIN_WORLD), logdir)
-    batch = torch.load(batch_path, weights_only=True)
-    mesh = make_mesh(1, DISP_TRAIN_WORLD)
-    result["parity"] = _parity_step(batch, mesh=mesh)
-    result["parity64"] = _parity_step_f64(batch, mesh=mesh)
-    for key in ("parity", "parity64"):  # rank 0's gradients stand for both; rank 1 sends their digest
+    result = _train_run(runs, logdir)
+    mesh = make_mesh(world // parity["n_disp"], parity["n_disp"])
+    kw = dict(mesh=mesh, name=parity["name"], loadckpt=parity["loadckpt"])
+    share = {key: shard_batch(torch.load(parity[key], weights_only=True), mesh) for key in ("batch", "batch64")}
+    result["parity"] = _parity_step(share["batch"], timed=parity["timed"], **kw)
+    result["parity64"] = _parity_step_f64(share["batch64"], **kw)
+    for key in ("parity", "parity64"):
         if rank != 0:
             result[key]["grads_digest"] = _grads_digest(result[key].pop("grads"))
     torch.save(result, out_path)
@@ -3199,21 +3281,24 @@ def phase_disp_train(workdir: Path) -> dict:
     batch_path = workdir / "disp_train_batch.pt"
     torch.save(batch, batch_path)
 
-    one_run = _disp_train_run(_disp_train_args(str(root), 1), str(workdir / "disp_train_one"))
+    one_run = _train_run(_disp_train_args(str(root), 1, str(workdir / "disp_train_one")))
     one, one64 = _parity_step(batch), _parity_step_f64(batch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     logdir = workdir / "disp_train_ranks"
-    ranks, wall = run_workers("disp_train", _disp_train_worker, DISP_TRAIN_WORLD,
-                              (str(root), str(logdir), str(batch_path)), workdir, DISP_TRAIN_TIMEOUT_S)
+    parity = dict(name="sceneflow", loadckpt=None, n_disp=DISP_TRAIN_WORLD, batch=str(batch_path),
+                  batch64=str(batch_path), timed=PARALLEL_WARMUP + PARALLEL_TIMED)
+    ranks, wall = run_workers("disp_train", _train_worker, DISP_TRAIN_WORLD,
+                              (DISP_TRAIN_WORLD, _disp_train_args(str(root), DISP_TRAIN_WORLD, str(logdir)),
+                               str(logdir), parity), workdir, DISP_TRAIN_TIMEOUT_S)
 
     steps = DISP_TRAIN_PAIRS * (DISP_TRAIN_EPOCHS + 1)
     half = MAIN_D // DISP_TRAIN_WORLD
     keys = ("total", "focal", "smooth_l1", "grad_norm", "epe")
     for r, res in enumerate([one_run] + ranks):
         who = "one process" if r == 0 else f"rank {r - 1}"
-        hist = res["hist"] + res["resumed"]
+        hist = sum(res["hists"], [])
         if [h["step"] for h in hist] != list(range(steps)):
             raise AssertionError(f"[disp_train] {who} took steps {[h['step'] for h in hist]}")
         if not all(math.isfinite(h[k]) for h in hist for k in keys):
@@ -3224,8 +3309,8 @@ def phase_disp_train(workdir: Path) -> dict:
         if got != want:
             raise AssertionError(f"[disp_train] {who}: gwc forward / backward / range backward launches and their "
                                  f"planes {got}, expected {want}")
-    h0, h1 = (r["hist"] + r["resumed"] for r in ranks)
-    for h, w in zip(h0, one_run["hist"] + one_run["resumed"]):
+    h0, h1 = (sum(r["hists"], []) for r in ranks)
+    for h, w in zip(h0, sum(one_run["hists"], [])):
         log(f"[disp_train] step {h['step']}: loss {h['total']:.4f} (one process {w['total']:.4f}), grad norm "
             f"{h['grad_norm']:.4f} ({w['grad_norm']:.4f}), epe {h['epe']:.4f} ({w['epe']:.4f})")
     if [{k: h[k] for k in keys} for h in h0] != [{k: h[k] for k in keys} for h in h1]:
@@ -3239,11 +3324,7 @@ def phase_disp_train(workdir: Path) -> dict:
     if ckpts != want_ckpts or len((logdir / "train_log.jsonl").read_text().splitlines()) != steps:
         raise AssertionError(f"[disp_train] checkpoints {ckpts} (expected {want_ckpts}) or train_log rows")
 
-    def ms_per_step(res):
-        gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(res["hist"], res["hist"][1:])]
-        return statistics.median(gaps), min(gaps), max(gaps)
-
-    ms2, ms1 = ms_per_step(ranks[0]), ms_per_step(one_run)
+    ms2, ms1 = _median_gap_ms(ranks[0]["hists"][0], skip=0), _median_gap_ms(one_run["hists"][0], skip=0)
     peaks = [r["peak_bytes"] for r in ranks]
     log(f"[disp_train] cli train --n-disp-shards {DISP_TRAIN_WORLD} (gloo, one card), DCANet(num_cva=3, "
         f"maxdisp=192) f32, batch 1x3x256x512: {steps} steps per rank, gwc forward / backward launches per rank "
@@ -3255,61 +3336,59 @@ def phase_disp_train(workdir: Path) -> dict:
         f"({max(peaks) / one_run['peak_bytes']:.1%}); the ranks bit-equal at the end; rank 1 wrote nothing; "
         f"the workers' wall time {wall:.1f} s")
 
-    two, two64 = ranks[0]["parity"], ranks[0]["parity64"]
-    for key in ("parity", "parity64"):
-        if ranks[1][key]["grads_digest"] != _grads_digest(ranks[0][key]["grads"]):
-            raise AssertionError(f"[disp_train] {key}: the ranks hold different summed gradients")
-        if ranks[0][key]["metrics"] != ranks[1][key]["metrics"]:
-            raise AssertionError(f"[disp_train] {key}: the ranks report different metrics")
-    rel, rel64 = _rel_metrics(two["metrics"], one["metrics"]), _rel_metrics(two64["metrics"], one64["metrics"])
-    stat_err = max(_scaled_err(two["stats"][k], one["stats"][k]) for k in one["stats"])
-    stat_err64 = max(_scaled_err(two64["stats"][k], one64["stats"][k]) for k in one64["stats"])
-    whole, each = _grad_rel(two["grads"], one["grads"])
-    whole64, each64 = _grad_rel(two64["grads"], one64["grads"])
-    step1, step2 = statistics.median(one["step_ms"]), statistics.median(two["step_ms"])
-    log(f"[disp_train] parity, one f32 step from the seeded weights on phase 10's global batch of 2 (cuDNN "
-        f"deterministic): 2 disp ranks vs one process: relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
-        + f"; BatchNorm statistics {stat_err:.3e} scaled (bounds: loss terms 1e-4, grad norm 1e-3, statistics "
-        f"1e-4); the whole gradient {whole:.2e} relative in L2, each parameter's worst {_worst(each)} (recorded)")
-    log(f"[disp_train] parity in float64 (the gwc volume by its plain version): relative "
-        + ", ".join(f"{k} {v:.2e}" for k, v in rel64.items()) + f"; BatchNorm statistics {stat_err64:.3e} scaled; "
-        f"the whole gradient {whole64:.2e}, each parameter's worst {_worst(each64)} (bounds: loss terms 1e-7, grad "
-        f"norm 1e-6, statistics 1e-10, each parameter 1e-7)")
+    held = _hold_parity("disp_train", ranks, one, one64)
+    step1, step2 = statistics.median(one["step_ms"]), statistics.median(ranks[0]["parity"]["step_ms"])
     log(f"[disp_train] the step alone at batch 2 (cuDNN defaults, median of {PARALLEL_TIMED} after "
         f"{PARALLEL_WARMUP} warm-ups): one process {step1:.3f} ms, 2 disp ranks time-sharing the card {step2:.3f} ms")
-    if max(v for k, v in rel.items() if k != "grad_norm") > 1e-4 or rel["grad_norm"] > 1e-3 or stat_err > 1e-4:
-        raise AssertionError("[disp_train] the 2-rank f32 step disagrees with the one-process step")
-    if (max(v for k, v in rel64.items() if k != "grad_norm") > 1e-7 or rel64["grad_norm"] > 1e-6
-            or stat_err64 > 1e-10 or max(each64.values()) > 1e-7):
-        raise AssertionError("[disp_train] the float64 2-rank step disagrees with the one-process step")
     log(f"[disp_train] card: {gpu_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(steps=steps, launches=[(r["fwd"], r["range_bwd"]) for r in ranks],
                 one_launches=(one_run["fwd"], one_run["bwd"]), ms_per_step=ms2[0], one_ms_per_step=ms1[0],
-                peak_bytes=peaks, one_peak_bytes=one_run["peak_bytes"],
-                parity=dict(rel=rel, stat_err=stat_err, whole_grad=whole, rel64=rel64, stat_err64=stat_err64,
-                            whole_grad64=whole64, worst_grad64=max(each64.values())),
+                peak_bytes=peaks, one_peak_bytes=one_run["peak_bytes"], parity=held,
                 step_ms={"one_process_batch2": step1, "two_disp_ranks": step2}, workers_s=wall)
 
 
-# `cli train` with its arguments, then the process's peak device memory on a
-# line of its own (`_train_on_cards`)
-_CLI_TRAIN_PEAK = ("import sys, torch; from dcanet_tpu_torch import cli; from dcanet_tpu_torch.parallel import "
-                   "shutdown; cli.main(sys.argv[1:]); "
-                   "print('PEAK_BYTES', torch.cuda.max_memory_allocated(), flush=True); shutdown()")
+def card_rank(argv: list) -> None:
+    """One rank of `_train_on_cards`, a process of its own: `cli train` with
+    `argv` (less a leading `--at-peak`) through `_train_run`, then one line
+    `CARD_RESULT {...}` with its peak device memory, gwc launches and their
+    planes and, with `--at-peak`, what holds the memory at the peak of one
+    more step on the last batch (`memory_at_peak`); then it leaves the
+    group."""
+    import torch
+
+    from dcanet_tpu_torch.parallel import shutdown
+    from dcanet_tpu_torch.train.loop import train_step
+
+    # this rank's card before any CUDA call (as `parallel.initialize` will
+    # choose it), so that no rank makes a context on another's card
+    torch.cuda.set_device(int(os.environ.get("DCANET_PROCESS_ID", "0")) % torch.cuda.device_count())
+    at_peak = argv[:1] == ["--at-peak"]
+    last = []
+    result = _train_run([argv[1:] if at_peak else argv], last=last)
+    result["steps"] = len(result.pop("hists")[0])
+    if at_peak:
+        result["at_peak"] = memory_at_peak(lambda: train_step(*last), top=4)
+    print("CARD_RESULT " + json.dumps(result), flush=True)
+    shutdown()
 
 
-def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pairs: int, n_disp: int = 1):
-    """`cli train` as a user starts it on `world` cards: one process per card
-    with the DCANET_* variables (NCCL), the same arguments (`--n-disp-shards
-    n_disp`: a (world / n_disp, n_disp) grid); rank 0's metrics.jsonl rows
-    (one per step) and each rank's peak device memory."""
+def _train_on_cards(world: int, batch: int, roots: tuple, logdir: Path, steps: int, preset: str = "sceneflow",
+                    dtype: str = "float32", n_disp: int = 1, loadckpt=None, epochs: int = 1, at_peak: bool = False):
+    """`cli train --preset preset` as a user starts it on `world` cards: one
+    process per card with the DCANET_* variables (NCCL), the same arguments:
+    the tree `roots` (--data-root, and --data-root2 for kitti_mix's second),
+    the global --batch-size, --dtype, --loadckpt, --epochs, `--n-disp-shards
+    n_disp` (a (world / n_disp, n_disp) grid). Rank 0's metrics.jsonl rows
+    (one per step, `steps` of them) and each rank's `card_rank` record."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    cmd = [sys.executable, "-c", _CLI_TRAIN_PEAK, "train", "--preset", "sceneflow", "--data-root", str(root),
-           "--logdir", str(logdir), "--batch-size", str(batch), "--dtype", "float32", "--seed", str(SEED),
-           "--print-freq", "1", "--num-workers", "4", "--epochs", "1", "--n-disp-shards", str(n_disp),
-           "--device", "cuda"]
+    cmd = [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.card_rank(sys.argv[1:])",
+           *(["--at-peak"] if at_peak else []), "train", "--preset", preset, "--data-root", str(roots[0]),
+           *(["--data-root2", str(roots[1])] if len(roots) > 1 else []), "--logdir", str(logdir),
+           "--batch-size", str(batch), "--dtype", dtype, "--seed", str(SEED), "--print-freq", "1",
+           "--num-workers", "4", "--epochs", str(epochs), "--n-disp-shards", str(n_disp),
+           *(["--loadckpt", str(loadckpt)] if loadckpt else []), "--device", "cuda"]
     procs = []
     for rank in range(world):
         env = dict(os.environ)
@@ -3329,16 +3408,17 @@ def _train_on_cards(world: int, batch: int, root: Path, logdir: Path, epochs_pai
                 p.kill()
                 p.wait()
     codes = [p.returncode for p in procs]
+    tag = f"[cards] {preset} {dtype} on {world} card(s), batch {batch}, disp {n_disp}"
     if codes != [0] * world:
-        raise AssertionError(f"[cards] {world} card(s), batch {batch}, disp {n_disp}: exit codes {codes}")
-    peaks = [int(line.split()[1]) for out in outs for line in out.splitlines() if line.startswith("PEAK_BYTES")]
+        raise AssertionError(f"{tag}: exit codes {codes}")
+    ranks = [json.loads(line.split(" ", 1)[1]) for out in outs for line in out.splitlines()
+             if line.startswith("CARD_RESULT ")]
     rows = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
-    if len(rows) != epochs_pairs // batch or not all(math.isfinite(r["train/total"]) for r in rows):
-        raise AssertionError(f"[cards] {world} card(s): {len(rows)} rows for {epochs_pairs // batch} steps, or a "
-                             "loss that is not finite")
-    if len(peaks) != world:
-        raise AssertionError(f"[cards] {world} card(s): {len(peaks)} peak memory lines")
-    return rows, peaks
+    if len(rows) != steps or not all(math.isfinite(r["train/total"]) for r in rows):
+        raise AssertionError(f"{tag}: {len(rows)} rows for {steps} steps, or a loss that is not finite")
+    if len(ranks) != world or any(r["steps"] != steps for r in ranks):
+        raise AssertionError(f"{tag}: {len(ranks)} rank records, steps {[r['steps'] for r in ranks]}")
+    return rows, ranks
 
 
 def _eval_on_cards(world: int, root: Path, ckpt: Path, logdir: Path, dtype: str) -> dict:
@@ -3375,9 +3455,9 @@ def _eval_on_cards(world: int, root: Path, ckpt: Path, logdir: Path, dtype: str)
     return {k.split("/", 1)[1]: v for k, v in row.items() if k.startswith("eval/")}
 
 
-def phase_cards(workdir: Path, flat) -> dict:
-    """Data-parallel `cli train` across the host's cards (opt-in: `--phases
-    cards`; needs two or more): DCANet(num_cva=3, maxdisp=192), the
+def _cards_sceneflow(workdir: Path, flat, worlds: list) -> dict:
+    """`--phases cards`: data-parallel `cli train`
+    across the host's cards: DCANet(num_cva=3, maxdisp=192), the
     SceneFlow preset's 256x512 crop, f32 with TF32 off, 1 pair per card, on
     1, 2, 4, ... cards, CARDS_STEPS steps each (host clock between rank 0's
     metric rows, median after CARDS_WARMUP intervals): ms/step, pairs/s and
@@ -3393,29 +3473,24 @@ def phase_cards(workdir: Path, flat) -> dict:
     ms/step, each card's peak memory (`max_memory_allocated` of its
     process), and the first step's loss terms against one card (rtol
     1e-4)."""
-    import torch
-
     from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
 
-    cards = torch.cuda.device_count()
-    if cards < 2:
-        raise AssertionError(f"[cards] needs two or more cards, found {cards}")
-    worlds = [w for w in (1, 2, 4, 8) if w <= cards]
     pairs = CARDS_STEPS * worlds[-1]
     root = write_sceneflow_tree(workdir / "cards_sceneflow", pairs, SCENEFLOW_HW, seed=SEED + 2)
     results = {}
     for world in worlds:
-        rows, peaks = _train_on_cards(world, world, root, workdir / f"cards_{world}", pairs)
-        gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])][CARDS_WARMUP:]
-        ms = statistics.median(gaps)
+        rows, ranks = _train_on_cards(world, world, (root,), workdir / f"cards_{world}", pairs // world)
+        peaks = [r["peak_bytes"] for r in ranks]
+        ms, lo, hi = _median_gap_ms(rows)
         results[world] = dict(ms=ms, pairs_per_s=1e3 * world / ms, first=rows[0], peaks=peaks)
         log(f"[cards] {world} card(s), 1 pair each: {len(rows)} steps, median {ms:.3f} ms/step over steps "
-            f"{CARDS_WARMUP + 1}-{len(rows) - 1} (range {min(gaps):.3f}-{max(gaps):.3f}), "
+            f"{CARDS_WARMUP + 1}-{len(rows) - 1} (range {lo:.3f}-{hi:.3f}), "
             f"{1e3 * world / ms:.3f} pairs/s, {1e3 / ms:.3f} pairs/s per card")
-    one_rows, one_peaks = _train_on_cards(1, 2, root, workdir / "cards_1_batch2", pairs)
+    one_rows, one_ranks = _train_on_cards(1, 2, (root,), workdir / "cards_1_batch2", pairs // 2)
+    one_peaks = [r["peak_bytes"] for r in one_ranks]
     one = one_rows[0]
     two = results[2]["first"]
-    rel = {k: abs(two[k] - one[k]) / abs(one[k]) for k in ("train/total", "train/focal", "train/smooth_l1")}
+    rel = _rel_metrics(two, one, tuple(f"train/{k}" for k in LOSS_TERMS))
     base = results[1]["pairs_per_s"]
     log("[cards] scaling, pairs/s against one card: " + ", ".join(
         f"{w} cards {r['pairs_per_s'] / base:.3f}x ({r['pairs_per_s'] / (w * base):.1%} per card)"
@@ -3425,22 +3500,22 @@ def phase_cards(workdir: Path, flat) -> dict:
     if max(rel.values()) > 1e-4:
         raise AssertionError("[cards] the 2-card step disagrees with one card at batch 2")
 
-    one_card = {1: results[1], 2: dict(ms=statistics.median(
-        [1e3 * (b["time"] - a["time"]) for a, b in zip(one_rows, one_rows[1:])][CARDS_WARMUP:]),
-        first=one, peaks=one_peaks)}  # one card at batch 1 and 2, from the runs above
+    one_card = {1: results[1], 2: dict(ms=_median_gap_ms(one_rows)[0], first=one,
+                                       peaks=one_peaks)}  # one card at batch 1 and 2, from the runs above
     disp_train = {}
     for world, n_disp, batch in ((2, 2, 1), (4, 2, 2)):
-        if world > cards:
+        if world > worlds[-1]:
             continue
-        rows, peaks = _train_on_cards(world, batch, root, workdir / f"cards_disp_{world}x{batch}", pairs, n_disp)
-        gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])][CARDS_WARMUP:]
-        run = disp_train[world, batch] = dict(ms=statistics.median(gaps), peaks=peaks, first=rows[0])
+        rows, ranks = _train_on_cards(world, batch, (root,), workdir / f"cards_disp_{world}x{batch}", pairs // batch,
+                                      n_disp=n_disp)
+        peaks = [r["peak_bytes"] for r in ranks]
+        ms, lo, hi = _median_gap_ms(rows)
+        run = disp_train[world, batch] = dict(ms=ms, peaks=peaks, first=rows[0])
         base = one_card[batch]
-        drel = {k: abs(run["first"][k] - base["first"][k]) / abs(base["first"][k])
-                for k in ("train/total", "train/focal", "train/smooth_l1")}
+        drel = _rel_metrics(run["first"], base["first"], tuple(f"train/{k}" for k in LOSS_TERMS))
         log(f"[cards] cli train --n-disp-shards {n_disp} on {world} card(s) (data={world // n_disp}), batch {batch}: "
-            f"median {run['ms']:.3f} ms/step over steps {CARDS_WARMUP + 1}-{len(rows) - 1} (range {min(gaps):.3f}-"
-            f"{max(gaps):.3f}; one card at batch {batch} {base['ms']:.3f}); peak memory per card "
+            f"median {ms:.3f} ms/step over steps {CARDS_WARMUP + 1}-{len(rows) - 1} (range {lo:.3f}-{hi:.3f}; "
+            f"one card at batch {batch} {base['ms']:.3f}); peak memory per card "
             f"{[round(p / 2**30, 4) for p in peaks]} GiB (one card {base['peaks'][0] / 2**30:.4f}); the first step "
             f"against one card, relative " + ", ".join(f"{k} {v:.2e}" for k, v in drel.items()) + " (bound 1e-4)")
         if max(drel.values()) > 1e-4:
@@ -3460,12 +3535,220 @@ def phase_cards(workdir: Path, flat) -> dict:
                 + " (bounds 5e-3 px, 1e-3)")
             if err["epe"] > 5e-3 or max(v for k, v in err.items() if k != "epe") > 1e-3:
                 raise AssertionError(f"[cards] the sharded eval on {world} cards disagrees with one card")
-    log(f"[cards] card: {gpu_line()} x {cards}")
-    return {"cards": cards, "runs": {w: {k: r[k] for k in ("ms", "pairs_per_s")} for w, r in results.items()},
+    return {"runs": {w: {k: r[k] for k in ("ms", "pairs_per_s")} for w, r in results.items()},
             "first_step_rel": rel,
             "eval_ms_per_pair": {f"{d} {w}": r["ms_per_pair"] for (d, w), r in evals.items()},
             "one_card_peaks": {b: r["peaks"] for b, r in one_card.items()},
             "disp_train": {f"{w}x{b}": {k: r[k] for k in ("ms", "peaks")} for (w, b), r in disp_train.items()}}
+
+
+def _preset_batch(name: str, roots: tuple, indices, crop=None) -> dict:
+    """The samples `indices` of the `name` preset's training set under
+    `roots` through its training transform (its crop, or `crop`), epoch
+    seed SEED, stacked: a global batch on the host."""
+    import torch
+
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+
+    ds = cli.build_dataset(preset(name, data_root=str(roots[0]), data_root2=str(roots[1]) if len(roots) > 1 else ""),
+                           training=True)
+    if crop:
+        ds.cfg = dict(ds.cfg, crop=crop)
+    ds.reseed(SEED)
+    samples = [ds[i] for i in indices]
+    return {k: torch.from_numpy(np.stack([s[k] for s in samples])) for k in samples[0]}
+
+
+def _cards_step_worker(rank: int, port: int, world: int, name: str, root: str, root2: str, batch_size: int,
+                       out_path: str) -> None:
+    """One card of `--phases cards_kitti`: NCCL over `world`
+    processes, one a card (`parallel.initialize` from the DCANET_*
+    variables); this card's share of the global batch of `batch_size` crops
+    of the preset's training set, resident on the card: one f32 step from
+    the seed's init (its loss terms, which must match one card's), then the
+    bf16 step alone (`step_alone`, STEP_ALONE_WARMUP + STEP_ALONE_TIMED
+    steps, the gradients all-reduced over the cards)."""
+    import torch
+
+    os.environ.update(DCANET_COORDINATOR=f"127.0.0.1:{port}", DCANET_NUM_PROCESSES=str(world),
+                      DCANET_PROCESS_ID=str(rank))
+    torch.cuda.set_device(rank)
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.parallel import initialize, make_mesh, shard_batch, shutdown
+    from dcanet_tpu_torch.train.loop import LossConfig
+
+    initialize(device="cuda")
+    roots = (root, root2) if root2 else (root,)
+    batch = shard_batch(_preset_batch(name, roots, range(batch_size)), make_mesh())
+    first = _parity_step(batch, name=name, timed=0)["metrics"]
+    cfg = preset(name, seed=SEED, dtype="bfloat16")
+    loss_cfg = LossConfig(max_disp=cfg.maxdisp, sparse=cfg.sparse_gt, preset=cfg.loss_preset)
+    alone = step_alone(cfg, {k: v.cuda() for k, v in batch.items()}, loss_cfg, STEP_ALONE_WARMUP + STEP_ALONE_TIMED,
+                       STEP_ALONE_WARMUP)
+    torch.save(dict(first=first, alone=alone), out_path)
+    shutdown()
+
+
+def _median_gap_ms(rows: list, skip: int = CARDS_WARMUP, epoch: int = 0) -> tuple:
+    """The median and range of the host-clock intervals between consecutive
+    records (`time`), the first `skip` left out; with `epoch` (the steps of
+    an epoch), only the intervals inside an epoch of metrics.jsonl rows
+    (`step` from 1) count."""
+    gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])
+            if not epoch or (a["step"] - 1) // epoch == (b["step"] - 1) // epoch][skip:]
+    return statistics.median(gaps), min(gaps), max(gaps)
+
+
+def cards_kitti(workdir: Path, worlds: list) -> dict:
+    """`--phases cards_kitti`: `cli train --preset kitti` at its
+    global batch of KITTI_BATCH in bf16 from `--loadckpt` of a seeded
+    model's weights, on 1, 2 and 4 cards (12, 6 and 3 pairs a card) under
+    NCCL, on a procedural kitti_mix of CARDS_KITTI_TREE + CARDS_KITTI_TREE
+    scenes at 376x1248, CARDS_KITTI_EPOCHS epochs: ms/step (host clock
+    between rank 0's metric rows, median after CARDS_WARMUP intervals),
+    pairs/s and the scaling against one card, each card's peak memory, one
+    bf16 gwc forward and one backward launch a step on each card of 48
+    planes; then on each card count the step alone (`_cards_step_worker`):
+    the first f32 step's loss terms against one card at the same global
+    batch (rtol 1e-4), the bf16 step alone's ms on a resident batch and
+    each card's peak."""
+    from dcanet_tpu_torch import cli
+    from dcanet_tpu_torch.config import preset
+    from dcanet_tpu_torch.train.checkpoint import save_params_only
+
+    k12, k15, _ = kitti_trees(workdir, CARDS_KITTI_TREE, 0)
+    weights = workdir / "cards_kitti_weights.pt"
+    save_params_only(weights, cli.build_train_state(preset("sceneflow", seed=SEED), 1, "cpu").model)
+    steps = CARDS_KITTI_EPOCHS * (2 * CARDS_KITTI_TREE // KITTI_BATCH)
+    runs = {}
+    for world in worlds:
+        rows, ranks = _train_on_cards(world, KITTI_BATCH, (k12, k15), workdir / f"cards_kitti_{world}", steps,
+                                      preset="kitti", dtype="bfloat16", loadckpt=weights, epochs=CARDS_KITTI_EPOCHS)
+        for r, res in enumerate(ranks):
+            if (res["fwd_by_dtype"], res["bwd_by_dtype"], set(res["fwd_planes"])) != (
+                    {"float32": 0, "bfloat16": steps}, {"float32": 0, "bfloat16": steps}, {MAIN_D}):
+                raise AssertionError(f"[cards kitti] {world} card(s), rank {r}: gwc launches {res['fwd_by_dtype']} / "
+                                     f"{res['bwd_by_dtype']}, planes {set(res['fwd_planes'])} in {steps} steps")
+        ms, lo, hi = _median_gap_ms(rows)
+        runs[world] = dict(ms=ms, ms_range=[lo, hi], pairs_per_s=1e3 * KITTI_BATCH / ms,
+                           peaks=[r["peak_bytes"] for r in ranks], first=rows[0])
+        log(f"[cards kitti] cli train --preset kitti --batch-size {KITTI_BATCH} --dtype bfloat16 --loadckpt on {world} "
+            f"card(s) ({KITTI_BATCH // world} pairs each): {steps} steps, one bf16 gwc forward and backward a step on "
+            f"each card; median {ms:.3f} ms/step over steps {CARDS_WARMUP + 1}-{steps - 1} (range {lo:.3f}-{hi:.3f}), "
+            f"{1e3 * KITTI_BATCH / ms:.3f} pairs/s; peak per card {[round(p / 2**30, 4) for p in runs[world]['peaks']]} "
+            "GiB")
+    base = runs[1]["pairs_per_s"]
+    log("[cards kitti] scaling, pairs/s against one card: " + ", ".join(
+        f"{w} cards {r['pairs_per_s'] / base:.3f}x ({r['pairs_per_s'] / (w * base):.1%} per card)"
+        for w, r in runs.items() if w > 1))
+    alone = {}
+    for world in worlds:
+        per_card, wall = run_workers(f"cards_kitti_alone_{world}", _cards_step_worker, world,
+                                     (world, "kitti", str(k12), str(k15), KITTI_BATCH), workdir, CARDS_TIMEOUT_S)
+        first = per_card[0]["first"]
+        if any(c["first"] != first for c in per_card[1:]):
+            raise AssertionError(f"[cards kitti] {world} card(s): the cards report different first-step metrics")
+        rel = _rel_metrics(first, alone[1]["first"], LOSS_TERMS) if world > 1 else {}
+        alone[world] = dict(first=first, rel=rel, ms=[c["alone"]["ms"] for c in per_card],
+                            peaks=[c["alone"]["peak_bytes"] for c in per_card])
+        log(f"[cards kitti] the step alone on {world} card(s), {KITTI_BATCH // world} resident pairs each: bf16 median "
+            f"{alone[world]['ms'][0]:.3f} ms over {STEP_ALONE_TIMED} steps after {STEP_ALONE_WARMUP} (rank 0; the "
+            f"cards {[round(m, 3) for m in alone[world]['ms']]}), {1e3 * KITTI_BATCH / alone[world]['ms'][0]:.3f} "
+            f"pairs/s, peak per card {[round(p / 2**30, 4) for p in alone[world]['peaks']]} GiB; cli train "
+            f"{runs[world]['ms']:.3f} ms/step; the first f32 step's loss {first['total']:.6f}"
+            + (", against one card " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + " (bound 1e-4)"
+               if rel else "") + f"; workers {wall:.1f} s")
+        if rel and max(rel.values()) > 1e-4:
+            raise AssertionError(f"[cards kitti] the first f32 step on {world} cards disagrees with one card")
+    return dict(runs={w: {k: r[k] for k in ("ms", "ms_range", "pairs_per_s", "peaks")} for w, r in runs.items()},
+                alone=alone, steps=steps)
+
+
+def cards_middlebury(workdir: Path, worlds: list) -> dict:
+    """`--phases cards_middlebury`: `cli train --preset
+    middlebury --n-disp-shards N` (maxdisp 240, the scenes halved, 320x704
+    crops, D = 60) on N = 1, 2 and 4 cards under NCCL, every card on the
+    same pair, in f32 and in bf16, CARDS_MIDDLEBURY_EPOCHS epochs of
+    MIDDLEBURY_TREE procedural scenes: ms/step (host clock between rank 0's
+    metric rows, median of the intervals inside an epoch after the first),
+    each card's peak memory and what holds it (`memory_at_peak` of one more
+    step), one gwc forward and one backward launch a step on each card of
+    its planes (`MIDDLEBURY_SHARDS`; the range backward above one card), and
+    the first f32 step's loss terms against one card (rtol 1e-4)."""
+    from dcanet_tpu_torch.data.synthetic import write_procedural_middlebury_tree
+
+    t0 = time.perf_counter()
+    root = workdir / "cards_middlebury"
+    if not root.exists():
+        write_procedural_middlebury_tree(root, MIDDLEBURY_TREE, seed=BENCHMARK_SEEDS[0])
+    log(f"[cards middlebury] {MIDDLEBURY_TREE} procedural scenes at 1988x2880 (seed {BENCHMARK_SEEDS[0]}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    steps = CARDS_MIDDLEBURY_EPOCHS * MIDDLEBURY_TREE
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        for world in worlds:
+            rows, ranks = _train_on_cards(world, 1, (root,), workdir / f"cards_middlebury_{dtype}_{world}", steps,
+                                          preset="middlebury", dtype=dtype, n_disp=world,
+                                          epochs=CARDS_MIDDLEBURY_EPOCHS, at_peak=True)
+            shares = MIDDLEBURY_SHARDS.get(world, ((0, MIDDLEBURY_D),))
+            for r, (res, (lo, hi)) in enumerate(zip(ranks, shares)):
+                want = (steps, steps, steps if world > 1 else 0, {hi - lo})
+                got = (res["fwd_by_dtype"][dtype], res["bwd_by_dtype"][dtype], res["range_bwd"], set(res["fwd_planes"]))
+                if got != want:
+                    raise AssertionError(f"[cards middlebury] {dtype} on {world} card(s), rank {r}: gwc forward / "
+                                         f"backward / range backward launches and planes {got}, expected {want}")
+            ms, lo, hi = _median_gap_ms(rows, skip=1, epoch=MIDDLEBURY_TREE)
+            run = runs[dtype, world] = dict(
+                ms=ms, ms_range=[lo, hi], first=rows[0], peaks=[r["peak_bytes"] for r in ranks],
+                at_peak=[r["at_peak"] for r in ranks],
+                launches_per_step=[(r["fwd_by_dtype"][dtype] / steps, r["range_bwd"] / steps) for r in ranks])
+            one = runs[dtype, 1]
+            rel = _rel_metrics(rows[0], one["first"], tuple(f"train/{k}" for k in LOSS_TERMS))
+            run["rel"] = rel
+            log(f"[cards middlebury] cli train --preset middlebury --dtype {dtype} --n-disp-shards {world} on {world} "
+                f"card(s): {steps} steps, gwc planes per card {[hi - lo for lo, hi in shares]}; median "
+                f"{ms:.3f} ms/step over the intervals inside an epoch, the first left out (range {lo:.3f}-{hi:.3f}; "
+                f"one card {one['ms']:.3f}); peak per card {[round(p / 2**30, 4) for p in run['peaks']]}"
+                f" GiB (one card {one['peaks'][0] / 2**30:.4f}, {max(run['peaks']) / one['peaks'][0]:.1%}); the first "
+                f"step against one card, relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+                + (" (bound 1e-4)" if dtype == "float32" else " (bf16, recorded)"))
+            for r, at in enumerate(run["at_peak"]):
+                log(f"[cards middlebury]   {dtype}, {world} card(s), rank {r}: one more step's peak "
+                    f"{at['peak_bytes'] / 2**30:.4f} GiB; held by " + "; ".join(
+                        f"{size / 2**20:.1f} MiB {site}" for site, size in at["sites"][:3]))
+            if dtype == "float32" and max(rel.values()) > 1e-4:
+                raise AssertionError(f"[cards middlebury] the first f32 step on {world} cards disagrees with one card")
+    return {f"{d} {w}": {k: r[k] for k in ("ms", "ms_range", "peaks", "rel", "launches_per_step")} |
+            {"at_peak": [{"peak_bytes": a["peak_bytes"], "sites": a["sites"][:3]} for a in r["at_peak"]]}
+            for (d, w), r in runs.items()}
+
+
+def phase_cards(workdir: Path, flat, phases: set) -> dict:
+    """The manual measurements across the host's cards (two or more) that
+    `phases` names, each on 1, 2 and 4 cards (and 8 where the host has
+    them): `cards` (`_cards_sceneflow`), `cards_kitti` (`cards_kitti`),
+    `cards_middlebury` (`cards_middlebury`, up to 4 cards). Writes
+    chiprun_out/cards.json."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"[cards] needs two or more cards, found {cards}")
+    worlds = [w for w in (1, 2, 4, 8) if w <= cards]
+    out = {"card": f"{gpu_line()} x {cards}"}
+    if "cards" in phases:
+        out["sceneflow"] = _cards_sceneflow(workdir, flat, worlds)
+    if "cards_kitti" in phases:
+        out["kitti"] = cards_kitti(workdir, worlds)
+    if "cards_middlebury" in phases:
+        out["middlebury"] = cards_middlebury(workdir, [w for w in worlds if w <= 4])
+    log(f"[cards] card: {out['card']}")
+    out_path = Path(__file__).resolve().parent / "chiprun_out" / "cards.json"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(out, indent=2))
+    log(f"[cards] summary: {json.dumps(out)}")
+    return out
 
 
 def phase_curve(workdir: Path, out_path: Path) -> dict:
@@ -3594,6 +3877,121 @@ def first_step_probe(record: list):
         loop.train_step = step_fn
 
 
+def _run_leg(tag: str, name: str, args: list, batch: dict, batch64: dict, workdir: Path, n_disp: int = 1,
+             loadckpt: str = None, grad_norm_bound: float = 1e-3) -> dict:
+    """A phase's leg over LEG_WORLD ranks that share the card: the parity
+    steps of one process on the whole global batches (f32 on `batch`,
+    float64 on `batch64`), then `_train_worker` over the ranks: `cli train`
+    with `args`, then the same steps on each rank's share with a mesh of
+    `n_disp` disp ranks; checks the ranks' records (every step, finite,
+    equal) and holds their parity steps to one process's (`_hold_parity`).
+    Returns the ranks' results, one process's f32 metrics, the workers'
+    wall time and the distances."""
+    import torch
+
+    paths = {key: workdir / f"{tag.replace(' ', '_')}_{key}.pt" for key in ("batch", "batch64")}
+    torch.save(batch, paths["batch"])
+    torch.save(batch64, paths["batch64"])
+    one = _parity_step(batch, name=name, loadckpt=loadckpt, timed=0)
+    one64 = _parity_step_f64(batch64, name=name, loadckpt=loadckpt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    parity = dict(name=name, loadckpt=loadckpt, n_disp=n_disp, timed=0, **{k: str(p) for k, p in paths.items()})
+    ranks, wall = run_workers(tag.replace(" ", "_"), _train_worker, LEG_WORLD, (LEG_WORLD, [args], None, parity),
+                              workdir, LEG_TIMEOUT_S)
+    keys = ("grad_norm", "epe") + tuple(k for k in LOSS_TERMS if k in one["metrics"])
+    h0 = ranks[0]["hists"][0]
+    for r, res in enumerate(ranks):
+        hist = res["hists"][0]
+        if [h["step"] for h in hist] != list(range(len(h0))) or not all(
+                math.isfinite(h[k]) for h in hist for k in keys):
+            raise AssertionError(f"[{tag}] rank {r}: steps {[h['step'] for h in hist]} or a metric not finite")
+        if [{k: h[k] for k in keys} for h in hist] != [{k: h[k] for k in keys} for h in h0]:
+            raise AssertionError(f"[{tag}] the ranks report different metrics")
+    log(f"[{tag}] the parity steps from the same weights: f32 on the global batch of {len(batch['disparity'])} at "
+        f"{tuple(batch['disparity'].shape[1:])}, float64 on the same samples at "
+        f"{tuple(batch64['disparity'].shape[1:])}")
+    held = _hold_parity(tag, ranks, one, one64, grad_norm_bound)
+    return dict(ranks=ranks, one=one["metrics"], parity=held, wall=wall)
+
+
+def kitti_leg(workdir: Path, k12: Path, k15: Path, weights: Path, one_peak: int) -> dict:
+    """The kitti phase's leg: `cli train --preset kitti` over LEG_WORLD ranks
+    on the one card (gloo), the global batch of KITTI_BATCH (6 a rank) in
+    bf16 from `--loadckpt weights`, KITTI_LEG_EPOCHS epochs: every metric
+    finite, the ranks' records equal, one bf16 gwc forward and one backward
+    launch a step on each rank (48 planes), ms/step and each rank's peak
+    beside the one-process run's (`one_peak`); the first step from the same
+    weights against one process (`_run_leg`, phase 10's bounds): f32 on the
+    global batch of KITTI_LEG_INDICES, float64 on the same samples at
+    KITTI_LEG_F64_CROP."""
+    steps = KITTI_LEG_EPOCHS * (2 * KITTI_TREE // KITTI_BATCH)
+    args = ["train", "--preset", "kitti", "--data-root", str(k12), "--data-root2", str(k15), "--logdir",
+            str(workdir / "kitti_leg_run"), "--loadckpt", str(weights), "--batch-size", str(KITTI_BATCH), "--dtype",
+            "bfloat16", "--epochs", str(KITTI_LEG_EPOCHS), "--print-freq", "1", "--num-workers", "4", "--seed",
+            str(SEED), "--device", "cuda"]
+    roots = (k12, k15)
+    leg = _run_leg("kitti leg", "kitti", args, _preset_batch("kitti", roots, KITTI_LEG_INDICES),
+                   _preset_batch("kitti", roots, KITTI_LEG_INDICES, KITTI_LEG_F64_CROP), workdir,
+                   loadckpt=str(weights))
+    ranks = leg["ranks"]
+    bf16 = {"float32": 0, "bfloat16": steps}
+    for r, res in enumerate(ranks):
+        got = (len(res["hists"][0]), res["fwd_by_dtype"], res["bwd_by_dtype"], set(res["fwd_planes"]))
+        if got != (steps, bf16, bf16, {MAIN_D}):
+            raise AssertionError(f"[kitti leg] rank {r}: steps, gwc launches by dtype and planes {got}, expected "
+                                 f"{(steps, bf16, bf16, {MAIN_D})}")
+    ms, lo, hi = _median_gap_ms(ranks[0]["hists"][0], skip=0)
+    peaks = [r["peak_bytes"] for r in ranks]
+    log(f"[kitti leg] cmd_train --preset kitti --batch-size {KITTI_BATCH} --dtype bfloat16 --loadckpt over "
+        f"{LEG_WORLD} ranks (gloo, one card; {KITTI_BATCH // LEG_WORLD} pairs a rank): {steps} steps, gwc launches per "
+        f"rank {[(r['fwd'], r['bwd']) for r in ranks]} (one bf16 forward and backward a step); rank 0 median "
+        f"{ms:.3f} ms/step over steps 1-{steps - 1} (range {lo:.3f}-{hi:.3f}; one card time-shared); peak per rank "
+        f"{[round(p / 2**30, 4) for p in peaks]} GiB (one process {one_peak / 2**30:.4f}); the workers' wall time "
+        f"{leg['wall']:.1f} s; {gpu_line()}")
+    return dict(steps=steps, launches=[(r["fwd"], r["bwd"]) for r in ranks], ms=ms, peak_bytes=peaks,
+                parity=leg["parity"], workers_s=leg["wall"])
+
+
+def middlebury_leg(workdir: Path, root: Path, one_peak: int) -> dict:
+    """The middlebury phase's leg: `cli train --preset middlebury
+    --n-disp-shards LEG_WORLD` over LEG_WORLD ranks on the one card (gloo),
+    in bf16, one epoch of the phase's MIDDLEBURY_TREE scenes: every metric
+    finite, the ranks' records equal, one bf16 gwc forward and one range
+    backward a step on each rank of its planes (MIDDLEBURY_SHARDS: [0, 30)
+    and [30, 60) of D = 60), ms/step and each rank's peak beside the
+    one-process bf16 run's (`one_peak`); the first step from the seed's
+    init against one process (`_run_leg`): f32 on one 320x704 crop (the f32
+    grad norm within 3e-3, phase 14's bound at maxdisp 240), float64 on the
+    same sample at MIDDLEBURY_PARITY_CROP."""
+    steps = MIDDLEBURY_TREE
+    args = ["train", "--preset", "middlebury", "--data-root", str(root), "--logdir", str(workdir / "middlebury_leg_run"),
+            "--dtype", "bfloat16", "--n-disp-shards", str(LEG_WORLD), "--epochs", "1", "--print-freq", "1",
+            "--num-workers", "4", "--seed", str(SEED), "--device", "cuda"]
+    leg = _run_leg("middlebury leg", "middlebury", args, _preset_batch("middlebury", (root,), (0,)),
+                   _preset_batch("middlebury", (root,), (0,), MIDDLEBURY_PARITY_CROP), workdir, n_disp=LEG_WORLD,
+                   grad_norm_bound=3e-3)
+    ranks = leg["ranks"]
+    bf16 = {"float32": 0, "bfloat16": steps}
+    for r, (res, (lo, hi)) in enumerate(zip(ranks, MIDDLEBURY_SHARDS[LEG_WORLD])):
+        got = (len(res["hists"][0]), res["fwd_by_dtype"], res["bwd_by_dtype"], res["range_bwd"],
+               set(res["fwd_planes"]), set(res["bwd_planes"]))
+        want = (steps, bf16, bf16, steps, {hi - lo}, {hi - lo})
+        if got != want:
+            raise AssertionError(f"[middlebury leg] rank {r}: steps, gwc forward / backward launches by dtype, range "
+                                 f"backward launches and planes {got}, expected {want}")
+    ms, lo, hi = _median_gap_ms(ranks[0]["hists"][0], skip=0)
+    peaks = [r["peak_bytes"] for r in ranks]
+    log(f"[middlebury leg] cmd_train --preset middlebury --dtype bfloat16 --n-disp-shards {LEG_WORLD} (gloo, one "
+        f"card): {steps} steps, gwc forward / range backward launches per rank "
+        f"{[(r['fwd'], r['range_bwd']) for r in ranks]} of planes {MIDDLEBURY_SHARDS[LEG_WORLD]}; rank 0 "
+        f"median {ms:.3f} ms/step over steps 1-{steps - 1} (range {lo:.3f}-{hi:.3f}; one card time-shared); peak per "
+        f"rank {[round(p / 2**30, 4) for p in peaks]} GiB (one process {one_peak / 2**30:.4f}, "
+        f"{max(peaks) / one_peak:.1%}); the workers' wall time {leg['wall']:.1f} s; {gpu_line()}")
+    return dict(steps=steps, launches=[(r["fwd"], r["range_bwd"]) for r in ranks], ms=ms, peak_bytes=peaks,
+                parity=leg["parity"], workers_s=leg["wall"])
+
+
 def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
     """The KITTI training stage (the `kitti` phase): `cli export` of the newest
     checkpoint under `pretrain_logdir` (phase 6's run; a seeded model's
@@ -3662,15 +4060,14 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
         ckpts = sorted(q.name for q in (logdir / "ckpt").iterdir())
         if len(ckpts) != KITTI_EPOCHS:
             raise AssertionError(f"[kitti] {tag}: checkpoints {ckpts}, expected one per epoch")
-        step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(hist, hist[1:])][TRAIN_WARMUP - 1:]
-        ms = statistics.median(step_ms)
-        runs[tag] = dict(steps=steps, ms=ms, ms_range=[min(step_ms), max(step_ms)],
+        ms, lo, hi = _median_gap_ms(hist, skip=TRAIN_WARMUP - 1)
+        runs[tag] = dict(steps=steps, ms=ms, ms_range=[lo, hi],
                          pairs_per_s=1e3 * KITTI_BATCH / ms, peak_bytes=peak, fwd=fwd, bwd=bwd,
                          first_loss=hist[0]["total"], last_loss=hist[-1]["total"])
         log(f"[kitti] cmd_train --preset kitti --batch-size {KITTI_BATCH} --dtype bfloat16{' --remat' if remat else ''}"
             f" --loadckpt (the export, bit-equal at step 0; fresh Adam, lr {start['lr']}), {KITTI_BATCH}x3x256x512 crops"
             f" of kitti_mix: {steps} steps, gwc launches forward {fwd}, backward {bwd}; median {ms:.3f} ms/step over "
-            f"steps {TRAIN_WARMUP}-{steps - 1} (range {min(step_ms):.3f}-{max(step_ms):.3f}), "
+            f"steps {TRAIN_WARMUP}-{steps - 1} (range {lo:.3f}-{hi:.3f}), "
             f"{1e3 * KITTI_BATCH / ms:.3f} pairs/s, peak memory {peak / 2**30:.4f} GiB; checkpoints {ckpts}")
     plain, rem = runs["no remat"], runs["remat"]
     loss_rel = abs(rem["first_loss"] - plain["first_loss"]) / abs(plain["first_loss"])
@@ -3680,6 +4077,7 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
         f"({rem['ms'] / plain['ms']:.3f}x)")
     if loss_rel > 1e-3 or not rem["peak_bytes"] < plain["peak_bytes"]:
         raise AssertionError("[kitti] the remat run's first loss or its peak memory is off")
+    leg = kitti_leg(workdir, k12, k15, weights, plain["peak_bytes"])
 
     gwc.reset_launch_counts()
     cfg = preset("kitti", dataset="kitti2015", data_root=str(val), dtype="bfloat16", batch_size=1, seed=SEED,
@@ -3693,10 +4091,11 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
         f"run's newest checkpoint: EPE {r['epe']:.4f} px, D1 {r['d1']:.5f}, {r['ms_per_pair']:.3f} ms/pair, gwc "
         f"launches {eval_fwd}")
     launches = dict(train_fwd=plain["fwd"]["bfloat16"] + rem["fwd"]["bfloat16"],
-                    train_bwd=plain["bwd"]["bfloat16"] + rem["bwd"]["bfloat16"], eval=eval_fwd["bfloat16"])
+                    train_bwd=plain["bwd"]["bfloat16"] + rem["bwd"]["bfloat16"], eval=eval_fwd["bfloat16"],
+                    leg_fwd=sum(f for f, _ in leg["launches"]), leg_bwd=sum(b for _, b in leg["launches"]))
     seconds = time.perf_counter() - t_phase
     log(f"[kitti] the phase took {seconds:.1f} s")
-    return dict(runs=runs, remat_loss_rel=loss_rel, eval=evaluation, launches=launches, seconds=seconds)
+    return dict(runs=runs, remat_loss_rel=loss_rel, leg=leg, eval=evaluation, launches=launches, seconds=seconds)
 
 
 def benchmark_trees(workdir: Path) -> tuple:
@@ -3892,6 +4291,8 @@ def phase_middlebury(workdir: Path) -> dict:
                      epochs=epochs, print_freq=1, seed=SEED)
         runs[tag] = _benchmark_train_run(tag, cfg, scenes)
     marks.append(("cmd_train runs", time.perf_counter()))
+    leg = middlebury_leg(workdir, mb_train, runs["middlebury bf16"]["peak_bytes"])
+    marks.append(("disp-sharded leg", time.perf_counter()))
 
     ds = cli.build_dataset(preset("middlebury", data_root=str(mb_train)), training=True)
     ds.cfg = dict(ds.cfg, crop=MIDDLEBURY_PARITY_CROP)
@@ -3971,12 +4372,13 @@ def phase_middlebury(workdir: Path) -> dict:
                     middlebury_train_bwd=sum(runs[t]["bwd"][d] for t, d in (("middlebury f32", "float32"),
                                                                            ("middlebury bf16", "bfloat16"))),
                     eth3d_train_fwd=runs["eth3d bf16"]["fwd"]["bfloat16"],
-                    eth3d_train_bwd=runs["eth3d bf16"]["bwd"]["bfloat16"], middlebury_eval=eval_launches)
+                    eth3d_train_bwd=runs["eth3d bf16"]["bwd"]["bfloat16"], middlebury_eval=eval_launches,
+                    leg_fwd=[f for f, _ in leg["launches"]], leg_range_bwd=[b for _, b in leg["launches"]])
     marks.append(("cli eval", time.perf_counter()))
     seconds = time.perf_counter() - t_phase
     log(f"[middlebury] the phase took {seconds:.1f} s: " + ", ".join(
         f"{name} {t - t_prev:.1f} s" for (name, t), t_prev in zip(marks, [t_phase] + [t for _, t in marks])))
-    return dict(runs=runs, parity=parity, eval=evaluation, eval_shape=list(shape), launches=launches,
+    return dict(runs=runs, leg=leg, parity=parity, eval=evaluation, eval_shape=list(shape), launches=launches,
                 seconds=seconds)
 
 
@@ -4121,6 +4523,15 @@ def phase_finetune(workdir: Path, out_dir: Path) -> dict:
     return result
 
 
+def _shard_launches(middlebury: dict, planes, tag: str, key: str = "leg_fwd") -> int:
+    """The middlebury phase's 2-rank leg's launches (bf16) of one rank's
+    planes; 0 for another range or dtype."""
+    shards = MIDDLEBURY_SHARDS[LEG_WORLD]
+    if tag != "bf16" or tuple(planes) not in shards:
+        return 0
+    return middlebury["launches"][key][shards.index(tuple(planes))]
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "launches_by_path": by_path, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4130,14 +4541,17 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
 PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp",
           "disp_train", "kitti", "middlebury")
 # measurements that the default run never starts
-MANUAL_PHASES = {"cards", "curve", "kitti12", "finetune", "middlebury_step"}
+# the manual measurements across the host's cards (`phase_cards`)
+CARDS_PHASES = {"cards", "cards_kitti", "cards_middlebury"}
+MANUAL_PHASES = CARDS_PHASES | {"curve", "kitti12", "finetune", "middlebury_step"}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %(default)s to run after the build, or a manual "
-                         "measurement: `cards` (two or more cards: `cli train` across them), `curve` (the "
+                         "measurement: `cards`, `cards_kitti`, `cards_middlebury` (two or more cards: `cli "
+                         "train` of the sceneflow, kitti or middlebury preset across them), `curve` (the "
                          "training curve, ~30 min), `kitti12` (the KITTI step alone at batch 12, f32 / bf16 x "
                          "remat / none), `finetune` (the curve, then the KITTI fine-tune leg, ~35 min) or "
                          "`middlebury_step` (the Middlebury step alone, f32 / bf16 x remat / none); the summary "
@@ -4186,8 +4600,8 @@ def main(argv=None) -> int:
             disp = phase_disp(Path(tmp), flat)
         if "disp_train" in phases:
             disp_train = phase_disp_train(Path(tmp))
-        if "cards" in phases:
-            phase_cards(Path(tmp), flat)
+        if phases & CARDS_PHASES:
+            phase_cards(Path(tmp), flat, phases)
         if "kitti" in phases:
             kitti = phase_kitti(Path(tmp), Path(tmp) / "run" if "train" in phases else None)
         if "middlebury" in phases:
@@ -4221,7 +4635,9 @@ def main(argv=None) -> int:
              "disp_train": sum(f for f, _ in disp_train["launches"]),
              "disp_train_one_process": disp_train["one_launches"][0],
              "kitti_train": kitti["launches"]["train_fwd"], "kitti_eval": kitti["launches"]["eval"],
+             "kitti_train_2_ranks": kitti["launches"]["leg_fwd"],
              "middlebury_train": middlebury["launches"]["middlebury_train_fwd"],
+             "middlebury_disp_train_2_ranks": sum(middlebury["launches"]["leg_fwd"]),
              "eth3d_train": middlebury["launches"]["eth3d_train_fwd"],
              "middlebury_eval": middlebury["launches"]["middlebury_eval"],
              **{k: v for k, v in family["launches"].items() if not k.startswith("family_train_backward")}},
@@ -4241,6 +4657,13 @@ def main(argv=None) -> int:
                              "float32": {"max_abs_err": errs["gwc"]["train b12 f32"], **gwc_t["train b12 f32"]},
                              "bfloat16": {"max_abs_err": errs["gwc"]["train b12 bf16"], **gwc_t["train b12 bf16"],
                                           "launches": kitti["launches"]["train_fwd"]}},
+            # a rank's share of it in the kitti phase's 2-rank leg (6) and on
+            # 4 cards (3; `--phases cards_kitti` alone)
+            **{f"train_b{b}_shape": {
+                "features": [b, *TRAIN_SHAPE[1:]],
+                "float32": {"max_abs_err": errs["gwc"][f"train b{b} f32"], **gwc_t[f"train b{b} f32"]},
+                "bfloat16": {"max_abs_err": errs["gwc"][f"train b{b} bf16"], **gwc_t[f"train b{b} bf16"],
+                             "launches": kitti["launches"]["leg_fwd"] if b == 6 else 0}} for b in (6, 3)},
             # the middlebury phase's launches at D = 60: its train crops (f32 and
             # bf16 runs) and its eval pairs (f32 and bf16, two runs each)
             middlebury_train_shape={
@@ -4258,10 +4681,14 @@ def main(argv=None) -> int:
                               "bfloat16": {"max_abs_err": errs["gwc"]["kitti eval bf16"],
                                            **gwc_t["kitti eval bf16"]}},
             # the disparity-sharded eval's launches (disp_eval) take the planes
-            # [0, 24) on rank 0 and [24, 48) on rank 1 of D = 48
+            # [0, 24) on rank 0 and [24, 48) on rank 1 of D = 48; the middlebury
+            # phase's 2-rank leg [0, 30) and [30, 60) of D = 60, in bf16 (the
+            # 4-rank ranges launch in `--phases cards_middlebury` alone)
             plane_ranges={f"{name} {tag}": {"features": list(shape), "maxdisp": d, "planes": planes,
-                                            "max_abs_err": errs["gwc"][f"{name} {tag}"], **gwc_t[f"{name} {tag}"]}
-                          for name, shape, _, d, planes in GWC_RANGES[:5] for tag in ("f32", "bf16")},
+                                            "max_abs_err": errs["gwc"][f"{name} {tag}"], **gwc_t[f"{name} {tag}"],
+                                            **({"launches": _shard_launches(middlebury, planes, tag)}
+                                               if name.startswith("middlebury train") else {})}
+                          for name, shape, _, d, planes in GWC_TIMED_RANGES for tag in ("f32", "bf16")},
         ),
         kernel_entry(
             "gwc_volume_backward", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
@@ -4269,6 +4696,7 @@ def main(argv=None) -> int:
                            "parallel_train": sum(b for _, b in parallel["launches"]),
                            "disp_train_one_process": disp_train["one_launches"][1],
                            "kitti_train": kitti["launches"]["train_bwd"],
+                           "kitti_train_2_ranks": kitti["launches"]["leg_bwd"],
                            "middlebury_train": middlebury["launches"]["middlebury_train_bwd"],
                            "eth3d_train": middlebury["launches"]["eth3d_train_bwd"],
                            **{k.replace("_backward", ""): v for k, v in family["launches"].items()
@@ -4284,6 +4712,11 @@ def main(argv=None) -> int:
                              "float32": {"max_abs_err": errs["gwc_bwd"]["train b12 f32"], **bwd_t["train b12 f32"]},
                              "bfloat16": {"max_abs_err": errs["gwc_bwd"]["train b12 bf16"], **bwd_t["train b12 bf16"],
                                           "launches": kitti["launches"]["train_bwd"]}},
+            **{f"train_b{b}_shape": {
+                "features": [b, *TRAIN_SHAPE[1:]],
+                "float32": {"max_abs_err": errs["gwc_bwd"][f"train b{b} f32"], **bwd_t[f"train b{b} f32"]},
+                "bfloat16": {"max_abs_err": errs["gwc_bwd"][f"train b{b} bf16"], **bwd_t[f"train b{b} bf16"],
+                             "launches": kitti["launches"]["leg_bwd"] if b == 6 else 0}} for b in (6, 3)},
             middlebury_shape={"features": list(MIDDLEBURY_SHAPE), "maxdisp": MIDDLEBURY_D,
                               "launches": middlebury["launches"]["middlebury_train_bwd"],
                               "float32": {"max_abs_err": errs["gwc_bwd"]["middlebury f32"], **bwd_t["middlebury f32"]},
@@ -4291,17 +4724,22 @@ def main(argv=None) -> int:
                                            **bwd_t["middlebury bf16"]}},
         ),
         # the backward of a plane range: rank 0 of the disparity-sharded train
-        # step takes [0, 24), rank 1 [24, 48) (the range arithmetic, d_lo > 0)
+        # step takes [0, 24), rank 1 [24, 48) (the range arithmetic, d_lo > 0);
+        # the middlebury phase's 2-rank leg [0, 30) and [30, 60) of D = 60
         kernel_entry(
             "gwc_volume_backward_range", "dcanet_tpu_torch/csrc/gwc.cu", "dcanet_tpu/kernels/gwc.py:133",
-            sum(b for _, b in disp_train["launches"]), {"disp_train": sum(b for _, b in disp_train["launches"])},
+            sum(b for _, b in disp_train["launches"]) + sum(middlebury["launches"]["leg_range_bwd"]),
+            {"disp_train": sum(b for _, b in disp_train["launches"]),
+             "middlebury_disp_train_2_ranks": sum(middlebury["launches"]["leg_range_bwd"])},
             errs["gwc_bwd"]["train [24,48) f32"], range_t["train [24,48) f32"],
             dtype="float32", shape={"features": list(TRAIN_SHAPE), "groups": MAIN_GROUPS, "maxdisp": MAIN_D,
                                     "planes": [24, 48]},
             bfloat16={"max_abs_err": errs["gwc_bwd"]["train [24,48) bf16"], **range_t["train [24,48) bf16"]},
             plane_ranges={f"{name} {tag}": {"features": list(shape), "maxdisp": d, "planes": list(planes),
                                             "max_abs_err": errs["gwc_bwd"][f"{name} {tag}"],
-                                            **range_t[f"{name} {tag}"]}
+                                            **range_t[f"{name} {tag}"],
+                                            **({"launches": _shard_launches(middlebury, planes, tag, "leg_range_bwd")}
+                                               if name.startswith("middlebury train") else {})}
                           for name, shape, _, d, planes in GWC_BWD_RANGES for tag in ("f32", "bf16")},
         ),
         kernel_entry(

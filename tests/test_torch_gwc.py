@@ -220,6 +220,9 @@ def test_forward_index_map_emulation(tile, shape, groups, maxdisp):
         ((1, 16, 2, 72), 4, 60, (30, 38)),  # a middle rank at D = 60 (30 % kV != 0), inside W
         ((2, 8, 2, 150), 8, 140, (6, 130)),  # CPG = 1, several passes over d, D % pass != 0
         ((1, 32, 3, 24), 4, 8, (2, 6)),  # D < one pass
+        # the disparity-sharded Middlebury train step's ranks (maxdisp 240,
+        # W/4 = 176): 2 ranks (d_lo 30 % kV != 0) and 4 (16, 32, 46)
+        *(((1, 16, 2, 176), 4, 60, planes) for planes in ((0, 30), (30, 60), (0, 16), (16, 32), (32, 46), (46, 60))),
     ],
 )
 def test_forward_plane_range_index_map_emulation(tile, shape, groups, maxdisp, planes):
@@ -570,6 +573,9 @@ def test_backward_index_map_emulation(tile, shape, groups, maxdisp):
         ((2, 8, 2, 150), 8, 140, (10, 130)),  # CPG = 1, more rows than the halo: several split passes
         ((1, 64, 1, 130), 2, 48, (40, 48)),  # CPG = 32 on two tiles
         ((2, 16, 3, 7), 4, 12, (8, 12)),  # every plane at or past W
+        # the disparity-sharded Middlebury train step's ranks (maxdisp 240,
+        # W/4 = 176): 2 ranks (d_lo 30 % kND != 0) and 4 (16, 32, 46)
+        *(((1, 16, 2, 176), 4, 60, planes) for planes in ((0, 30), (30, 60), (0, 16), (16, 32), (32, 46), (46, 60))),
     ],
 )
 def test_backward_plane_range_index_map_emulation(tile, shape, groups, maxdisp, planes):
