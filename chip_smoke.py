@@ -38,6 +38,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      shape); the gwc kernels
      retimed at the end; for context only, F.conv3d f32 with TF32 on (time,
      and its error, which misses the f32 tolerance).
+  2b. io: the native PNG decoder (`data/native.py` over `csrc/stereoio.cpp`,
+     host code, built with the kernels by the host compiler) exact against
+     the plain numpy reader and the written pixels: a procedural KITTI
+     scene at 376x1248 (RGB and its uint16 sparse gt) with each filter type
+     on every row and with the writer's own choice per row, and a 1988x2880
+     scene (the writer's choice, against the pixels alone); single-thread
+     ms/image of the native decoder, the plain reader and zlib's inflate of
+     the IDAT alone; `read_image` of 24 KITTI images serially and on an
+     8-thread pool beside one image; the host's usable CPU count beside the
+     card's name and power limit. Phases 13 and 14 then write their trees
+     with the same writer (every row's filter chosen as libpng chooses it).
   3. model: DCANet(num_cva=3, maxdisp=192) eval on one 1x3x384x1248 pair,
      weights from `weights.from_jax_variables` on seeded numpy arrays, in bf16
      autocast with the eval BatchNorm folded into its conv (the default, as
@@ -237,8 +248,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      cuDNN's defaults, the host's decode of each pair and the forward alone.
      Phase 2 checks and times the gwc forward at the phase's train crop and
      eval pair.
- 15. summary: the card's name and power limit, one `{"kernels": [...]}` line,
-     and last `{"ok": true, "device": {...}}`.
+ 15. summary: each phase's summary line (the io phase's `[io] summary`),
+     the card's name and power limit, one `{"kernels": [...]}` line, and
+     last `{"ok": true, "device": {...}}`.
 
 `--phases cards`, `cards_kitti` and `cards_middlebury`, manual measurements
 outside the smoke's phases (never run by default; each needs two or more
@@ -549,7 +561,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     report = build.build()
-    log(f"[build] {len(report)} kernel(s) in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    log(f"[build] {len(report)} libraries in {time.perf_counter() - t0:.2f} s (one nvcc per kernel, the host "
+        "compiler for the PNG decoder, all at once)")
     for name, r in report.items():
         log(f"[build] {name}: {r['seconds']:.2f} s -> {r['path']}")
         for line in r["log"].splitlines():
@@ -1027,6 +1040,115 @@ def phase_kernels():
     del flush
     torch.cuda.empty_cache()
     return dict(gwc=errs, gwc_bwd=bwd_errs, conv3d=conv_errs, conv3d_bwd=bwd_conv_errs), timing
+
+
+# io phase: the native PNG decoder at KITTI's and MiddEval3's sizes
+IO_SEED = 11
+IO_FILTERS = {"none": 0, "sub": 1, "up": 2, "average": 3, "paeth": 4, "mixed": None}
+IO_MIDDLEBURY_HW = (1988, 2880)
+IO_POOL_IMAGES, IO_POOL_THREADS = 24, 8  # one KITTI batch's images on the loader's decode pool
+
+
+def _idat(png: bytes) -> bytes:
+    """A PNG's IDAT payloads, joined: what zlib inflates."""
+    import struct
+
+    parts, pos = [], 8
+    while pos < len(png):
+        n, ctype = struct.unpack(">I4s", png[pos : pos + 8])
+        if ctype == b"IDAT":
+            parts.append(png[pos + 8 : pos + 8 + n])
+        pos += 12 + n
+    return b"".join(parts)
+
+
+def _host_ms(fn, runs: int) -> float:
+    """Median host-clock ms of `fn` over `runs` calls after one more."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_io(workdir: Path) -> dict:
+    """The native PNG decoder (`data/native.py` over `csrc/stereoio.cpp`),
+    host code that the loader runs on the card's host: exact against the
+    plain numpy reader (`data/io.py::read_png`) and the written pixels, on a
+    procedural KITTI scene at 376x1248 (RGB, and its uint16 sparse gt) with
+    each filter type on every row and with the writer's own choice per row
+    (libpng's heuristic), and on the scene upsampled to MiddEval3's
+    1988x2880 (the writer's choice; no plain read there, ~12 s a file); single-thread
+    ms/image of the native decoder, the plain reader and zlib's inflate of
+    the IDAT alone (the floor); `read_image` of IO_POOL_IMAGES KITTI images
+    (12 procedural scenes, left and right) serially and on an
+    IO_POOL_THREADS-thread pool (the loader's decode pool), beside one image
+    alone. Host clock, medians; the card's name and power limit and the
+    host's usable CPU count beside them."""
+    import concurrent.futures
+    import zlib
+
+    from dcanet_tpu_torch.data import io, native
+    from dcanet_tpu_torch.data.synthetic import (_resize_bilinear, kitti_sparse_gt, procedural_scene,
+                                                 write_procedural_kitti_tree)
+
+    t_phase = time.perf_counter()
+    cpus = len(os.sched_getaffinity(0))
+    h, w = KITTI_TRAIN_HW
+    left, _, disp = procedural_scene(IO_SEED, h, w)
+    images = {"rgb": left, "gt16": kitti_sparse_gt(disp, IO_SEED)}
+    out: dict = {"card": gpu_line(), "cpus": cpus, "kitti_hw": [h, w], "files": {}}
+    for kind, img in images.items():
+        for name, f in IO_FILTERS.items():
+            png = io._encode_png(img, None if f is None else np.full(h, f))
+            path = workdir / f"io_{kind}_{name}.png"
+            path.write_bytes(png)
+            got = native.read_image_f32(path)
+            if not (np.array_equal(got, io.read_png(path).astype(np.float32))
+                    and np.array_equal(got, img.astype(np.float32))):
+                raise RuntimeError(f"[io] native decode of {path.name} differs from the plain reader's or the pixels")
+            row = {"bytes": len(png), "native_ms": _host_ms(lambda: native.read_image_f32(path), 5),
+                   "inflate_ms": _host_ms(lambda: zlib.decompress(_idat(png)), 5)}
+            if kind == "rgb":
+                row["plain_ms"] = _host_ms(lambda: io.read_png(path), 3 if f in (0, 1, 2) else 1)
+            out["files"][f"{kind} {name}"] = row
+            log(f"[io] {kind} {h}x{w} {name}: exact; native {row['native_ms']:.3f} ms, "
+                f"inflate alone {row['inflate_ms']:.3f}" + (f", plain {row['plain_ms']:.3f}" if "plain_ms" in row
+                                                            else "") + f" ({len(png)} B)")
+    mh, mw = IO_MIDDLEBURY_HW
+    # the KITTI scene upsampled: a procedural scene of this size takes ~14 s to draw
+    big = np.clip(np.rint(_resize_bilinear(left.astype(np.float32), mh, mw)), 0, 255).astype(np.uint8)
+    path = workdir / "io_middlebury.png"
+    t0 = time.perf_counter()
+    io.write_png(path, big)
+    write_s = time.perf_counter() - t0
+    if not np.array_equal(native.read_image_f32(path), big.astype(np.float32)):
+        raise RuntimeError("[io] native decode of the 1988x2880 file differs from the written pixels")
+    png = path.read_bytes()
+    out["middlebury"] = {"hw": [mh, mw], "bytes": len(png), "write_s": write_s,
+                         "native_ms": _host_ms(lambda: native.read_image_f32(path), 3),
+                         "inflate_ms": _host_ms(lambda: zlib.decompress(_idat(png)), 3)}
+    log(f"[io] rgb {mh}x{mw} mixed: exact; native {out['middlebury']['native_ms']:.3f} ms, inflate alone "
+        f"{out['middlebury']['inflate_ms']:.3f} ({len(png)} B; written in {write_s:.2f} s)")
+    t0 = time.perf_counter()
+    root = write_procedural_kitti_tree(workdir / "io_kitti", "kitti2015", IO_POOL_IMAGES // 2, KITTI_TRAIN_HW,
+                                       seed=IO_SEED)
+    tree_s = time.perf_counter() - t0
+    paths = sorted(root.glob("image_[23]/*.png"))
+    with concurrent.futures.ThreadPoolExecutor(IO_POOL_THREADS) as pool:
+        pooled = _host_ms(lambda: list(pool.map(io.read_image, paths)), 5)
+    out["pool"] = {"images": len(paths), "threads": IO_POOL_THREADS, "tree_s": tree_s, "pool_ms": pooled,
+                   "serial_ms": _host_ms(lambda: [io.read_image(p) for p in paths], 3),
+                   "one_ms": _host_ms(lambda: io.read_image(paths[0]), 5)}
+    pool_row = out["pool"]
+    log(f"[io] read_image of {len(paths)} KITTI images (tree of {len(paths) // 2} scenes written in {tree_s:.1f} s): "
+        f"{IO_POOL_THREADS} threads {pooled:.3f} ms, serial {pool_row['serial_ms']:.3f} ms, one image "
+        f"{pool_row['one_ms']:.3f} ms ({pooled / pool_row['one_ms']:.2f}x one); {cpus} usable CPUs; {out['card']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[io] phase {out['seconds']:.1f} s")
+    return out
 
 
 def seeded_flax_variables(model, seed: int):
@@ -4538,7 +4660,7 @@ def kernel_entry(name, source, replaces, launches, by_path, err, t, **extra):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"], **extra}
 
 
-PHASES = ("kernels", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp",
+PHASES = ("kernels", "io", "model", "serving", "conv3d_path", "train", "eval", "family", "extras", "parallel", "disp",
           "disp_train", "kitti", "middlebury")
 # measurements that the default run never starts
 # the manual measurements across the host's cards (`phase_cards`)
@@ -4580,6 +4702,8 @@ def main(argv=None) -> int:
 
     flat = seeded_flax_variables(DCANet(maxdisp=192, num_cva=3), SEED)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        if "io" in phases:
+            host_io = phase_io(Path(tmp))
         if "model" in phases or "serving" in phases:
             _, ref_disp = phase_model(flat)
         serving = phase_serving(flat, ref_disp, Path(tmp)) if "serving" in phases else None
@@ -4770,6 +4894,7 @@ def main(argv=None) -> int:
     log("[disp_train] summary: " + json.dumps(disp_train))
     log("[kitti] summary: " + json.dumps(kitti))
     log("[middlebury] summary: " + json.dumps(middlebury))
+    log("[io] summary: " + json.dumps(host_io))
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
-"""Image and disparity IO with numpy and zlib alone (no PIL).
+"""Image and disparity IO without PIL.
 
-PNG reader: 8- and 16-bit samples, grayscale / gray+alpha / RGB / RGBA,
-non-interlaced, filter types 0-4. PNG writer: 8-bit gray/RGB/RGBA and 16-bit
-grayscale, which carries the KITTI uint16 x256 disparity format
-(my_img.py:105-110). PFM reader and writer and `read_disparity` (copies of
-dcanet_tpu/data/io.py:23-112, PNG through the reader here). Also the
-ImageNet normalisation the training pipeline uses.
+`read_image` and `read_disparity` (the counterparts of
+dcanet_tpu/data/io.py:59-112) decode PNGs through the native decoder
+(data/native.py) and give what the JAX package's give for every PNG form.
+`read_png` is the plain numpy + zlib reader that the tests and the smoke's
+checks hold the native decoder to: 8- and 16-bit samples, grayscale /
+gray+alpha / RGB / RGBA, non-interlaced, filter types 0-4; no path calls it.
+PNG writer: 8-bit gray/RGB/RGBA and 16-bit grayscale, which carries the
+KITTI uint16 x256 disparity format (my_img.py:105-110), each row's filter
+chosen as libpng's default heuristic chooses it. PFM reader and writer, and
+the ImageNet normalisation the training pipeline uses.
 """
 
 from __future__ import annotations
@@ -106,9 +110,26 @@ def read_png(path: PathLike) -> np.ndarray:
     return img[..., 0] if ch == 1 else img
 
 
-def write_png(path: PathLike, img: np.ndarray) -> None:
-    """Encode (H, W) or (H, W, 1|2|3|4) uint8, or (H, W) uint16, as PNG
-    (filter type 0 on every row)."""
+def _filter_rows(body: np.ndarray, bpp: int, above: np.ndarray) -> np.ndarray:
+    """The five PNG filters (None, Sub, Up, Average, Paeth) of each row of
+    `body` (rows, stride) uint8, whose first row has the row `above` it
+    (zeros for an image's first row): (5, rows, stride) uint8."""
+    x = body.astype(np.int16)
+    up = np.concatenate([above.astype(np.int16)[None], x[:-1]])
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    up_left = np.zeros_like(x)
+    up_left[:, bpp:] = up[:, :-bpp]
+    pa, pb, pc = np.abs(up - up_left), np.abs(left - up_left), np.abs(left + up - 2 * up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    return np.stack([x, x - left, x - up, x - ((left + up) >> 1), x - paeth]).astype(np.uint8)
+
+
+def _encode_png(img: np.ndarray, filters=None) -> bytes:
+    """PNG bytes of (H, W) or (H, W, 1|2|3|4) uint8, or (H, W) uint16. Row y
+    takes filter `filters[y]`; by default the filter whose bytes, read as
+    signed, have the least sum of magnitudes (libpng's default heuristic,
+    the first of equals)."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
         raise TypeError(f"write_png takes uint8 or uint16, got {img.dtype}")
@@ -121,28 +142,54 @@ def write_png(path: PathLike, img: np.ndarray) -> None:
     h, w, ch = img.shape
     depth = 16 if img.dtype == np.uint16 else 8
     body = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).reshape(h, -1).view(np.uint8)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), body], axis=1).tobytes()
+    raw = np.empty((h, body.shape[1] + 1), np.uint8)
+    above = np.zeros(body.shape[1], np.uint8)
+    for r0 in range(0, h, 256):  # blocks of rows bound the int16 temporaries
+        block = body[r0 : r0 + 256]
+        candidates = _filter_rows(block, ch * depth // 8, above)
+        if filters is None:
+            cost = np.abs(candidates.view(np.int8).astype(np.int16)).sum(axis=2, dtype=np.int64)
+            chosen = np.argmin(cost, axis=0)
+        else:
+            chosen = np.asarray(filters)[r0 : r0 + len(block)]
+        raw[r0 : r0 + len(block), 0] = chosen
+        raw[r0 : r0 + len(block), 1:] = candidates[chosen, np.arange(len(block))]
+        above = block[-1]
 
     def chunk(ctype: bytes, payload: bytes) -> bytes:
         crc = zlib.crc32(ctype + payload) & 0xFFFFFFFF
         return struct.pack(">I", len(payload)) + ctype + payload + struct.pack(">I", crc)
 
+    # libpng's defaults for filtered rows: level 6, the Z_FILTERED strategy
+    deflate = zlib.compressobj(6, zlib.DEFLATED, 15, 8, zlib.Z_FILTERED)
+    idat = deflate.compress(raw) + deflate.flush()
     ihdr = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPE[ch], 0, 0, 0)
+    return _SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", idat) + chunk(b"IEND", b"")
+
+
+def write_png(path: PathLike, img: np.ndarray) -> None:
+    """Encode (H, W) or (H, W, 1|2|3|4) uint8, or (H, W) uint16, as PNG, each
+    row's filter chosen as libpng's default heuristic chooses it."""
+    png = _encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+        f.write(png)
 
 
 def read_image(path: PathLike) -> np.ndarray:
-    """8-bit PNG as float32 (H, W, 3) RGB in [0, 255]; gray is replicated and
-    alpha dropped, as PIL's convert("RGB") does."""
-    img = read_png(path)
-    if img.dtype != np.uint8:
-        raise ValueError(f"read_image takes 8-bit images, {path} is 16-bit")
+    """A PNG as float32 (H, W, 3) in [0, 255], as the JAX package's
+    `read_image` gives it: libpng's decode where that is an RGB image within
+    [0, 255], else PIL's convert("RGB"), which replicates grey, drops alpha,
+    looks palettes up, clips 16-bit grey at 255 and keeps the high byte of
+    other 16-bit samples."""
+    from dcanet_tpu_torch.data import native
+
+    img = native.read_image_f32(path)
+    _, _, channels, depth = native.image_info(path)
+    if depth == 16 and not (channels == 3 and img.max() <= 255):
+        img = np.minimum(img, 255) if channels == 1 else np.floor_divide(img, 256)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
-    elif img.shape[-1] == 2:
-        img = np.repeat(img[..., :1], 3, axis=-1)
-    return img[..., :3].astype(np.float32)
+    return img
 
 
 def normalize_imagenet(img255: np.ndarray) -> np.ndarray:
@@ -155,25 +202,25 @@ def write_kitti_submission_png(path: PathLike, disp: np.ndarray) -> None:
     write_png(path, np.clip(disp * 256.0, 0, 65535).astype(np.uint16))
 
 
+def read_pfm_header(f, path: PathLike) -> Tuple[bool, int, int, float]:
+    """(colour, width, height, scale) of the PFM open as `f`, left at its data."""
+    header = f.readline().rstrip()
+    if header not in (b"PF", b"Pf"):
+        raise ValueError(f"not a PFM file: {path}")
+    dims = f.readline()
+    while dims.startswith(b"#"):  # comments permitted by the spec
+        dims = f.readline()
+    m = re.match(rb"^\s*(\d+)\s+(\d+)\s*$", dims)
+    if not m:
+        raise ValueError(f"malformed PFM dims in {path}: {dims!r}")
+    return header == b"PF", int(m.group(1)), int(m.group(2)), float(f.readline().rstrip())
+
+
 def read_pfm(path: PathLike) -> Tuple[np.ndarray, float]:
     """Spec-compliant PFM reader. Returns (data, scale); data is float32
     (H, W) or (H, W, 3), top row first (PFM stores bottom-up)."""
     with open(path, "rb") as f:
-        header = f.readline().rstrip()
-        if header == b"PF":
-            color = True
-        elif header == b"Pf":
-            color = False
-        else:
-            raise ValueError(f"not a PFM file: {path}")
-        dims = f.readline()
-        while dims.startswith(b"#"):  # comments permitted by the spec
-            dims = f.readline()
-        m = re.match(rb"^\s*(\d+)\s+(\d+)\s*$", dims)
-        if not m:
-            raise ValueError(f"malformed PFM dims in {path}: {dims!r}")
-        width, height = int(m.group(1)), int(m.group(2))
-        scale = float(f.readline().rstrip())
+        color, width, height, scale = read_pfm_header(f, path)
         endian = "<" if scale < 0 else ">"
         data = np.frombuffer(f.read(), endian + "f4")
     shape = (height, width, 3) if color else (height, width)
@@ -191,14 +238,14 @@ def write_pfm(path: PathLike, data: np.ndarray, scale: float = 1.0) -> None:
 
 def read_disparity(path: PathLike) -> np.ndarray:
     """Disparity as float32 (H, W): .pfm as PFM, else a PNG, divided by 256
-    when uint16-encoded (max > 1024, the KITTI convention); inf -> 0
-    (Middlebury)."""
-    if str(path).endswith(".pfm"):
-        disp, _ = read_pfm(path)
-    else:
-        disp = read_png(path).astype(np.float32)
-        if disp.ndim == 3:
-            disp = disp[..., 0]
-        if disp.max() > 1024:
-            disp = disp / 256.0
+    when uint16-encoded (max > 1024, the KITTI convention); the first channel
+    of a colour PNG and the indices of a palette PNG, as the JAX package
+    reads them; inf -> 0 (Middlebury)."""
+    from dcanet_tpu_torch.data import native
+
+    disp = native.read_image_f32(path, palette_index=True)
+    if disp.ndim == 3:
+        disp = disp[..., 0]
+    if not str(path).endswith(".pfm") and disp.max() > 1024:
+        disp = disp / 256.0
     return np.ascontiguousarray(np.where(np.isinf(disp), 0.0, disp), np.float32)
