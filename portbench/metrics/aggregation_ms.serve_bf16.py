@@ -1,0 +1,7 @@
+"""aggregation_ms.serve_bf16: the device time of the modules the configuration maps
+to the layer `aggregation` (pre-aggregation, the CVA blocks or hourglasses,
+the heads), in ms per forward (CUDA events in the benchmark's hooks)."""
+
+
+def read(ctx):
+    return ctx.get("spans", {}).get("layers_ms", {}).get("aggregation")

@@ -1,0 +1,8 @@
+"""idle_pct.serve: the share of the traced requests' stretch in which no device
+operation ran (the union of their intervals, not their sum)."""
+
+from portbench.lib.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
