@@ -27,10 +27,12 @@ every train metric since the last such row, prefixed `train/`, to
 <logdir>/metrics.jsonl and .csv (and to TensorBoard under
 `RunConfig.use_tensorboard`), as the JAX CLI does: the steps at the end of
 an epoch carry over into the next row. It prints `epoch E step S/N loss L
-epe E (R pairs/s)` every --print-freq steps and at the end of an epoch, and
-appends the same numbers to <logdir>/train_log.jsonl. `RunConfig.debug_nans` runs the steps under
-`torch.autograd.set_detect_anomaly`, which raises at the first backward
-that returns NaN.
+epe E (R pairs/s) data wait W % A all-reduces/step` every --print-freq steps
+and at the end of an epoch, and appends the same numbers to
+<logdir>/train_log.jsonl; since the epoch's start: pairs/s, the share of
+wall time spent waiting for the next batch, the all-reduces per step.
+`RunConfig.debug_nans` runs the steps under `torch.autograd.set_detect_anomaly`,
+which raises at the first backward that returns NaN.
 
 `train` runs over processes, one per card, started with the JAX
 package's variables (`DCANET_COORDINATOR=host:port`,
@@ -111,6 +113,7 @@ from dcanet_tpu_torch.data.submission import (
 from dcanet_tpu_torch.device import resolve_device
 from dcanet_tpu_torch.models.registry import make_model
 from dcanet_tpu_torch.nn.layers import reference_init_
+from dcanet_tpu_torch.utils.profiling import span
 from dcanet_tpu_torch.weights import load_weights
 
 
@@ -168,14 +171,18 @@ def _newest_checkpoint(directory: str, seed: int, say=print) -> Optional[Path]:
 
 def _forward(model: torch.nn.Module, left: np.ndarray, right: np.ndarray, bf16: bool) -> Tuple[np.ndarray, float]:
     """(H, W, 3) images -> the (H, W) disparity on the host, and the seconds
-    from the pair on the device to the disparity on the host."""
+    from the pair on the device to the disparity on the host. One request:
+    the spans serve.request > serve.h2d, model.forward, serve.d2h."""
     dev = next(model.parameters()).device
-    tl, tr = _to_tensor(left, dev), _to_tensor(right, dev)
-    _sync(dev)
-    t0 = time.perf_counter()
-    with torch.inference_mode(), torch.autocast(dev.type, torch.bfloat16, enabled=bf16):
-        disp = model(tl, tr).disparity
-    disp = disp[0].float().cpu().numpy()
+    with span("serve.request"):
+        with span("serve.h2d"):
+            tl, tr = _to_tensor(left, dev), _to_tensor(right, dev)
+            _sync(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode(), torch.autocast(dev.type, torch.bfloat16, enabled=bf16):
+            disp = model(tl, tr).disparity
+        with span("serve.d2h"):
+            disp = disp[0].float().cpu().numpy()
     return disp, time.perf_counter() - t0
 
 
@@ -299,12 +306,12 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
     data row load the same share of it, and the disp ranks split every cost
     volume's planes (cfg.n_disp_shards); only process 0 prints and writes
     logs and checkpoints; every rank returns the same records."""
-    from dcanet_tpu_torch.data.loader import Loader, device_prefetch
+    from dcanet_tpu_torch.data.loader import Loader, device_prefetch, waited
     from dcanet_tpu_torch.parallel import initialize, make_mesh, process_index, replicate
     from dcanet_tpu_torch.train.checkpoint import CheckpointManager, load_params_only
     from dcanet_tpu_torch.train.loop import LossConfig, train_step
     from dcanet_tpu_torch.utils.experiment import AverageMeterDict, MetricLogger
-    from dcanet_tpu_torch.utils.profiling import StepTimer
+    from dcanet_tpu_torch.utils.profiling import StepTimer, counters
 
     dev = initialize(device=resolve_device(device))
     mesh = make_mesh(cfg.n_data_shards, cfg.n_disp_shards)
@@ -347,8 +354,9 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
         for epoch in range(state.step // steps_per_epoch, cfg.epochs):
             loader.set_epoch(epoch)
             timer.reset()
+            t_epoch, counts0 = time.perf_counter(), counters()  # the host's waits for data, the all-reduces
             pending, window = [], []  # metrics stay on the device until printed
-            for bi, batch in enumerate(device_prefetch(loader, dev)):
+            for bi, batch in enumerate(waited(device_prefetch(loader, dev))):
                 pending.append((state.step, train_step(state, batch, loss_cfg)))
                 timer.tick()
                 at_print = (bi + 1) % cfg.print_freq == 0
@@ -363,11 +371,16 @@ def cmd_train(cfg: RunConfig, device: Optional[str] = None) -> List[Dict[str, fl
                     pending = []
                     mean = {k: sum(r[k] for r in window) / len(window) for k in ("total", "epe")}
                     rate = timer.pairs_per_sec
+                    counts = counters()
+                    wait_share = (counts["data.wait_s"] - counts0["data.wait_s"]) / (now - t_epoch)
+                    reduces = (counts["collective.all_reduce"] - counts0["collective.all_reduce"]) / (bi + 1)
                     say(f"epoch {epoch} step {bi + 1}/{steps_per_epoch} loss {mean['total']:.3f} "
-                        f"epe {mean['epe']:.3f} ({rate:.2f} pairs/s)")
+                        f"epe {mean['epe']:.3f} ({rate:.2f} pairs/s) data wait {100 * wait_share:.1f} % "
+                        f"{reduces:.1f} all-reduces/step")
                     if lead:
                         with open(log_path, "a") as f:
-                            row = {"epoch": epoch, "step": state.step, **mean, "pairs_per_s": rate}
+                            row = {"epoch": epoch, "step": state.step, **mean, "pairs_per_s": rate,
+                                   "data_wait_share": wait_share, "all_reduces_per_step": reduces}
                             f.write(json.dumps(row) + "\n")
                     window = []
                     if at_print:

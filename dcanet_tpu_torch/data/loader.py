@@ -13,6 +13,10 @@ dcanet_tpu/data/loader.py).
     (loader.py:157-194): batches become tensors on the device `depth` steps
     ahead, copied from pinned host memory on a side CUDA stream, so the copy
     overlaps the step that runs.
+  * `waited`: counts the batches a consumer takes from an iterator and the
+    host seconds it waits for them (`BATCHES`, `WAIT_S`;
+    utils/profiling.py::counters), as `cmd_train` does around
+    `device_prefetch`.
 
 Eval padding is `data/submission.py::pad_to_multiple` and the per-dataset
 eval geometry `data/eval_protocol.py::eval_transform`.
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import time
 from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -156,3 +161,22 @@ def device_prefetch(
         if nxt is not None:
             queue.append(put(nxt))
         yield out
+
+
+BATCHES = 0
+WAIT_S = 0.0
+
+
+def waited(batches: Iterable) -> Iterator:
+    """The items of `batches`, each wait for the next one added to
+    `WAIT_S` and each item taken to `BATCHES` (the wait for the end too)."""
+    global BATCHES, WAIT_S
+    it = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        WAIT_S += time.perf_counter() - t0
+        if batch is None:
+            return
+        BATCHES += 1
+        yield batch

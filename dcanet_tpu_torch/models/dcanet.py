@@ -46,6 +46,12 @@ training the backward's exchanges mirror the forward's (parallel/
 sharding.py), the gwc volume's backward is the plane range's, and with
 `remat` each CVA block's recomputation repeats its exchanges.
 
+While a profiler records, each forward records the span model.forward and
+inside it one span per stage, with CUDA events on the card:
+model.features, model.guidance, model.cost_volume (`cost_volume`),
+model.aggregation (dres, CVA blocks or hourglasses, classif heads),
+model.regression, model.propagation (utils/profiling.py).
+
 GwcNetBaseline (reference models/gwcnet.py:107-249): the same features and
 volumes, dres0/dres1, three stacked Hourglass3D aggregators (dres2-4) and
 four classif heads, each cost upsampled 4x trilinearly to full resolution,
@@ -73,6 +79,7 @@ from dcanet_tpu_torch.ops.cost_volume import build_concat_volume
 from dcanet_tpu_torch.ops.precision import at_least_f32
 from dcanet_tpu_torch.ops.regression import disparity_regression
 from dcanet_tpu_torch.ops.upsample import resize_trilinear
+from dcanet_tpu_torch.utils.profiling import span
 
 
 class DCANetEvalOutput(NamedTuple):
@@ -133,11 +140,12 @@ def cost_volume(feats_l, feats_r, d4: int, num_groups: int, use_concat: bool,
     """The gwc volume (the CUDA kernel on the card), followed on the channel
     axis by the concat volume when `use_concat`: (B, G [+ 2*C], D/4, H/4, W/4),
     or its planes [d_lo, d_hi) with `planes`."""
-    volume = gwc_volume(feats_l["gwc_feature"], feats_r["gwc_feature"], d4, num_groups, planes)
-    if not use_concat:
-        return volume
-    concat = build_concat_volume(feats_l["concat_feature"], feats_r["concat_feature"], d4, planes)
-    return torch.cat([volume, concat.to(volume.dtype)], dim=1)
+    with span("model.cost_volume", feats_l["gwc_feature"].device):
+        volume = gwc_volume(feats_l["gwc_feature"], feats_r["gwc_feature"], d4, num_groups, planes)
+        if not use_concat:
+            return volume
+        concat = build_concat_volume(feats_l["concat_feature"], feats_r["concat_feature"], d4, planes)
+        return torch.cat([volume, concat.to(volume.dtype)], dim=1)
 
 
 class DCANet(nn.Module):
@@ -176,32 +184,42 @@ class DCANet(nn.Module):
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
         """left, right: (B, 3, H, W) with H, W multiples of 16."""
+        with span("model.forward", left.device):
+            return self._forward(left, right)
+
+    def _forward(self, left: torch.Tensor, right: torch.Tensor):
+        dev = left.device
         d4 = self.maxdisp // 4
         shard = None if self.constrain_volume is None else self.constrain_volume.split(d4)
-        feats_l, feats_r = stereo_features(self.feature_extraction, left, right, self.stacked_features)
-        guidance = self.guidance(left)
+        with span("model.features", dev):
+            feats_l, feats_r = stereo_features(self.feature_extraction, left, right, self.stacked_features)
+        with span("model.guidance", dev):
+            guidance = self.guidance(left)
         volume = cost_volume(feats_l, feats_r, d4, self.num_groups, self.use_concat_volume,
                              None if shard is None else shard.planes)
 
-        cost0 = run_sharded(self.dres0, volume, shard)
-        cost0 = run_sharded(self.dres1, cost0, shard) + cost0
+        with span("model.aggregation", dev):
+            cost0 = run_sharded(self.dres0, volume, shard)
+            cost0 = run_sharded(self.dres1, cost0, shard) + cost0
 
-        out, outs, cva_logits = cost0, [cost0], []
-        for i in range(1, self.num_cva + 1):
-            logits, out = self._cva(i, out, cost0 if i == 1 else None, shard)
-            cva_logits.append(logits)
-            outs.append(out)
+            out, outs, cva_logits = cost0, [cost0], []
+            for i in range(1, self.num_cva + 1):
+                logits, out = self._cva(i, out, cost0 if i == 1 else None, shard)
+                cva_logits.append(logits)
+                outs.append(out)
 
-        final_cost = self._head(self.num_cva, out, shard)
-        with torch.autocast(device_type=final_cost.device.type, enabled=False):
+            final_cost = self._head(self.num_cva, out, shard)
+        with span("model.regression", dev), torch.autocast(device_type=dev.type, enabled=False):
             final_prob = _softmax_f32(final_cost)
             pred_coarse = disparity_regression(final_prob, d4)
-        disparity = self.prop(guidance, pred_coarse)
+        with span("model.propagation", dev):
+            disparity = self.prop(guidance, pred_coarse)
         if not self.training:
             return DCANetEvalOutput(disparity=disparity, class_logits=tuple(cva_logits))
 
-        heads = {i: self._head(i, outs[i], shard) for i in range(self.num_cva)}
-        with torch.autocast(device_type=final_cost.device.type, enabled=False):
+        with span("model.aggregation", dev):
+            heads = {i: self._head(i, outs[i], shard) for i in range(self.num_cva)}
+        with span("model.regression", dev), torch.autocast(device_type=dev.type, enabled=False):
             if self.full_res_supervision:
                 disparities = [_upsampled_disparity(lg, 8, self.maxdisp) for lg in cva_logits]
                 disparities += [_upsampled_disparity(heads[i], 4, self.maxdisp) for i in range(self.num_cva)]
@@ -244,20 +262,23 @@ class GwcNetBaseline(nn.Module):
         for i in range(4):
             self.add_module(f"classif{i}", _classifier(c))
 
-    def _head(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        return _upsampled_disparity(getattr(self, f"classif{i}")(x)[:, 0], 4, self.maxdisp)
-
     def forward(self, left: torch.Tensor, right: torch.Tensor):
         """left, right: (B, 3, H, W) with H, W multiples of 16."""
-        feats_l, feats_r = stereo_features(self.feature_extraction, left, right, self.stacked_features)
-        volume = cost_volume(feats_l, feats_r, self.maxdisp // 4, self.num_groups, self.use_concat_volume)
-        cost0 = self.dres0(volume)
-        cost0 = self.dres1(cost0) + cost0
-        out1 = self.dres2(cost0)
-        out2 = self.dres3(out1)
-        out3 = self.dres4(out2)
-        pred3 = self._head(3, out3)
-        if not self.training:
-            return DCANetEvalOutput(disparity=pred3, class_logits=())
-        preds = tuple(self._head(i, x) for i, x in enumerate((cost0, out1, out2)))
-        return DCANetTrainOutput(prob_volumes=(), disparities=preds + (pred3,), class_logits=())
+        dev = left.device
+        with span("model.forward", dev):
+            with span("model.features", dev):
+                feats_l, feats_r = stereo_features(self.feature_extraction, left, right, self.stacked_features)
+            volume = cost_volume(feats_l, feats_r, self.maxdisp // 4, self.num_groups, self.use_concat_volume)
+            with span("model.aggregation", dev):
+                cost0 = self.dres0(volume)
+                cost0 = self.dres1(cost0) + cost0
+                out1 = self.dres2(cost0)
+                out2 = self.dres3(out1)
+                out3 = self.dres4(out2)
+                heads = enumerate((cost0, out1, out2, out3)) if self.training else [(3, out3)]
+                costs = [getattr(self, f"classif{i}")(x)[:, 0] for i, x in heads]
+            with span("model.regression", dev):
+                preds = tuple(_upsampled_disparity(c, 4, self.maxdisp) for c in costs)
+            if not self.training:
+                return DCANetEvalOutput(disparity=preds[-1], class_logits=())
+            return DCANetTrainOutput(prob_volumes=(), disparities=preds, class_logits=())

@@ -27,6 +27,7 @@ import contextlib
 import math
 import os
 import threading
+import time
 
 import torch
 from torch import nn
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 
 from dcanet_tpu_torch.ops.precision import at_least_f32, in_model_dtype
 from dcanet_tpu_torch.parallel import distributed
+from dcanet_tpu_torch.utils import profiling
 
 _FROZEN = threading.local()
 
@@ -187,6 +189,8 @@ def reference_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 # ---- eval BatchNorm folded into its conv at bf16 (dcanet_tpu/nn/layers.py:48-59, 149-156, 259-262) ----
 
 _CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
+FOLD_LOOKUPS = 0  # calls of `_folded`
+FOLD_REBUILDS = 0  # folds it computed: cache misses, and every call of the uncached case
 
 
 def fold_eval_bn_enabled(x: torch.Tensor) -> bool:
@@ -218,15 +222,20 @@ def _folded(conv: nn.Module, bn: nn.Module):
     change of a statistic and `.to()` each rebuild it. The cached tensors are
     built outside autograd and inference mode. With grad enabled and a
     source requiring it, or a source made in inference mode (no version
-    counter), the fold is computed at each call."""
+    counter), the fold is computed at each call. Counts its calls
+    (`FOLD_LOOKUPS`) and the folds it computes (`FOLD_REBUILDS`)."""
+    global FOLD_LOOKUPS, FOLD_REBUILDS
     if conv.bias is not None:
         raise ValueError(f"no folded form of a biased {conv}")
+    FOLD_LOOKUPS += 1
     src = (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
     if any(t.is_inference() for t in src) or (torch.is_grad_enabled() and any(t.requires_grad for t in src)):
+        FOLD_REBUILDS += 1
         return _fold(conv, bn)
     key = tuple((t.data_ptr(), t._version) for t in src)
     cache = bn.__dict__.get("_fold_cache")
     if cache is None or cache[0] != key:
+        FOLD_REBUILDS += 1
         with torch.inference_mode(False), torch.no_grad():
             w, b = _fold(conv, bn)
         # the detached aliases keep the source storages alive, so that no
@@ -239,10 +248,17 @@ def conv_bn(conv: nn.Module, bn: nn.Module, x: torch.Tensor, shard=None) -> torc
     """bn(conv(x)), or with a `DispShard` its D-sharded form on this rank's
     slab. In eval at bf16 (`fold_eval_bn_enabled`) as the JAX package's
     `epilogue=`: one conv with the folded weight (cast to bf16 once, from
-    f32), then + b in the output's dtype; the BN module does not run."""
-    if bn.training or not fold_eval_bn_enabled(x):
+    f32), then + b in the output's dtype; the BN module does not run. While
+    spans record, the host time of the fold's gate and lookup goes to the
+    accumulator `fold.lookup` (utils/profiling.py)."""
+    if bn.training:
+        return bn(run_sharded(conv, x, shard))
+    t0 = time.perf_counter_ns() if profiling.recording() else 0
+    if not fold_eval_bn_enabled(x):
         return bn(run_sharded(conv, x, shard))
     w, b = _folded(conv, bn)
+    if t0:
+        profiling.add_host_time("fold.lookup", t0)
     y = _conv_with_weight(conv, x, w, shard)
     return y + b.to(y.dtype)
 

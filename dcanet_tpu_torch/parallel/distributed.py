@@ -14,6 +14,9 @@ explicit:
     and its gradient is summed the same way (BatchNorm's statistics, the
     loss counts, the gradients and the metrics over the world; the
     disparity-sharded volume's exchanges over a disp subgroup);
+    `all_reduce_(t, group)` is the in-place sum under it, which every
+    all-reduce of the port goes through: it counts them (`ALL_REDUCES`)
+    and their bytes (`ALL_REDUCE_BYTES`, utils/profiling.py::counters);
   * `new_subgroups(rows)` forms one subgroup per list of ranks, on every
     rank in the same order, and returns this rank's;
   * `process_index()` / `process_count()` are jax.process_index() /
@@ -116,6 +119,19 @@ def new_subgroups(rows: Iterable[Sequence[int]]):
     return mine
 
 
+ALL_REDUCES = 0
+ALL_REDUCE_BYTES = 0
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` over the ranks of `group` in place, counted; returns `t`."""
+    global ALL_REDUCES, ALL_REDUCE_BYTES
+    ALL_REDUCES += 1
+    ALL_REDUCE_BYTES += t.numel() * t.element_size()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the ranks of a group; the gradient of a sum over the ranks
     is the sum of the ranks' gradients, over the same group."""
@@ -123,15 +139,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         ctx.group = group
-        out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
+        return all_reduce_(t.clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        out = grad.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
-        return out, None
+        return all_reduce_(grad.clone(), ctx.group), None
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:

@@ -60,9 +60,8 @@ import warnings
 from typing import Any, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
-from dcanet_tpu_torch.parallel.distributed import all_reduce_sum, group_size
+from dcanet_tpu_torch.parallel.distributed import all_reduce_, all_reduce_sum, group_size
 from dcanet_tpu_torch.parallel.mesh import Mesh
 
 
@@ -154,7 +153,7 @@ class _Halo(torch.autograd.Function):
         slot = torch.cat([x.narrow(dim, 0, hi), x.narrow(dim, m - lo, lo)], dim)
         slots = x.new_zeros((n,) + tuple(slot.shape))
         slots[r] = slot
-        dist.all_reduce(slots, op=dist.ReduceOp.SUM, group=shard.group)
+        all_reduce_(slots, shard.group)
 
         def end(edge: torch.Tensor, k: int) -> torch.Tensor:  # k planes beyond a volume end
             pad = edge.repeat_interleave(k, dim)
@@ -178,7 +177,7 @@ class _Halo(torch.autograd.Function):
             slots[r - 1].narrow(dim, hi, lo).copy_(g_below)
         if r < n - 1:  # the planes above from the rank above's first hi
             slots[r + 1].narrow(dim, 0, hi).copy_(g_above)
-        dist.all_reduce(slots, op=dist.ReduceOp.SUM, group=shard.group)
+        all_reduce_(slots, shard.group)
         dx.narrow(dim, 0, hi).add_(slots[r].narrow(dim, 0, hi))
         dx.narrow(dim, m - lo, lo).add_(slots[r].narrow(dim, hi, lo))
         if fill == "edge" and r == 0:

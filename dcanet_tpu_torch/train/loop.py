@@ -9,7 +9,10 @@ Loss presets, as the reference's trainers combine their ladders:
 
 `train_step` runs forward, loss, backward and one Adam update in place and
 returns the step's metrics as detached device tensors (read them when they
-are printed, so that the host does not wait on every step).
+are printed, so that the host does not wait on every step). While a
+profiler records, it records the spans train.step > train.zero_grad,
+model.forward, train.loss, train.backward, train.all_reduce,
+train.optimizer, train.metrics (utils/profiling.py).
 
 Data parallelism (a process group of W ranks, one shard of the global batch
 each): BatchNorm takes the global batch's statistics and the loss terms are
@@ -32,6 +35,7 @@ from dcanet_tpu_torch import losses
 from dcanet_tpu_torch.parallel import distributed
 from dcanet_tpu_torch.train.metrics import epe_metric, eval_metrics
 from dcanet_tpu_torch.train.state import TrainState
+from dcanet_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,27 +99,35 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: LossConfi
     """One optimisation step. batch: left/right (B, 3, H, W), disparity
     (B, H, W), on the model's device. Returns total, focal (when the preset
     has it), smooth_l1, grad_norm and epe (of the last disparity)."""
-    model = state.model
-    model.train()
-    disp_gt = batch["disparity"]
-    mask = valid_mask(disp_gt, cfg.max_disp)
-    state.optimizer.zero_grad(set_to_none=True)
-    with torch.autocast(disp_gt.device.type, dtype=state.amp_dtype or torch.bfloat16, enabled=state.amp_dtype is not None):
-        out = model(batch["left"], batch["right"])
-    loss, comps = compute_loss(out, disp_gt, mask, cfg)
-    loss.backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    if distributed.process_count() > 1:
-        _sum_over_ranks_(grads)
-    grad_norm = global_norm(grads)
-    state.apply_gradients()
-    metrics = {k: v.detach() for k, v in comps.items()}
-    metrics["grad_norm"] = grad_norm.detach()
-    metrics["epe"] = epe_metric(out.disparities[-1].detach(), disp_gt, mask)
-    if distributed.process_count() > 1:  # the ranks' shares; grad_norm is already global
-        shares = [k for k in metrics if k != "grad_norm"]
-        metrics.update(zip(shares, distributed.all_reduce_sum(torch.stack([metrics[k] for k in shares]))))
-    return metrics
+    with span("train.step"):
+        model = state.model
+        model.train()
+        disp_gt = batch["disparity"]
+        dev = disp_gt.device
+        mask = valid_mask(disp_gt, cfg.max_disp)
+        with span("train.zero_grad", dev):
+            state.optimizer.zero_grad(set_to_none=True)
+        with torch.autocast(dev.type, dtype=state.amp_dtype or torch.bfloat16, enabled=state.amp_dtype is not None):
+            out = model(batch["left"], batch["right"])
+        with span("train.loss", dev):
+            loss, comps = compute_loss(out, disp_gt, mask, cfg)
+        with span("train.backward", dev):
+            loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if distributed.process_count() > 1:
+            with span("train.all_reduce", dev):
+                _sum_over_ranks_(grads)
+        with span("train.optimizer", dev):
+            grad_norm = global_norm(grads)
+            state.apply_gradients()
+        with span("train.metrics", dev):
+            metrics = {k: v.detach() for k, v in comps.items()}
+            metrics["grad_norm"] = grad_norm.detach()
+            metrics["epe"] = epe_metric(out.disparities[-1].detach(), disp_gt, mask)
+            if distributed.process_count() > 1:  # the ranks' shares; grad_norm is already global
+                shares = [k for k in metrics if k != "grad_norm"]
+                metrics.update(zip(shares, distributed.all_reduce_sum(torch.stack([metrics[k] for k in shares]))))
+        return metrics
 
 
 @torch.no_grad()
