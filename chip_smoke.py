@@ -37,7 +37,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the train shape at batch 1, 4, 12, 6 and 3 and at the Middlebury
      shape); the gwc kernels
      retimed at the end; for context only, F.conv3d f32 with TF32 on (time,
-     and its error, which misses the f32 tolerance).
+     and its error, which misses the f32 tolerance). The train-mode
+     BatchNorm kernels (`phase_batch_norm`), f32 and bf16, against their
+     plain version and float64 at the kitti step's shapes, a ragged S, one
+     channel and a small N*S; the forward and backward pairs timed at the
+     kitti step's largest 3D and 2D BatchNorm beside their byte bounds, the
+     plain version and F.batch_norm, each kernel's own time from the
+     profiler.
   2b. io: the native PNG decoder (`data/native.py` over `csrc/stereoio.cpp`,
      host code, built with the kernels by the host compiler) exact against
      the plain numpy reader and the written pixels: a procedural KITTI
@@ -394,6 +400,14 @@ GWC_BWD_RANGES = (  # name, features, groups, D, planes
     ("across W [40,52)", (1, 16, 5, 45), 4, 60, (40, 52)),
     ("past W [8,12)", (2, 16, 5, 7), 4, 12, (8, 12)),
 ) + MIDDLEBURY_SHARD_RANGES
+# train-mode BatchNorm (kernels/batchnorm.py): the kitti step's largest 3D
+# BatchNorm (batch 12, 256x512 crops: the quarter-resolution cost volume)
+# and its largest 2D one (the half-resolution features), timed; checked
+# besides on its most frequent 2D shape, a ragged S (S * 2 % 16 != 0 in
+# bf16), one channel, a small N*S and one value per channel
+BN_TIMED = (("3d", (12, 32, 48, 64, 128)), ("2d", (12, 32, 128, 256)))
+BN_CHECKED = tuple(s for _, s in BN_TIMED) + ((12, 64, 64, 128), (2, 5, 3, 7, 9), (3, 1, 17), (2, 3, 2, 2),
+                                              (1, 3, 1, 1))
 # the conv3d kernel's own path: tools/bench_conv3d.py::run_pallas's shapes, NCDHW
 CONV_SHAPE = (1, 32, 48, 96, 312)
 CONV_SHAPE_64 = (1, 64, 48, 96, 312)
@@ -523,6 +537,25 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bn_counts() -> dict:
+    """The train-mode BatchNorm kernels' launches and plain calls since the
+    last `kernels/batchnorm.py::reset_launch_counts` (set just before a
+    path runs)."""
+    from dcanet_tpu_torch.kernels import batchnorm
+
+    return dict(launches=batchnorm.LAUNCHES, plain_calls=batchnorm.PLAIN_CALLS)
+
+
+def check_bn_counts(tag: str, counts: dict) -> dict:
+    """`counts` (`bn_counts`) of a one-process train path on the card, which
+    runs every train-mode BatchNorm on the kernels: some launches and no
+    plain call."""
+    if counts["launches"] <= 0 or counts["plain_calls"] != 0:
+        raise AssertionError(f"[{tag}] train-mode BatchNorm: {counts['launches']} kernel launches and "
+                             f"{counts['plain_calls']} plain calls; expected launches and no plain call")
+    return counts
+
+
 def time_cuda(fn, iters: int, warmup: int = 2, flush=None) -> float:
     """Median ms of `fn` over `iters` launches timed with CUDA events. With
     `flush` (a tensor larger than L2), it is overwritten before every launch
@@ -628,6 +661,134 @@ def gwc_backward_bound_ms(shape, groups: int, maxdisp: int, elem_bytes: int, pla
     ops = 2 * 2 * b * c * h * pairs
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def batch_norm_bound_ms(shape, elem_bytes: int, backward: bool = False) -> float:
+    """Least time for a train-mode BatchNorm's forward (x read for the
+    statistics, read again and y written: 3 passes) or backward (x and dy
+    read for the sums, read again and dx written: 5 passes) on an H100; the
+    statistics and parameters are C values."""
+    return 1e3 * math.prod(shape) * elem_bytes * (5 if backward else 3) / HBM_BYTES_PER_S
+
+
+def _batch_norm_plain_backward(x, w, b, g):
+    """The plain version's backward alone: autograd through it, its forward
+    made once."""
+    import torch
+    from dcanet_tpu_torch.kernels import batchnorm
+
+    xr = x.detach().clone().requires_grad_()
+    wr, br = w.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+    y = batchnorm.batch_norm_train_reference(xr, wr, br, torch.zeros_like(w), torch.ones_like(w), 0.1, 1e-5, False)
+    return lambda: torch.autograd.grad(y, (xr, wr, br), g, retain_graph=True)
+
+
+def phase_batch_norm(gen, flush) -> tuple:
+    """The train-mode BatchNorm kernels against their plain version (f32:
+    1e-5 of the largest value; bf16: one bf16 ulp of an f32 reference from
+    the kernels' own statistics, on 1e-5 of the largest value; dgamma and
+    dbeta 1e-4 relative L2 of float64), then each timed shape's forward and
+    backward pair with CUDA events (L2 flushed before each launch) beside
+    their byte bounds, the plain version and F.batch_norm's (`library_ms`),
+    and each kernel's share of the pair from the profiler."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcanet_tpu_torch.kernels import batchnorm
+
+    errs, timing = {}, {}
+    for shape in BN_CHECKED:
+        c, dims = shape[1], len(shape) - 2
+        bshape = [1, -1] + [1] * dims
+        n = math.prod(shape) // c
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.rand(c, generator=gen, device="cuda") + 0.5
+            b = torch.randn(c, generator=gen, device="cuda") * 0.1
+            rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+            y, mean, invstd = batchnorm.batch_norm_train_cuda(x, w, b, rm, rv, 0.1, 1e-5, True)
+            dx, dw, db = batchnorm.batch_norm_train_backward_cuda(g, x, w, mean, invstd)
+            xd = x.double().requires_grad_()
+            w64, b64 = w.double().requires_grad_(), b.double().requires_grad_()
+            y64 = batchnorm.batch_norm_train_reference(xd, w64, b64, rm.double(), rv.double(), 0.1, 1e-5, False)
+            _, dw64, db64 = torch.autograd.grad(y64, (xd, w64, b64), g.double())
+            torch.cuda.synchronize()
+            name = f"{tuple(shape)} {tag}"
+            if dtype == torch.float32:
+                xr = x.clone().requires_grad_()
+                yr = batchnorm.batch_norm_train_reference(xr, w, b, torch.zeros_like(rm), torch.ones_like(rv), 0.1,
+                                                          1e-5, True)
+                dxr, = torch.autograd.grad(yr, (xr,), g)
+                tol = lambda ref: (1e-5 * float(ref.abs().max()), 0.0)  # noqa: E731
+            else:
+                xhat = (x.float() - mean.view(bshape)) * invstd.view(bshape)
+                yr = xhat * w.view(bshape) + b.view(bshape)
+                dxr = (g.float() - db.view(bshape) / n - xhat * (dw.view(bshape) / n)) * (w * invstd).view(bshape)
+                tol = lambda ref: (1e-5 * float(ref.abs().max()), 2.0**-7)  # noqa: E731
+                y, dx = y.float(), dx.float()
+            errs[name] = max(check_close(f"batch norm {name} y", y, yr, *tol(yr)),
+                             check_close(f"batch norm {name} dx", dx, dxr, *tol(dxr)))
+            for part, got, want in (("dgamma", dw, dw64), ("dbeta", db, db64)):
+                err, norm = float((got.double() - want).norm()), float(want.norm())
+                if not err <= 1e-4 * norm:  # dgamma is 0 with one value per channel
+                    raise AssertionError(f"[kernels] batch norm {name} {part}: {err:.3e} from float64, whose norm is "
+                                         f"{norm:.3e} (relative L2 limit 1e-4)")
+            del x, g, y, dx, xd, y64, yr, dxr
+    torch.cuda.empty_cache()
+
+    names = ("bn_stats_kernel", "bn_normalize_kernel", "bn_backward_reduce_kernel", "bn_backward_kernel")
+    for shape_tag, shape in BN_TIMED:
+        c = shape[1]
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w, b = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+            rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+            _, mean, invstd = batchnorm.batch_norm_train_cuda(x, w, b, rm, rv, 0.1, 1e-5, True)
+            fwd = lambda: batchnorm.batch_norm_train_cuda(x, w, b, rm, rv, 0.1, 1e-5, True)  # noqa: E731
+            bwd = lambda: batchnorm.batch_norm_train_backward_cuda(g, x, w, mean, invstd)  # noqa: E731
+            entry = {}
+            for part, fn, plain, library, backward in (
+                ("forward", fwd, lambda: batchnorm.batch_norm_train_reference(x, w, b, rm, rv, 0.1, 1e-5, True),
+                 lambda: F.batch_norm(x, None, None, w, b, True, 0.0, 1e-5), False),
+                ("backward", bwd, _batch_norm_plain_backward(x, w, b, g),
+                 lambda: torch.ops.aten.native_batch_norm_backward(g, x, w, None, None, mean, invstd, True, 1e-5,
+                                                                   [True, True, True]), True)):
+                ms = time_cuda(fn, 20, flush=flush)
+                plain_ms = time_cuda(plain, 5, flush=flush)
+                library_ms = time_cuda(library, 10, flush=flush)
+                bound = batch_norm_bound_ms(shape, x.element_size(), backward)
+                entry[part] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=library_ms)
+                log(f"[kernels] batch norm {part} {shape_tag} {tag} x{tuple(shape)}: kernels {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, F.batch_norm {library_ms:.4f} ms, kernels / F.batch_norm "
+                    f"{ms / library_ms:.3f}, bound {bound:.4f} ms (bytes), {bound / ms:.1%} of bound (cold L2)")
+            # each kernel's own device time (the profiler's), the L2 flushed
+            # before each pair, beside its share of the bytes (stats 1 pass,
+            # normalize 2, backward reduce 2, backward 3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    flush.zero_()
+                    fwd()
+                    flush.zero_()
+                    bwd()
+                torch.cuda.synchronize()
+            per = {k: [] for k in names}
+            for ev in prof.events():
+                for k in names:
+                    if ev.device_type == torch.autograd.DeviceType.CUDA and f"{k}<" in ev.name:
+                        per[k].append((ev.time_range.end - ev.time_range.start) / 1e3)
+            one = batch_norm_bound_ms(shape, x.element_size()) / 3
+            for k, passes in zip(names, (1, 2, 2, 3)):
+                kms = statistics.median(per[k]) if per[k] else float("nan")
+                entry[k] = dict(ms=kms, bound_ms=one * passes)
+                log(f"[kernels] batch norm {k} {shape_tag} {tag}: {kms:.4f} ms, bound {one * passes:.4f} ms, "
+                    f"{one * passes / kms:.1%} of bound (profiler, cold L2)")
+            timing[f"{shape_tag} {tag}"] = entry
+            del x, g
+    torch.cuda.empty_cache()
+    return errs, timing
 
 
 def conv3d_bound_ms(x_shape, co: int, elem_bytes: int, fma: bool = False):
@@ -935,7 +1096,8 @@ def phase_kernels():
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, device="cuda")  # 256 MB > 50 MB L2
-    timing = {"gwc": {}, "gwc_bwd": {}, "gwc_bwd_range": {}, "conv3d": {}}
+    bn_errs, bn_timing = phase_batch_norm(gen, flush)
+    timing = {"gwc": {}, "gwc_bwd": {}, "gwc_bwd_range": {}, "conv3d": {}, "batchnorm": bn_timing}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         left, right = randn(MAIN_SHAPE, dtype), randn(MAIN_SHAPE, dtype)
         ms = time_cuda(lambda: gwc.gwc_volume_cuda(left, right, MAIN_D, MAIN_GROUPS), 20, flush=flush)
@@ -1039,7 +1201,7 @@ def phase_kernels():
             f"{timing['gwc_bwd'][tag]['bound_ms'] / ms:.1%} of bound")
     del flush
     torch.cuda.empty_cache()
-    return dict(gwc=errs, gwc_bwd=bwd_errs, conv3d=conv_errs, conv3d_bwd=bwd_conv_errs), timing
+    return dict(gwc=errs, gwc_bwd=bwd_errs, conv3d=conv_errs, conv3d_bwd=bwd_conv_errs, batchnorm=bn_errs), timing
 
 
 # io phase: the native PNG decoder at KITTI's and MiddEval3's sizes
@@ -1212,7 +1374,9 @@ def profile_call(fn, tag: str, top: int = 6):
         log(f"[profile {tag}] the profiler recorded no device time")
         return None
     launches = sum(e.count for e in kernels)
-    bn = [e for e in kernels if any(k in e.key for k in ("batch_norm", "bn_fw", "bn_bw"))]  # PyTorch's, cuDNN's
+    # PyTorch's, cuDNN's and the port's train-mode kernels (csrc/batchnorm.cu)
+    bn = [e for e in kernels if any(k in e.key for k in ("batch_norm", "bn_fw", "bn_bw", "bn_stats", "bn_normalize",
+                                                          "bn_backward"))]
     bn_ms = sum(e.self_device_time_total for e in bn) / 1e3
     bn_launches = sum(e.count for e in bn)
     log(f"[profile {tag}] kernels {busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled call "
@@ -1288,14 +1452,18 @@ def dtype_record(model, left, right, autocast: bool = True, disparity=None, loss
     warm-up one: the forward a bf16 train step runs, whose backward follows
     its casts (the backward is not recorded). The gwc volume is one entry
     ("gwc_volume", ...): the kernel on the card, its plain version on the
-    CPU. The batch norm kernel is named "batch_norm". Equal records of the
-    CPU and the card mean the two devices ran one plan."""
+    CPU. The batch norm kernel is named "batch_norm"; a train-mode batch
+    norm (`kernels/batchnorm.py::batch_norm_train`: the kernels on the
+    card, the plain version on the CPU) is one such entry, its inputs x,
+    weight, bias and the running statistics. Equal records of the CPU and
+    the card mean the two devices ran one plan."""
     import torch
     from torch.nn.modules import module as nn_module
     from torch.overrides import TorchFunctionMode
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
+    from dcanet_tpu_torch.kernels import batchnorm
     from dcanet_tpu_torch.models import dcanet as dcanet_module
     from dcanet_tpu_torch.train.loop import LossConfig, compute_loss, valid_mask
 
@@ -1322,6 +1490,16 @@ def dtype_record(model, left, right, autocast: bool = True, disparity=None, loss
             return out
 
     gwc_volume = dcanet_module.gwc_volume
+    batch_norm_train = batchnorm.batch_norm_train
+
+    def recorded_batch_norm_train(x, *args):
+        state["skip"] += 1
+        try:
+            out = batch_norm_train(x, *args)
+        finally:
+            state["skip"] -= 1
+        record.append(("batch_norm", stack[-1], dtypes((x, *args[:4])), dtypes(out)[0], torch.is_autocast_enabled(dev)))
+        return out
 
     def recorded_gwc_volume(fl, fr, *args, **kwargs):
         state["skip"] += 1
@@ -1351,11 +1529,13 @@ def dtype_record(model, left, right, autocast: bool = True, disparity=None, loss
     forward()
     hooks = [nn_module.register_module_forward_pre_hook(enter), nn_module.register_module_forward_hook(leave)]
     dcanet_module.gwc_volume = recorded_gwc_volume
+    batchnorm.batch_norm_train = recorded_batch_norm_train
     try:
         with Calls(), Ops():
             forward()
     finally:
         dcanet_module.gwc_volume = gwc_volume
+        batchnorm.batch_norm_train = batch_norm_train
         for h in hooks:
             h.remove()
     return record
@@ -1624,7 +1804,7 @@ def phase_train(workdir: Path):
 
     from dcanet_tpu_torch import cli
     from dcanet_tpu_torch.data.synthetic import write_sceneflow_tree
-    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.kernels import batchnorm, gwc
 
     t0 = time.perf_counter()
     root = write_sceneflow_tree(workdir / "sceneflow", TRAIN_PAIRS, SCENEFLOW_HW, seed=SEED)
@@ -1635,11 +1815,13 @@ def phase_train(workdir: Path):
             "--num-workers", "4", "--device", "cuda"]
 
     gwc.LAUNCHES = gwc.BACKWARD_LAUNCHES = 0
+    batchnorm.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     hist = cli.main(args + ["--epochs", str(TRAIN_EPOCHS)])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     fwd, bwd = gwc.LAUNCHES, gwc.BACKWARD_LAUNCHES
+    bn = check_bn_counts("train", bn_counts())
     steps = len(hist)
     if steps != TRAIN_PAIRS * TRAIN_EPOCHS:
         raise AssertionError(f"[train] {steps} steps, expected {TRAIN_PAIRS * TRAIN_EPOCHS}")
@@ -1652,7 +1834,8 @@ def phase_train(workdir: Path):
         raise AssertionError(f"[train] gwc forward {fwd} / backward {bwd} launches in {steps} steps")
     ms, lo, hi = _median_gap_ms(hist, skip=TRAIN_WARMUP - 1)
     log(f"[train] DCANet(num_cva=3, maxdisp=192) f32, 1x3x256x512 crops: {steps} steps, "
-        f"{fwd} gwc forward and {bwd} gwc backward launches (1 each per step); median {ms:.3f} ms/step "
+        f"{fwd} gwc forward and {bwd} gwc backward launches (1 each per step), BatchNorm kernels {bn['launches']} "
+        f"launches and {bn['plain_calls']} plain calls; median {ms:.3f} ms/step "
         f"over steps {TRAIN_WARMUP}-{steps - 1} (range {lo:.3f}-{hi:.3f}), "
         f"{1e3 / ms:.3f} pairs/s, peak memory {peak / 2**30:.3f} GiB")
 
@@ -1673,7 +1856,7 @@ def phase_train(workdir: Path):
     alone = profile_train_step(root)
     bf16 = train_bf16_leg(workdir)
     memory = train_memory(bf16.pop("root"))
-    return dict(alone=alone, steps=steps, ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, fwd=fwd, bwd=bwd,
+    return dict(alone=alone, steps=steps, ms=ms, pairs_per_s=1e3 / ms, peak_bytes=peak, fwd=fwd, bwd=bwd, bn=bn,
                 resumed_fwd=resumed_fwd, resumed_bwd=resumed_bwd, infer=infer_launches, bf16=bf16, memory=memory)
 
 
@@ -1688,7 +1871,7 @@ def train_bf16_leg(workdir: Path) -> dict:
 
     from dcanet_tpu_torch import cli
     from dcanet_tpu_torch.data.synthetic import write_procedural_sceneflow_tree
-    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.kernels import batchnorm, gwc
 
     t0 = time.perf_counter()
     root = write_procedural_sceneflow_tree(workdir / "procedural", BF16_TRAIN_SCENES, 0, PROCEDURAL_HW, seed=SEED)
@@ -1698,11 +1881,13 @@ def train_bf16_leg(workdir: Path) -> dict:
             "--batch-size", str(BF16_TRAIN_BATCH), "--dtype", "bfloat16", "--seed", str(SEED), "--print-freq", "1",
             "--num-workers", "4", "--epochs", "1", "--device", "cuda"]
     gwc.reset_launch_counts()
+    batchnorm.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     hist = cli.main(args)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     fwd, bwd = dict(gwc.LAUNCHES_BY_DTYPE), dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE)
+    bn = check_bn_counts("train bf16", bn_counts())
     steps = len(hist)
     if steps != BF16_TRAIN_SCENES // BF16_TRAIN_BATCH:
         raise AssertionError(f"[train bf16] {steps} steps, expected {BF16_TRAIN_SCENES // BF16_TRAIN_BATCH}")
@@ -1715,11 +1900,12 @@ def train_bf16_leg(workdir: Path) -> dict:
         raise AssertionError(f"[train bf16] gwc launches by dtype: forward {fwd}, backward {bwd} in {steps} steps")
     ms, lo, hi = _median_gap_ms(hist, skip=TRAIN_WARMUP - 1)
     log(f"[train bf16] cli train --dtype bfloat16 --batch-size {BF16_TRAIN_BATCH}, DCANet(num_cva=3, maxdisp=192), "
-        f"{BF16_TRAIN_BATCH}x3x256x512 crops: {steps} steps, gwc launches forward {fwd}, backward {bwd}; median "
+        f"{BF16_TRAIN_BATCH}x3x256x512 crops: {steps} steps, gwc launches forward {fwd}, backward {bwd}, BatchNorm "
+        f"kernels {bn['launches']} launches and {bn['plain_calls']} plain calls; median "
         f"{ms:.3f} ms/step over steps {TRAIN_WARMUP}-{steps - 1} (range {lo:.3f}-{hi:.3f}), "
         f"{1e3 * BF16_TRAIN_BATCH / ms:.3f} pairs/s, peak memory {peak / 2**30:.4f} GiB")
     return dict(root=root, steps=steps, ms=ms, pairs_per_s=1e3 * BF16_TRAIN_BATCH / ms, peak_bytes=peak,
-                fwd=fwd, bwd=bwd)
+                fwd=fwd, bwd=bwd, bn=bn)
 
 
 def memory_at_peak(fn, top: int = 6) -> dict:
@@ -3309,7 +3495,8 @@ def _train_run(runs: list, logdir: str = None, last: list = None) -> dict:
     """`cli train` with each argument list of `runs` in turn, in this
     process: the records of each run (`hists`), the gwc launches of all
     (the counts set to 0 before, read after: forward, backward and the
-    range backward's, and the first two by dtype), the planes of each
+    range backward's, and the first two by dtype), the train-mode
+    BatchNorm kernels' launches and plain calls (`bn`), the planes of each
     forward and backward launch, the peak device memory above what the
     process held before, the final state's digest and, with `logdir`, the
     paths written under it; `last`, where given, receives the last step's
@@ -3317,7 +3504,7 @@ def _train_run(runs: list, logdir: str = None, last: list = None) -> dict:
     import torch
 
     from dcanet_tpu_torch import cli
-    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.kernels import batchnorm, gwc
     from dcanet_tpu_torch.train import loop
 
     fwd_planes, bwd_planes, steps = [], [], [None]
@@ -3341,11 +3528,13 @@ def _train_run(runs: list, logdir: str = None, last: list = None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     gwc.reset_launch_counts()
+    batchnorm.reset_launch_counts()
     try:
         with writes_under(logdir, []) if logdir else contextlib.nullcontext([]) as written:
             hists = [cli.main(args) for args in runs]
         launches = dict(fwd=gwc.LAUNCHES, bwd=gwc.BACKWARD_LAUNCHES, range_bwd=gwc.RANGE_BACKWARD_LAUNCHES,
-                        fwd_by_dtype=dict(gwc.LAUNCHES_BY_DTYPE), bwd_by_dtype=dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE))
+                        fwd_by_dtype=dict(gwc.LAUNCHES_BY_DTYPE), bwd_by_dtype=dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE),
+                        bn=bn_counts())
     finally:
         gwc.gwc_volume_cuda, gwc.gwc_volume_backward_cuda, loop.train_step = kernel, backward, real_step
     torch.cuda.synchronize()
@@ -3404,6 +3593,7 @@ def phase_disp_train(workdir: Path) -> dict:
     torch.save(batch, batch_path)
 
     one_run = _train_run(_disp_train_args(str(root), 1, str(workdir / "disp_train_one")))
+    check_bn_counts("disp_train one process", one_run["bn"])
     one, one64 = _parity_step(batch), _parity_step_f64(batch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3451,8 +3641,10 @@ def phase_disp_train(workdir: Path) -> dict:
     log(f"[disp_train] cli train --n-disp-shards {DISP_TRAIN_WORLD} (gloo, one card), DCANet(num_cva=3, "
         f"maxdisp=192) f32, batch 1x3x256x512: {steps} steps per rank, gwc forward / backward launches per rank "
         f"{[(r['fwd'], r['range_bwd']) for r in ranks]} of {half} planes each (one process {one_run['fwd']} / "
-        f"{one_run['bwd']} of {MAIN_D}); rank 0 median {ms2[0]:.3f} ms/step (range {ms2[1]:.3f}-{ms2[2]:.3f}), "
-        f"one process {ms1[0]:.3f} ({ms1[1]:.3f}-{ms1[2]:.3f}) (host clock between metric reads, steps 1-"
+        f"{one_run['bwd']} of {MAIN_D}, BatchNorm kernels {one_run['bn']['launches']} launches and "
+        f"{one_run['bn']['plain_calls']} plain calls); rank 0 median {ms2[0]:.3f} ms/step (range "
+        f"{ms2[1]:.3f}-{ms2[2]:.3f}), one process {ms1[0]:.3f} ({ms1[1]:.3f}-{ms1[2]:.3f}) (host clock between "
+        f"metric reads, steps 1-"
         f"{DISP_TRAIN_PAIRS * DISP_TRAIN_EPOCHS - 1} of the first run); peak memory per rank "
         f"{[round(p / 2**30, 4) for p in peaks]} GiB, one process {one_run['peak_bytes'] / 2**30:.4f} GiB "
         f"({max(peaks) / one_run['peak_bytes']:.1%}); the ranks bit-equal at the end; rank 1 wrote nothing; "
@@ -3464,7 +3656,8 @@ def phase_disp_train(workdir: Path) -> dict:
         f"{PARALLEL_WARMUP} warm-ups): one process {step1:.3f} ms, 2 disp ranks time-sharing the card {step2:.3f} ms")
     log(f"[disp_train] card: {gpu_line()}; the phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(steps=steps, launches=[(r["fwd"], r["range_bwd"]) for r in ranks],
-                one_launches=(one_run["fwd"], one_run["bwd"]), ms_per_step=ms2[0], one_ms_per_step=ms1[0],
+                one_launches=(one_run["fwd"], one_run["bwd"]), one_bn=one_run["bn"], ms_per_step=ms2[0],
+                one_ms_per_step=ms1[0],
                 peak_bytes=peaks, one_peak_bytes=one_run["peak_bytes"], parity=held,
                 step_ms={"one_process_batch2": step1, "two_disp_ranks": step2}, workers_s=wall)
 
@@ -4136,7 +4329,7 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
 
     from dcanet_tpu_torch import cli
     from dcanet_tpu_torch.config import preset
-    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.kernels import batchnorm, gwc
     from dcanet_tpu_torch.train.checkpoint import CheckpointManager
 
     t_phase = time.perf_counter()
@@ -4159,6 +4352,7 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
                      print_freq=1, num_workers=8, seed=SEED, remat=remat)
         first = []
         gwc.reset_launch_counts()
+        batchnorm.reset_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with first_step_probe(first):
@@ -4166,6 +4360,7 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         fwd, bwd = dict(gwc.LAUNCHES_BY_DTYPE), dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE)
+        bn = check_bn_counts(f"kitti {tag}", bn_counts())
         steps = len(hist)
         for rec in hist:
             log(f"[kitti] {tag}, step {rec['step']}: " + ", ".join(f"{k} {rec[k]:.4f}" for k in keys))
@@ -4184,11 +4379,12 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
             raise AssertionError(f"[kitti] {tag}: checkpoints {ckpts}, expected one per epoch")
         ms, lo, hi = _median_gap_ms(hist, skip=TRAIN_WARMUP - 1)
         runs[tag] = dict(steps=steps, ms=ms, ms_range=[lo, hi],
-                         pairs_per_s=1e3 * KITTI_BATCH / ms, peak_bytes=peak, fwd=fwd, bwd=bwd,
+                         pairs_per_s=1e3 * KITTI_BATCH / ms, peak_bytes=peak, fwd=fwd, bwd=bwd, bn=bn,
                          first_loss=hist[0]["total"], last_loss=hist[-1]["total"])
         log(f"[kitti] cmd_train --preset kitti --batch-size {KITTI_BATCH} --dtype bfloat16{' --remat' if remat else ''}"
             f" --loadckpt (the export, bit-equal at step 0; fresh Adam, lr {start['lr']}), {KITTI_BATCH}x3x256x512 crops"
-            f" of kitti_mix: {steps} steps, gwc launches forward {fwd}, backward {bwd}; median {ms:.3f} ms/step over "
+            f" of kitti_mix: {steps} steps, gwc launches forward {fwd}, backward {bwd}, BatchNorm kernels "
+            f"{bn['launches']} launches and {bn['plain_calls']} plain calls; median {ms:.3f} ms/step over "
             f"steps {TRAIN_WARMUP}-{steps - 1} (range {lo:.3f}-{hi:.3f}), "
             f"{1e3 * KITTI_BATCH / ms:.3f} pairs/s, peak memory {peak / 2**30:.4f} GiB; checkpoints {ckpts}")
     plain, rem = runs["no remat"], runs["remat"]
@@ -4214,6 +4410,7 @@ def phase_kitti(workdir: Path, pretrain_logdir) -> dict:
         f"launches {eval_fwd}")
     launches = dict(train_fwd=plain["fwd"]["bfloat16"] + rem["fwd"]["bfloat16"],
                     train_bwd=plain["bwd"]["bfloat16"] + rem["bwd"]["bfloat16"], eval=eval_fwd["bfloat16"],
+                    train_bn={k: plain["bn"][k] + rem["bn"][k] for k in plain["bn"]},
                     leg_fwd=sum(f for f, _ in leg["launches"]), leg_bwd=sum(b for _, b in leg["launches"]))
     seconds = time.perf_counter() - t_phase
     log(f"[kitti] the phase took {seconds:.1f} s")
@@ -4305,9 +4502,10 @@ def _benchmark_train_run(tag: str, cfg, scenes: int) -> dict:
 
     from dcanet_tpu_torch import cli
     from dcanet_tpu_torch.data.datasets import PRESETS
-    from dcanet_tpu_torch.kernels import gwc
+    from dcanet_tpu_torch.kernels import batchnorm, gwc
 
     gwc.reset_launch_counts()
+    batchnorm.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with train_waits() as waits:
@@ -4315,6 +4513,7 @@ def _benchmark_train_run(tag: str, cfg, scenes: int) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     fwd, bwd = dict(gwc.LAUNCHES_BY_DTYPE), dict(gwc.BACKWARD_LAUNCHES_BY_DTYPE)
+    bn = check_bn_counts(f"middlebury {tag}", bn_counts())
     steps, keys = len(hist), ("total", "smooth_l1", "grad_norm", "epe")
     for rec in hist:
         log(f"[middlebury] {tag}, step {rec['step']}: " + ", ".join(f"{k} {rec[k]:.4f}" for k in keys))
@@ -4343,7 +4542,8 @@ def _benchmark_train_run(tag: str, cfg, scenes: int) -> dict:
     crop = "x".join(map(str, PRESETS[cfg.dataset]["crop"]))
     log(f"[middlebury] cmd_train --preset {cfg.dataset} --dtype {cfg.dtype} (maxdisp {cfg.maxdisp}, half_res "
         f"{cfg.half_res}, {cfg.batch_size}x3x{crop} crops, {scenes} scenes): {steps} steps, gwc launches forward "
-        f"{fwd}, backward {bwd}; over steps {TRAIN_WARMUP}-{steps - 1}: steady median {ms:.3f} ms/step over "
+        f"{fwd}, backward {bwd}, BatchNorm kernels {bn['launches']} launches and {bn['plain_calls']} plain calls; "
+        f"over steps {TRAIN_WARMUP}-{steps - 1}: steady median {ms:.3f} ms/step over "
         f"{len(steady)} intervals inside an epoch (range {min(steady):.3f}-{max(steady):.3f}), mean "
         f"{mean_ms:.3f} over all {len(step_ms)} (epoch starts in), {1e3 * cfg.batch_size / ms:.3f} / "
         f"{1e3 * cfg.batch_size / mean_ms:.3f} pairs/s; peak memory {peak / 2**30:.4f} GiB; checkpoints {ckpts}; "
@@ -4360,7 +4560,7 @@ def _benchmark_train_run(tag: str, cfg, scenes: int) -> dict:
                 pairs_per_s=1e3 * cfg.batch_size / ms, pairs_per_s_mean=1e3 * cfg.batch_size / mean_ms,
                 epoch_starts=starts, loader_waits_ms=[[1e3 * w for w in p] for p in waits["loader"]],
                 loader_end_ms=[1e3 * w for w in waits["loader_end"]],
-                peak_bytes=peak, fwd=fwd, bwd=bwd, first_loss=hist[0]["total"], last_loss=hist[-1]["total"])
+                peak_bytes=peak, fwd=fwd, bwd=bwd, bn=bn, first_loss=hist[0]["total"], last_loss=hist[-1]["total"])
 
 
 def phase_middlebury(workdir: Path) -> dict:
@@ -4493,6 +4693,9 @@ def phase_middlebury(workdir: Path) -> dict:
                                                                            ("middlebury bf16", "bfloat16"))),
                     middlebury_train_bwd=sum(runs[t]["bwd"][d] for t, d in (("middlebury f32", "float32"),
                                                                            ("middlebury bf16", "bfloat16"))),
+                    middlebury_train_bn={k: runs["middlebury f32"]["bn"][k] + runs["middlebury bf16"]["bn"][k]
+                                         for k in runs["middlebury f32"]["bn"]},
+                    eth3d_train_bn=runs["eth3d bf16"]["bn"],
                     eth3d_train_fwd=runs["eth3d bf16"]["fwd"]["bfloat16"],
                     eth3d_train_bwd=runs["eth3d bf16"]["bwd"]["bfloat16"], middlebury_eval=eval_launches,
                     leg_fwd=[f for f, _ in leg["launches"]], leg_range_bwd=[b for _, b in leg["launches"]])
@@ -4745,6 +4948,12 @@ def main(argv=None) -> int:
         return 0
 
     gwc_t, bwd_t, range_t = timing["gwc"], timing["gwc_bwd"], timing["gwc_bwd_range"]
+    # each one-process train path's train-mode BatchNorm counts, set to 0
+    # just before it ran
+    bn_by_path = {"train": train["bn"], "train_bf16": train["bf16"]["bn"], "kitti_train": kitti["launches"]["train_bn"],
+                  "middlebury_train": middlebury["launches"]["middlebury_train_bn"],
+                  "eth3d_train": middlebury["launches"]["eth3d_train_bn"],
+                  "disp_train_one_process": disp_train["one_bn"]}
     eval_launches = evaluation["launches"]["f32"] + evaluation["launches"]["bf16"]
     conv_t = timing["conv3d"]
     kernels = [
@@ -4881,6 +5090,19 @@ def main(argv=None) -> int:
             shape={"x": list(CONV_SHAPE), "out_channels": 32},
             **{"64->32": {"x": list(CONV_SHAPE_64), "max_abs_err": errs["conv3d"]["64->32 bf16"],
                           **conv_t["64->32 bf16"]}},
+        ),
+        # train-mode BatchNorm: replaces no TPU kernel (XLA's BatchNorm there);
+        # the launches of each train path (two a forward, two a backward),
+        # and its calls of the plain version (0 on each)
+        kernel_entry(
+            "batch_norm_train", "dcanet_tpu_torch/csrc/batchnorm.cu", None,
+            sum(c["launches"] for c in bn_by_path.values()), {k: c["launches"] for k, c in bn_by_path.items()},
+            errs["batchnorm"][f"{BN_TIMED[0][1]} f32"], timing["batchnorm"]["3d f32"]["forward"],
+            plain_calls_by_path={k: c["plain_calls"] for k, c in bn_by_path.items()},
+            dtype="float32", shape={"x": list(BN_TIMED[0][1])},
+            **{f"{shape_tag} {tag}": {"x": list(shape), "max_abs_err": errs["batchnorm"][f"{shape} {tag}"],
+                                      **timing["batchnorm"][f"{shape_tag} {tag}"]}
+               for shape_tag, shape in BN_TIMED for tag in ("f32", "bf16")},
         ),
     ]
     log("[train] summary: " + json.dumps({k: train[k] for k in ("ms", "pairs_per_s", "peak_bytes", "alone", "bf16")}

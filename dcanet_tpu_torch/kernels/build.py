@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("gwc", "conv3d")  # csrc/<name>.cu, built by nvcc
+KERNELS = ("gwc", "conv3d", "batchnorm")  # csrc/<name>.cu, built by nvcc
 HOST_LIBRARIES = ("stereoio",)  # csrc/<name>.cpp, built by the host compiler
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from dcanet_tpu_torch.kernels import batchnorm
 from dcanet_tpu_torch.ops.precision import at_least_f32, in_model_dtype
 from dcanet_tpu_torch.parallel import distributed
 from dcanet_tpu_torch.utils import profiling
@@ -61,30 +62,23 @@ class _FlaxStatistics:
     torch's BatchNorm would use the unbiased one (x N/(N-1)). Eval mode is
     torch's, on the running statistics.
 
-    With a process group of more than one rank the statistics are those of
-    the global batch (`_global_batch_forward`), as the JAX package's are
-    under its data-parallel mesh."""
+    In one process the train mode is `kernels/batchnorm.py::batch_norm_train`:
+    the CUDA kernels for an f32 or bf16 CUDA input, the plain version for
+    the rest. With a process group of more than one rank the statistics are
+    those of the global batch (`_global_batch_forward`), as the JAX
+    package's are under its data-parallel mesh."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
-        dims = [0] + list(range(2, x.dim()))
         if distributed.process_count() > 1:
             return self._global_batch_forward(x)
-        if x.numel() == x.shape[1]:
-            # one value per channel, which F.batch_norm refuses: flax's
-            # variance is 0 and the output the bias (a 1x1 pooled map, batch 1)
-            var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
-            shape = [1, -1] + [1] * (x.dim() - 2)
-            y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight.view(shape) + self.bias.view(shape)
-        else:
-            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        if getattr(_FROZEN, "depth", 0) == 0:
+        update = getattr(_FROZEN, "depth", 0) == 0
+        y = batchnorm.batch_norm_train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                       self.momentum, self.eps, update)
+        if update:
             with torch.no_grad():
-                var, mean = torch.var_mean(at_least_f32(x.detach()), dim=dims, correction=0)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
                 self.num_batches_tracked.add_(1)
         return y
 

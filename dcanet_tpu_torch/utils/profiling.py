@@ -65,6 +65,10 @@ Counters, read where the work counts them, by `counters()`; set to 0 by
                                 took from device_prefetch and the host
                                 seconds it waited for them
   gwc.*, conv3d.*               the kernels' launch counts
+  bn.launches, bn.plain_calls   kernels/batchnorm.py: the train-mode
+                                BatchNorm kernels' launches (two a forward,
+                                two a backward), and the calls that took
+                                the plain version (CPU tensors, float64)
 """
 
 from __future__ import annotations
@@ -355,6 +359,8 @@ _COUNTERS = (
     ("gwc.backward_launches_by_dtype", "dcanet_tpu_torch.kernels.gwc", "BACKWARD_LAUNCHES_BY_DTYPE"),
     ("conv3d.launches", "dcanet_tpu_torch.kernels.conv3d", "LAUNCHES"),
     ("conv3d.bf16_launches", "dcanet_tpu_torch.kernels.conv3d", "BF16_LAUNCHES"),
+    ("bn.launches", "dcanet_tpu_torch.kernels.batchnorm", "LAUNCHES"),
+    ("bn.plain_calls", "dcanet_tpu_torch.kernels.batchnorm", "PLAIN_CALLS"),
 )
 
 

@@ -99,8 +99,9 @@ TRAIN_SITES = (
     ("", "aten._softmax.default", (F32,), F32),
     ("", "aten._log_softmax.default", (F32,), F32),
     ("prop", "aten._softmax.default", (F32,), F32),
-    ("dres0.0.1", "batch_norm", (BF16, F32, F32), BF16),
-    ("dres0.0.1", "aten.var_mean.correction", (F32,), F32),
+    # train-mode BatchNorm, one entry (`dtype_record`): x, weight, bias and
+    # the running statistics in, the model's dtype out
+    ("dres0.0.1", "batch_norm", (BF16, F32, F32, F32, F32), BF16),
 )
 
 
