@@ -9,12 +9,13 @@ client cycles through a pool of distinct pairs made from the seed.
 
 Set-up: the pool, the seeded weights (their BatchNorm statistics set by the
 reference over the pool's first pair), the model built on the device with
-them (its widths checked against the configuration file's), and two
-requests that warm the cell's one shape. The window then runs for
-`seconds`; no request starts after it. A traced run hooks spans around the
-model for the whole window, then profiles `trace_requests` more requests.
-After the window, with the program freed, the reference computes every
-pool pair once and the kept answers are held against it.
+them and the configuration file's `program` settings (its widths and
+settings checked against the file's), and two requests that warm the
+cell's one shape. The window then runs for `seconds`; no request starts
+after it. A traced run hooks spans around the model for the whole window,
+then profiles `trace_requests` more requests. After the window, with the
+program freed, the reference computes every pool pair once and the kept
+answers are held against it.
 
 The window's rate and tail are reported as `<prefix>_pairs_per_s` and
 `<prefix>_ms_p95`, the prefix the mix's `metric_prefix` (default `serve`):
@@ -88,7 +89,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda", t_st
         torch.cuda.reset_peak_memory_stats(dev)
     log("weights made")
     with torch.device("meta"):
-        model = make_model(config["model"], maxdisp=config["maxdisp"])
+        model = make_model(config["model"], maxdisp=config["maxdisp"], **config.get("program", {}))
     model = load_into_program(model.to_empty(device=dev), state, config)
     model.eval()
     if not bf16:

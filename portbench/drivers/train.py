@@ -30,6 +30,16 @@ from portbench.reference import stereo
 from portbench.reference import train as reference_train
 
 
+def _refuse_new_architecture(config: dict) -> None:
+    """Only serving cells take a configuration with its own reference module
+    or program settings: the loss and the step here (reference/train.py)
+    read DCANet's train outputs."""
+    for key in ("reference", "program"):
+        if key in config:
+            raise ValueError(f"the configuration states {key!r}: a train cell of a new architecture first needs "
+                             f"its loss contract (portbench/reference/train.py reads DCANet's train outputs)")
+
+
 def _layout(config: dict):
     with torch.device("meta"):
         return stereo.from_config(config)
@@ -44,6 +54,7 @@ def program_run(cell, seed: int, seconds: float, trace: bool, device: str = "cud
     from dcanet_tpu_torch.train import loop
 
     config, traffic = cell.config, cell.traffic
+    _refuse_new_architecture(config)
     t0 = time.perf_counter()
     log = lambda what: print(f"portbench: {what} at +{time.perf_counter() - t0:.3f} s", file=sys.stderr)  # noqa: E731
     dev = initialize(None, 1, 0, device=torch.device(device))
@@ -103,6 +114,7 @@ def reference_steps(config: dict, traffic: dict, seed: int, device, fp8: bool = 
     `fp8` and `half_batch` make the check's control and a fault, `amp` (a
     dtype under autocast) a witness at the program's precision for
     portbench/calibrate.py."""
+    _refuse_new_architecture(config)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     net = stereo.set_fp8(stereo.from_config(config), fp8).to(device)

@@ -2,14 +2,16 @@
 
 Every floating leaf of the reference network's state_dict is cut from one
 normal draw of a `torch.Generator` on the device, then scaled by its kind:
-convolution kernels normal(0, sqrt(2 / fan_in)) (He's init: a ReLU layer
-keeps its input's scale; a transposed convolution of stride s reaches each
-output from kernel points / s of its inputs), convolution biases,
-BatchNorm scales and shifts and running means at 0.05 around 1 or 0,
-running variances 1 + 0.1 |z|. The published init scales by fan_out
-instead, which leaves the 1-channel cost heads' logits about five times as
-wide and their softmax over D near one-hot: a served disparity then jumps
-between distant planes on rounding, in the reference as in the program.
+convolution kernels and linear weights normal(0, sqrt(2 / fan_in)) (He's
+init: a ReLU layer keeps its input's scale; a transposed convolution of
+stride s reaches each output from kernel points / s of its inputs), their
+biases, the scales and shifts of BatchNorm, InstanceNorm, GroupNorm and
+LayerNorm and the running means at 0.05 around 1 or 0, running variances
+1 + 0.1 |z|; a leaf of another kind has no rule and is refused. The
+published init scales by fan_out instead, which leaves the 1-channel cost
+heads' logits about five times as wide and their softmax over D near
+one-hot: a served disparity then jumps between distant planes on
+rounding, in the reference as in the program.
 The same seed gives the same weights to the program and to the reference,
 which both load them. `serving_weights` then sets the BatchNorm running
 statistics from the reference on a pair (lib/inputs.py), as a trained
@@ -29,7 +31,8 @@ from portbench.reference import stereo
 
 _CONVS = (nn.Conv1d, nn.Conv2d, nn.Conv3d)
 _DECONVS = (nn.ConvTranspose1d, nn.ConvTranspose2d, nn.ConvTranspose3d)
-_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d)
+_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.InstanceNorm1d, nn.InstanceNorm2d, nn.InstanceNorm3d,
+          nn.GroupNorm, nn.LayerNorm)
 BRANCH_SCALE = 0.2  # the scale of a BatchNorm that ends a residual branch
 
 
@@ -47,6 +50,9 @@ def _leaf_rules(model: nn.Module) -> Dict[str, tuple]:
             rules[p + "weight"] = (math.sqrt(2.0 / fan_in), 0.0, False)
             if m.bias is not None:
                 rules[p + "bias"] = (0.05, 0.0, False)
+        elif isinstance(m, nn.Linear):
+            rules[p + "weight"] = (math.sqrt(2.0 / m.in_features), 0.0, False)
+            rules[p + "bias"] = (0.05, 0.0, False)
         elif isinstance(m, _NORMS):
             scale = BRANCH_SCALE if getattr(m, "ends_branch", False) else 1.0
             rules[p + "weight"] = (0.05 * scale, scale, False)
@@ -94,11 +100,13 @@ def load_into_program(model: nn.Module, state: Dict[str, torch.Tensor], config: 
     """`state` into the program's model, strictly. The weights were drawn for
     the reference built from the configuration file's widths
     (`stereo.from_config`), so every parameter's shape holds the program to
-    them; the widths no parameter shows are read off the model. A program
-    that runs other widths than the file states is refused."""
+    them; the widths no parameter shows, and each of the file's `program`
+    settings, are read off the model, attribute by attribute. A program that
+    runs other widths or settings than the file states is refused."""
     model.load_state_dict(state, strict=True)
-    for key in ("maxdisp", "num_groups", "num_cva"):
-        if key in config and getattr(model, key, None) != config[key]:
+    stated = [(key, config[key]) for key in ("maxdisp", "num_groups", "num_cva") if key in config]
+    for key, value in stated + list(config.get("program", {}).items()):
+        if getattr(model, key, None) != value:
             raise ValueError(f"the program's {key} is {getattr(model, key, None)!r}; "
-                             f"the configuration states {config[key]!r}")
+                             f"the configuration states {value!r}")
     return model

@@ -28,6 +28,11 @@ Layouts: images (B, 3, H, W), volumes (B, C, D, H, W), disparities
 
 from __future__ import annotations
 
+import functools
+import importlib
+import inspect
+import json
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -75,6 +80,12 @@ class Conv2d(_Q, nn.Conv2d):
 class Conv3d(_Q, nn.Conv3d):
     def forward(self, x):
         return self.qg(self._conv_forward(self.q(x), self.q(self.weight), self.bias))
+
+
+class ConvTranspose2d(_Q, nn.ConvTranspose2d):
+    def forward(self, x):
+        return self.qg(F.conv_transpose2d(self.q(x), self.q(self.weight), self.bias, self.stride, self.padding,
+                                          self.output_padding, self.groups, self.dilation))
 
 
 class ConvTranspose3d(_Q, nn.ConvTranspose3d):
@@ -516,9 +527,96 @@ WIDTH_ARGS = {"num_cva": "num_cva", "num_groups": "groups", "concat_channels": "
 def from_config(config: dict) -> nn.Module:
     """The reference network of a configuration file (portbench/configs/),
     built with every width the file states; a file that states a width the
-    reference fixes otherwise is refused."""
+    reference fixes otherwise is refused. A file that names a reference
+    module (`"reference": "<module>"`) gets that module's network, once the
+    module has kept its contract (`named_reference`)."""
+    if "reference" in config:
+        return named_reference(config)
     for key, width in FIXED_WIDTHS.items():
         if key in config and config[key] != width:
             raise ValueError(f"the configuration states {key} = {config[key]!r}; the reference has {width}")
     kw = {arg: config[key] for key, arg in WIDTH_ARGS.items() if key in config}
     return build(config["arch"], maxdisp=config["maxdisp"], **kw)
+
+
+# ---- a configuration's own reference module ----
+
+# keys of a configuration file that the harness reads and no reference builds from
+HARNESS_KEYS = {"name", "source", "arch", "model", "reference", "program", "maxdisp", "assumed", "layers"}
+# the convolutions and BatchNorms that the control (`set_fp8`, TF32) and `calibrate_bn_` reach
+KINDS = (Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d, BatchNorm2d, BatchNorm3d)
+_CONV_OR_BN = (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose1d, nn.ConvTranspose2d, nn.ConvTranspose3d,
+               nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.SyncBatchNorm)
+PROBE_SHAPE = (2, 3, 64, 128)  # the pair of the contract's eval forward, on the meta device
+
+
+def forbidden() -> set:
+    """What no reference module may import: what no run may load
+    (portbench/run.py), and the port."""
+    from portbench.run import FORBIDDEN
+
+    return set(FORBIDDEN) | {"dcanet_tpu_torch"}
+
+
+def named_reference(config: dict) -> nn.Module:
+    """The network of the module portbench/reference/<config["reference"]>.py,
+    built by its `from_config(config)`. The module's contract, each breach
+    refused with a ValueError that names it:
+      - it binds nothing of the port, of the JAX package or of JAX: no module
+        and no function or class (imports inside its functions are the
+        harness's tests' and each run's own check's to see);
+      - it declares `WIDTHS`, the configuration keys it builds from, and may
+        declare `FIXED_WIDTHS`, {key: the width its structure fixes}; a file
+        that states another key than the harness's own and those, or a fixed
+        width at another value, is refused before the module is called;
+      - every convolution, transposed convolution and BatchNorm of its
+        network is one of this module's own kinds (`KINDS`), which the
+        control and `calibrate_bn_` reach;
+      - its eval forward of a pair (B, 3, H, W) returns (disparity (B, H, W),
+        extras), as the serving driver reads it (run once on the meta device
+        at `PROBE_SHAPE`).
+    The contract is checked once a process for each module and file."""
+    name = config["reference"]
+    if not isinstance(name, str) or not name.isidentifier() or name == __name__.rsplit(".", 1)[-1]:
+        raise ValueError(f"the configuration's reference {name!r} names no module of portbench/reference/ "
+                         f"other than this one")
+    module = importlib.import_module(f"{__package__}.{name}")
+    _check_contract(name, json.dumps(config, sort_keys=True))
+    return module.from_config(config)
+
+
+@functools.cache
+def _check_contract(name: str, config_json: str) -> None:
+    module, config = importlib.import_module(f"{__package__}.{name}"), json.loads(config_json)
+    owners = (v.__name__ if inspect.ismodule(v) else getattr(v, "__module__", None) for v in vars(module).values())
+    found = {owner.split(".")[0] for owner in owners if isinstance(owner, str)} & forbidden()
+    if found:
+        raise ValueError(f"the reference module {name} imports {sorted(found)}")
+    if not callable(getattr(module, "from_config", None)) or not hasattr(module, "WIDTHS"):
+        raise ValueError(f"the reference module {name} defines no from_config(config) or no WIDTHS")
+    fixed = getattr(module, "FIXED_WIDTHS", {})
+    for key in sorted(set(config) - HARNESS_KEYS):
+        if key not in module.WIDTHS and key not in fixed:
+            raise ValueError(f"the configuration states {key} = {config[key]!r}, which the reference module "
+                             f"{name} does not build")
+        if key in fixed and config[key] != fixed[key]:
+            raise ValueError(f"the configuration states {key} = {config[key]!r}; the reference module {name} "
+                             f"has {fixed[key]}")
+    with torch.device("meta"):
+        probe = module.from_config(config)
+        left, right = torch.empty(PROBE_SHAPE), torch.empty(PROBE_SHAPE)
+    other = [f"{n} ({type(m).__name__})" for n, m in probe.named_modules()
+             if isinstance(m, _CONV_OR_BN) and type(m) not in KINDS]
+    if other:
+        raise ValueError(f"the reference module {name} builds convolutions or BatchNorms of other kinds than "
+                         f"stereo.KINDS: {other[:5]}")
+    probe.eval()
+    with torch.no_grad():
+        out = probe(left, right)
+    b, _, h, w = PROBE_SHAPE
+    if not (isinstance(out, (tuple, list)) and len(out) == 2 and isinstance(out[0], torch.Tensor)
+            and tuple(out[0].shape) == (b, h, w)):
+        kind = lambda x: tuple(x.shape) if isinstance(x, torch.Tensor) else type(x).__name__  # noqa: E731
+        got = [kind(x) for x in out] if isinstance(out, (tuple, list)) else kind(out)
+        raise ValueError(f"the reference module {name}'s eval forward of {PROBE_SHAPE} pairs returns {got!r}, "
+                         f"not (disparity {(b, h, w)}, extras)")
